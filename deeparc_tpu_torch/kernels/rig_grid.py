@@ -1,0 +1,703 @@
+"""Fused grid-engine linearization and cost pass: CUDA kernels for Hopper,
+their plain PyTorch versions, and the host helpers that pack their inputs.
+
+PyTorch port of ``deeparc_tpu/kernels/rig_pallas.py``. Four wrappers keep
+the reference's public names, signatures and returns:
+
+  linearize_grid_banded  -> (cost, g_p, hpp, g_slots, hcc_slots, E_native)
+  cost_grid_banded       -> cost
+  linearize_grid         -> (cost, g_p, hpp, g_slots, hcc_slots, E_native)
+  cost_grid              -> cost
+
+A wrapper given CUDA tensors launches the hand-written kernel
+(``csrc/rig_grid.cu``) and raises if it cannot; given CPU tensors it runs
+the plain PyTorch version (``*_plain``), which the tests hold against the
+JAX reference. Each wrapper counts its kernel launches in a plain ``int``
+attribute, ``launches``.
+
+The monolithic pair is the banded pair with every tile's band starting at
+cell 0, one group of width t_pad and no cyclic extension, so one linearize
+kernel and one cost kernel serve all four.
+
+Inputs are laid out as in the reference: cells of a tile's band in rows,
+points in columns. ``pxm`` stacks [xy0; xy1; mask] per width group as
+(3, w, g_tiles * block_np); the (t_ext, 78) slot table holds per-cell
+camera values (``pack_slot_tables``). E comes back in the kernel's NATIVE
+column order (per point coordinate: six R-wide extrinsic groups, then six
+K-wide intrinsic groups unless the intrinsics are frozen);
+:func:`native_of_flat` / :func:`flat_of_native` permute C-sized vectors to
+and from the flat camera order, never E itself.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# slot-table columns (csrc/rig_slot.cuh holds the same constants)
+_RI, _RO, _ROI, _JRO, _JRI = 0, 9, 18, 27, 36
+_TI, _TO, _CX, _CY, _FX, _FY = 45, 48, 51, 52, 53, 54
+_D0, _D1, _FSH, _M1, _M2 = 55, 56, 57, 58, 59
+_FRO, _FRI, _FRK = 60, 66, 72
+SP_COLS = 78
+
+_LOSS_IDS = {"trivial": 0, "huber": 1, "cauchy": 2}
+# tiles are processed in chunks of at most this many (cell, point) slots by
+# the plain versions, which bounds their temporaries at full size
+_PLAIN_SLOTS = 1 << 20
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pack_slot_tables(sp, grid, free_outer, free_inner, free_intr, t_pad):
+    """(t_pad, SP_COLS) per-cell table; pad cells get z-safe translations."""
+    T = sp.fx.shape[0]
+    dtype = sp.fx.dtype
+    cols = [
+        sp.R_i.reshape(T, 9), sp.R_o.reshape(T, 9), sp.R_oi.reshape(T, 9),
+        sp.Jr_o.reshape(T, 9), sp.Jr_i.reshape(T, 9),
+        sp.t_i, sp.t_o, sp.center,
+        sp.fx[:, None], sp.fy[:, None], sp.d0[:, None], sp.d1[:, None],
+        grid.focal_shared[:, None], grid.dist_m1[:, None],
+        grid.dist_m2[:, None], free_outer, free_inner, free_intr,
+    ]
+    pack = torch.cat([c.to(dtype) for c in cols], dim=1)
+    if t_pad > T:
+        pad = torch.zeros((t_pad - T, SP_COLS), dtype=dtype, device=pack.device)
+        pad[:, _TI + 2] = 1.0      # keep 1/z finite on padded cells
+        pad[:, _TO + 2] = 1.0
+        pack = torch.cat([pack, pad], dim=0)
+    return pack
+
+
+def native_of_flat(n_ext_rows: int, n_intr: int) -> np.ndarray:
+    """perm with E_flat[..., c] == E_native[..., native_of_flat[c]]."""
+    R, K = n_ext_rows, n_intr
+    out = np.empty(6 * (R + K), np.int32)
+    for r in range(R):
+        for j in range(6):
+            out[r * 6 + j] = j * R + r
+    for k in range(K):
+        for j in range(6):
+            out[6 * R + k * 6 + j] = 6 * R + j * K + k
+    return out
+
+
+def flat_of_native(n_ext_rows: int, n_intr: int) -> np.ndarray:
+    return np.argsort(native_of_flat(n_ext_rows, n_intr)).astype(np.int32)
+
+
+def _extend_cyclic(x, w_band, dim=0):
+    """Append rows 0..w_band after the end so wrapped bands are contiguous."""
+    return torch.cat([x, x.narrow(dim, 0, w_band)], dim=dim)
+
+
+def _pad_planes_t(x, t_pad, n_pad):
+    """(N, T) -> transposed, zero-padded (t_pad, n_pad)."""
+    N, T = x.shape
+    out = torch.zeros((t_pad, n_pad), dtype=x.dtype, device=x.device)
+    out[:T, :N] = x.T
+    return out
+
+
+def banded_planes(grid, n_pad, ext_len):
+    """Stacked + cyclically-extended observation planes
+    (3, t_pad + ext_len, n_pad): [xy0; xy1; mask] transposed."""
+    t_pad = _round_up(grid.xy0.shape[1], 8)
+    stack = torch.stack([_pad_planes_t(grid.xy0, t_pad, n_pad),
+                         _pad_planes_t(grid.xy1, t_pad, n_pad),
+                         _pad_planes_t(grid.mask, t_pad, n_pad)])
+    return _extend_cyclic(stack, ext_len, dim=1)
+
+
+def gather_banded_planes(pxm_ext, starts, w_band, block_np, t_lo=0, t_hi=None):
+    """Each point tile's live band as a DENSE stack
+    (3, w_band, (t_hi - t_lo) * block_np): tile i's column block holds rows
+    [starts[i]*8, starts[i]*8 + w_band) of the extended planes."""
+    _, t_ext, n_pad = pxm_ext.shape
+    n_tiles = n_pad // block_np
+    t_hi = n_tiles if t_hi is None else t_hi
+    rows = (starts[t_lo:t_hi].long()[:, None] * 8
+            + torch.arange(w_band, device=starts.device))     # (g, w)
+    arr = pxm_ext.reshape(3, t_ext, n_tiles, block_np)[:, :, t_lo:t_hi]
+    idx = rows.T[None, :, :, None].expand(3, w_band, t_hi - t_lo, block_np)
+    out = torch.gather(arr, 1, idx.to(pxm_ext.device))
+    return out.reshape(3, w_band, (t_hi - t_lo) * block_np)
+
+
+def _banded_tables(sp, grid, free_outer, free_inner, free_intr, t_pad,
+                   w_band, dtype):
+    """Cyclically-extended slot table + one-hot bin matrices."""
+    T = grid.onehot_outer.shape[0]
+
+    def oh_pad(oh):
+        out = torch.zeros((t_pad, oh.shape[1]), dtype=dtype, device=oh.device)
+        out[:T] = oh
+        return _extend_cyclic(out, w_band)
+
+    tbl = _extend_cyclic(pack_slot_tables(sp, grid, free_outer, free_inner,
+                                          free_intr, t_pad), w_band)
+    return (tbl, oh_pad(grid.onehot_outer), oh_pad(grid.onehot_inner),
+            oh_pad(grid.onehot_intr))
+
+
+def _slot_ids(grid, t_pad, w_ext):
+    """(3, t_pad + w_ext) int32 [outer; inner; intr] row ids per table row,
+    -1 on pad cells: the kernel's replacement for the one-hot contractions."""
+    T = grid.slot_outer.shape[0]
+    ids = torch.full((3, t_pad), -1, dtype=torch.int32,
+                     device=grid.slot_outer.device)
+    ids[0, :T] = grid.slot_outer
+    ids[1, :T] = grid.slot_inner
+    ids[2, :T] = grid.slot_intr
+    return _extend_cyclic(ids, w_ext, dim=1).contiguous()
+
+
+def _pts_pack(points, point_free, n_pad):
+    """(8, n_pad): rows X, Y, Z, then the point-freeze mask; z-safe padding."""
+    N = points.shape[0]
+    pack = torch.zeros((8, n_pad), dtype=points.dtype, device=points.device)
+    pack[0:3, :N] = points.T
+    pack[2, N:] = 1.0
+    if point_free is not None:
+        pack[3:6, :N] = point_free.T.to(points.dtype)
+    return pack
+
+
+def _groups_of(w_band, N, block_np, pxm):
+    """Normalise ``w_band`` (one width or ``(w, lo, hi)`` groups) to groups
+    and the padded point count."""
+    if isinstance(w_band, tuple):
+        return w_band, w_band[-1][2] * block_np
+    n_pad = _round_up(N, block_np) if pxm is None else pxm.shape[-1]
+    return ((w_band, 0, n_pad // block_np),), n_pad
+
+
+def _band_stacks(grid, starts, groups, block_np, n_pad, t_pad, pxm):
+    """The groups' plane stacks, gathered when not given; checks every
+    table against the shapes the kernels index with."""
+    w_max = max(w for w, _, _ in groups)
+    if any(w % 8 or w > t_pad for w, _, _ in groups):
+        raise ValueError(f"band widths {groups} must be multiples of 8 "
+                         f"and <= t_pad={t_pad}")
+    if starts.shape[0] != n_pad // block_np:
+        raise ValueError(f"band start table has {starts.shape[0]} tiles, "
+                         f"not {n_pad // block_np}: it was built for another "
+                         f"point-tile width than {block_np}")
+    if starts.numel() and int(starts.max()) * 8 >= t_pad:
+        raise ValueError("band start outside the cell table")
+    if pxm is None:
+        pxm_ext = banded_planes(grid, n_pad, w_max)
+        pxms = tuple(gather_banded_planes(pxm_ext, starts, w, block_np, lo, hi)
+                     for w, lo, hi in groups)
+    else:
+        pxms = pxm if isinstance(pxm, tuple) else (pxm,)
+    if len(pxms) != len(groups) or any(
+            tuple(p.shape) != (3, w, (hi - lo) * block_np)
+            for (w, lo, hi), p in zip(groups, pxms)):
+        raise ValueError(f"plane stacks {[tuple(p.shape) for p in pxms]} do "
+                         f"not match the groups {groups} at {block_np} points "
+                         f"per tile")
+    return pxms, w_max
+
+
+# ---------------------------------------------------------------------------
+# Input preparation shared by each wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _prep_linearize_banded(points, point_free, sp, grid, free_outer,
+                           free_inner, free_intr, starts, w_band, block_np,
+                           intr_frozen, pxm):
+    N, T = grid.xy0.shape
+    t_pad = _round_up(T, 8)
+    groups, n_pad = _groups_of(w_band, N, block_np, pxm)
+    pxms, w_max = _band_stacks(grid, starts, groups, block_np, n_pad, t_pad,
+                               pxm)
+    tables = _banded_tables(sp, grid, free_outer, free_inner, free_intr,
+                            t_pad, w_max, points.dtype)
+    return dict(N=N, T=T, t_pad=t_pad, groups=groups, pxms=pxms,
+                tables=tables, ids=_slot_ids(grid, t_pad, w_max),
+                pts=_pts_pack(points, point_free, n_pad), starts=starts,
+                block_np=block_np, intr_frozen=intr_frozen)
+
+
+def _prep_linearize_mono(points, point_free, sp, grid, free_outer, free_inner,
+                         free_intr, block_np):
+    N, T = grid.xy0.shape
+    t_pad = _round_up(T, 8)
+    n_pad = _round_up(N, block_np)
+    n_tiles = n_pad // block_np
+    pxm = banded_planes(grid, n_pad, 0)
+    tables = _banded_tables(sp, grid, free_outer, free_inner, free_intr,
+                            t_pad, 0, points.dtype)
+    starts = torch.zeros(n_tiles, dtype=torch.int32, device=points.device)
+    return dict(N=N, T=T, t_pad=t_pad, groups=((t_pad, 0, n_tiles),),
+                pxms=(pxm,), tables=tables, ids=_slot_ids(grid, t_pad, 0),
+                pts=_pts_pack(points, point_free, n_pad), starts=starts,
+                block_np=block_np, intr_frozen=False)
+
+
+def _prep_cost_banded(points, sp, grid, starts, w_band, block_np, pxm):
+    N, T = grid.xy0.shape
+    t_pad = _round_up(T, 8)
+    groups, n_pad = _groups_of(w_band, N, block_np, pxm)
+    pxms, w_max = _band_stacks(grid, starts, groups, block_np, n_pad, t_pad,
+                               pxm)
+    zeros6 = torch.zeros((T, 6), dtype=points.dtype, device=points.device)
+    tbl = _extend_cyclic(pack_slot_tables(sp, grid, zeros6, zeros6, zeros6,
+                                          t_pad), w_max)
+    return dict(groups=groups, pxms=pxms, tbl=tbl, starts=starts,
+                pts=_pts_pack(points, None, n_pad), block_np=block_np)
+
+
+def _prep_cost_mono(points, sp, grid, block_np):
+    N, T = grid.xy0.shape
+    t_pad = _round_up(T, 8)
+    n_pad = _round_up(N, block_np)
+    n_tiles = n_pad // block_np
+    zeros6 = torch.zeros((T, 6), dtype=points.dtype, device=points.device)
+    return dict(groups=((t_pad, 0, n_tiles),),
+                pxms=(banded_planes(grid, n_pad, 0),),
+                tbl=pack_slot_tables(sp, grid, zeros6, zeros6, zeros6, t_pad),
+                starts=torch.zeros(n_tiles, dtype=torch.int32,
+                                   device=points.device),
+                pts=_pts_pack(points, None, n_pad), block_np=block_np)
+
+
+def _finish_linearize(N, cost, pout, g_slots, hcc_slots, E):
+    g_p = pout[0:3, :N].T
+    hpp = pout[3:12, :N].T.reshape(N, 3, 3)
+    return cost, g_p, hpp, g_slots, hcc_slots, E[:N].reshape(N, 3, -1)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _loss_rho(s, loss, a):
+    if loss == "trivial":
+        return s
+    a2 = a * a
+    if loss == "huber":
+        return torch.where(s <= a2, s,
+                           2.0 * a * torch.sqrt(torch.clamp(s, min=a2)) - a2)
+    if loss == "cauchy":
+        return a2 * torch.log1p(s / a2)
+    raise ValueError(loss)
+
+
+def _loss_weight(s, loss, a):
+    if loss == "trivial":
+        return None
+    a2 = a * a
+    if loss == "huber":
+        return torch.where(s <= a2, torch.ones_like(s),
+                           torch.sqrt(a / torch.sqrt(torch.clamp(s, min=a2))))
+    if loss == "cauchy":
+        return torch.sqrt(1.0 / (1.0 + s / a2))
+    raise ValueError(loss)
+
+
+def _chain(col, X, xy0, xy1, mask):
+    """Projection/residual planes of a chunk of tiles: (g, w, bn)."""
+    p2 = [X[0] * col(_RI + 3 * a) + X[1] * col(_RI + 3 * a + 1)
+          + X[2] * col(_RI + 3 * a + 2) + col(_TI + a) for a in range(3)]
+    p3 = [p2[0] * col(_RO + 3 * a) + p2[1] * col(_RO + 3 * a + 1)
+          + p2[2] * col(_RO + 3 * a + 2) + col(_TO + a) for a in range(3)]
+    inv_z = 1.0 / p3[2]
+    u0, u1 = p3[0] * inv_z, p3[1] * inv_z
+    r2 = u0 * u0 + u1 * u1
+    dcoef = 1.0 + r2 * (col(_D0) + col(_D1) * r2)
+    r0 = (col(_FX) * dcoef * u0 + col(_CX) - xy0) * mask
+    r1 = (col(_FY) * dcoef * u1 + col(_CY) - xy1) * mask
+    return dict(p2=p2, inv_z=inv_z, u0=u0, u1=u1, r2=r2, dcoef=dcoef,
+                r0=r0, r1=r1)
+
+
+def _slot_products(col, X, pf, xy0, xy1, mask, loss, loss_scale,
+                   intr_frozen=False):
+    """Residual + per-slot Jacobian planes (the math of csrc/rig_slot.cuh
+    ``slot_products``). Returns (cost, r0, r1, jx_f, P) with P[k] the
+    camera-Jacobian planes: 18, or the 12 extrinsic ones when frozen."""
+    c = _chain(col, X, xy0, xy1, mask)
+    p2, inv_z, u0, u1 = c["p2"], c["inv_z"], c["u0"], c["u1"]
+    r2, dcoef, r0, r1 = c["r2"], c["dcoef"], c["r0"], c["r1"]
+    raw_s = r0 * r0 + r1 * r1
+    cost = 0.5 * torch.sum(_loss_rho(raw_s, loss, loss_scale) * mask)
+    w = _loss_weight(raw_s, loss, loss_scale)
+    if w is None:
+        wm = mask
+    else:
+        wm = mask * w
+        r0, r1 = r0 * w, r1 * w
+    g = col(_D0) + 2.0 * col(_D1) * r2
+    c00 = dcoef + 2.0 * g * u0 * u0
+    c11 = dcoef + 2.0 * g * u1 * u1
+    c01 = 2.0 * g * u0 * u1
+    ccr = dcoef + 2.0 * g * r2
+    fxz = col(_FX) * inv_z * wm
+    fyz = col(_FY) * inv_z * wm
+    A = [[fxz * c00, fxz * c01, -fxz * u0 * ccr],
+         [fyz * c01, fyz * c11, -fyz * u1 * ccr]]
+
+    def chain_mat(Ak, base):
+        return [Ak[0] * col(base + b) + Ak[1] * col(base + 3 + b)
+                + Ak[2] * col(base + 6 + b) for b in range(3)]
+
+    def cross(v, u):
+        return [v[1] * u[2] - v[2] * u[1], v[2] * u[0] - v[0] * u[2],
+                v[0] * u[1] - v[1] * u[0]]
+
+    jx_f, P = [], []
+    for k in range(2):
+        jx_k = chain_mat(A[k], _ROI)
+        B_k = chain_mat(A[k], _RO)
+        Cw, Dw = cross(B_k, p2), cross(jx_k, X)
+        jwo = [-(Cw[0] * col(_JRO + b) + Cw[1] * col(_JRO + 3 + b)
+                 + Cw[2] * col(_JRO + 6 + b)) for b in range(3)]
+        jwi = [-(Dw[0] * col(_JRI + b) + Dw[1] * col(_JRI + 3 + b)
+                 + Dw[2] * col(_JRI + 6 + b)) for b in range(3)]
+        jx_f.append([jx_k[b] * pf[b] for b in range(3)])
+        P.append([jwo[b] * col(_FRO + b) for b in range(3)]
+                 + [A[k][b] * col(_FRO + 3 + b) for b in range(3)]
+                 + [jwi[b] * col(_FRI + b) for b in range(3)]
+                 + [B_k[b] * col(_FRI + 3 + b) for b in range(3)])
+    if intr_frozen:
+        return cost, r0, r1, jx_f, P
+    zero = torch.zeros_like(wm)
+    du0, du1, sh = dcoef * u0, dcoef * u1, col(_FSH)
+    jint = [
+        [wm, zero, du0 * wm, zero,
+         col(_FX) * u0 * r2 * col(_M1) * wm,
+         col(_FX) * u0 * r2 * r2 * col(_M2) * wm],
+        [zero, wm, sh * du1 * wm, (1.0 - sh) * du1 * wm,
+         col(_FY) * u1 * r2 * col(_M1) * wm,
+         col(_FY) * u1 * r2 * r2 * col(_M2) * wm],
+    ]
+    for k in range(2):
+        P[k] = P[k] + [jint[k][j] * col(_FRK + j) for j in range(6)]
+    return cost, r0, r1, jx_f, P
+
+
+def _tile_chunks(groups, pxms, starts, block_np):
+    """Yield (rows (g, w), planes (3, g, w, bn), first point, last point) per
+    chunk of tiles of each group."""
+    bn = block_np
+    for (w, lo, hi), pxm in zip(groups, pxms):
+        g_tiles = hi - lo
+        if g_tiles == 0:
+            continue
+        planes = pxm.reshape(3, w, g_tiles, bn).permute(0, 2, 1, 3)
+        step = max(1, _PLAIN_SLOTS // (w * bn))
+        for c0 in range(0, g_tiles, step):
+            c1 = min(g_tiles, c0 + step)
+            rows = (starts[lo + c0:lo + c1].long()[:, None] * 8
+                    + torch.arange(w, device=pxm.device))
+            yield rows, planes[:, c0:c1], (lo + c0) * bn, (lo + c1) * bn
+
+
+def _plain_linearize(prep, loss, loss_scale):
+    tbl, oho, ohi, ohk = prep["tables"]
+    pts, bn = prep["pts"], prep["block_np"]
+    T, t_pad, frozen = prep["T"], prep["t_pad"], prep["intr_frozen"]
+    dtype, dev = pts.dtype, pts.device
+    n_pad = pts.shape[1]
+    R, K = oho.shape[1], ohk.shape[1]
+    n_p = 12 if frozen else 18
+    t_ext = tbl.shape[0]
+    pout = torch.zeros((12, n_pad), dtype=dtype, device=dev)
+    E = torch.zeros((n_pad, 3, 6 * R if frozen else 6 * (R + K)),
+                    dtype=dtype, device=dev)
+    ghs = torch.zeros((t_ext, n_p + n_p * n_p), dtype=dtype, device=dev)
+    cost = torch.zeros((), dtype=dtype, device=dev)
+    for rows, planes, p0, p1 in _tile_chunks(prep["groups"], prep["pxms"],
+                                             prep["starts"], bn):
+        gc = rows.shape[0]
+        tb = tbl[rows]                                   # (gc, w, 78)
+        col = lambda c: tb[..., c:c + 1]
+        X = [pts[a, p0:p1].reshape(gc, 1, bn) for a in range(3)]
+        pf = [pts[3 + a, p0:p1].reshape(gc, 1, bn) for a in range(3)]
+        c_val, r0, r1, jx_f, P = _slot_products(
+            col, X, pf, planes[0], planes[1], planes[2], loss, loss_scale,
+            intr_frozen=frozen)
+        cost = cost + c_val
+        J0, J1 = torch.stack(jx_f[0]), torch.stack(jx_f[1])  # (3, gc, w, bn)
+        P0, P1 = torch.stack(P[0]), torch.stack(P[1])        # (n_p, ...)
+        # point side: reductions over the band's cells
+        g_p = (J0 * r0 + J1 * r1).sum(dim=2)                 # (3, gc, bn)
+        hpp = (torch.einsum("agwn,bgwn->abgn", J0, J0)
+               + torch.einsum("agwn,bgwn->abgn", J1, J1))
+        pout[0:3, p0:p1] = g_p.reshape(3, -1)
+        pout[3:12, p0:p1] = hpp.reshape(9, -1)
+        # slot side: reductions over the tile's points, binned per row
+        g_s = (P0 * r0 + P1 * r1).sum(dim=3)                 # (n_p, gc, w)
+        h_s = (torch.einsum("agwn,bgwn->gwab", P0, P0)
+               + torch.einsum("agwn,bgwn->gwab", P1, P1))
+        vals = torch.cat([g_s.permute(1, 2, 0),
+                          h_s.reshape(gc, -1, n_p * n_p)], dim=-1)
+        ghs.index_add_(0, rows.reshape(-1), vals.reshape(-1, vals.shape[-1]))
+        # E: one-hot contractions over the band's cells
+        W = (torch.einsum("agwn,jgwn->ajgwn", J0, P0)
+             + torch.einsum("agwn,jgwn->ajgwn", J1, P1))
+        e_ext = (torch.einsum("ajgwn,gwr->gnajr", W[:, 0:6], oho[rows])
+                 + torch.einsum("ajgwn,gwr->gnajr", W[:, 6:12], ohi[rows]))
+        parts = [e_ext.reshape(gc * bn, 3, 6 * R)]
+        if not frozen:
+            e_int = torch.einsum("ajgwn,gwk->gnajk", W[:, 12:18], ohk[rows])
+            parts.append(e_int.reshape(gc * bn, 3, 6 * K))
+        E[p0:p1] = torch.cat(parts, dim=-1)
+    # fold the cyclic extension rows back onto their base cells
+    folded = ghs[:t_pad].clone()
+    folded[:t_ext - t_pad] += ghs[t_pad:]
+    g_slots = torch.zeros((T, 18), dtype=dtype, device=dev)
+    hcc_slots = torch.zeros((T, 18, 18), dtype=dtype, device=dev)
+    g_slots[:, :n_p] = folded[:T, :n_p]
+    hcc_slots[:, :n_p, :n_p] = folded[:T, n_p:].reshape(T, n_p, n_p)
+    return _finish_linearize(prep["N"], cost, pout, g_slots, hcc_slots, E)
+
+
+def _plain_cost(prep, loss, loss_scale):
+    tbl, pts, bn = prep["tbl"], prep["pts"], prep["block_np"]
+    total = torch.zeros((), dtype=pts.dtype, device=pts.device)
+    for rows, planes, p0, p1 in _tile_chunks(prep["groups"], prep["pxms"],
+                                             prep["starts"], bn):
+        tb = tbl[rows]
+        col = lambda c: tb[..., c:c + 1]
+        X = [pts[a, p0:p1].reshape(rows.shape[0], 1, bn) for a in range(3)]
+        c = _chain(col, X, planes[0], planes[1], planes[2])
+        s = c["r0"] * c["r0"] + c["r1"] * c["r1"]
+        total = total + 0.5 * torch.sum(_loss_rho(s, loss, loss_scale)
+                                        * planes[2])
+    return total
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+_DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
+
+
+def _n_blocks(device, g_tiles_max):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(g_tiles_max, 4 * sms))
+
+
+def _cuda_args(pts, loss, tensors):
+    """(dtype id, loss id) for the launchers, after checking that every
+    float input has the points' dtype and device and is contiguous."""
+    if pts.dtype not in _DTYPE_IDS:
+        raise TypeError(f"grid kernels take float32 or float64, "
+                        f"not {pts.dtype}")
+    if loss not in _LOSS_IDS:
+        raise ValueError(f"unknown loss {loss!r}")
+    for t in tensors:
+        if t.dtype != pts.dtype or t.device != pts.device:
+            raise TypeError(f"kernel input {t.dtype} on {t.device}: every "
+                            f"input must be {pts.dtype} on {pts.device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    return _DTYPE_IDS[pts.dtype], _LOSS_IDS[loss]
+
+
+def _cuda_linearize(prep, loss, loss_scale, counter):
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    lib = library()
+    tbl, oho, _, ohk = prep["tables"]
+    pts, bn, frozen = prep["pts"], prep["block_np"], prep["intr_frozen"]
+    T, t_pad = prep["T"], prep["t_pad"]
+    dev, dtype = pts.device, pts.dtype
+    tbl, ids = tbl.contiguous(), prep["ids"]
+    pxms = tuple(p.contiguous() for p in prep["pxms"])
+    dt, ls = _cuda_args(pts, loss, (tbl,) + pxms)
+    if bn % 32 or not 0 < bn <= 256:
+        raise ValueError(f"the linearize kernel takes 32..256-point tiles "
+                         f"in multiples of 32, not {bn}")
+    R, K = oho.shape[1], ohk.shape[1]
+    n_p = 12 if frozen else 18
+    nv = n_p + n_p * (n_p + 1) // 2
+    n_pad, t_ext = pts.shape[1], tbl.shape[0]
+    Cn = 6 * R if frozen else 6 * (R + K)
+    starts = prep["starts"].to(torch.int32).contiguous()
+    n_blocks = _n_blocks(dev, max(hi - lo for _, lo, hi in prep["groups"]))
+    pout = torch.empty((12, n_pad), dtype=dtype, device=dev)
+    E = torch.empty((n_pad, 3 * Cn), dtype=dtype, device=dev)
+    partial = torch.zeros((n_blocks, t_ext, nv), dtype=dtype, device=dev)
+    partial_cost = torch.zeros((n_blocks,), dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for (w, lo, hi), pxm in zip(prep["groups"], pxms):
+        if hi == lo:
+            continue
+        counter.launches += 1
+        check(lib.rig_linearize(
+            dt, ls, int(frozen), tbl.data_ptr(), ids.data_ptr(),
+            starts.data_ptr(), pts.data_ptr(), pxm.data_ptr(), t_ext, n_pad,
+            R, K, lo, hi - lo, bn, w, float(loss_scale),
+            min(hi - lo, n_blocks), pout.data_ptr(), E.data_ptr(),
+            partial.data_ptr(), partial_cost.data_ptr(), stream),
+            "rig_linearize")
+    g_slots = torch.zeros((T, 18), dtype=dtype, device=dev)
+    hcc_slots = torch.zeros((T, 18, 18), dtype=dtype, device=dev)
+    cost = torch.empty((), dtype=dtype, device=dev)
+    check(lib.rig_reduce_slots(dt, partial.data_ptr(), n_blocks, t_ext,
+                               t_pad, T, n_p, g_slots.data_ptr(),
+                               hcc_slots.data_ptr(), stream),
+          "rig_reduce_slots")
+    check(lib.rig_reduce_cost(dt, partial_cost.data_ptr(), n_blocks,
+                              cost.data_ptr(), stream), "rig_reduce_cost")
+    return _finish_linearize(prep["N"], cost, pout, g_slots, hcc_slots, E)
+
+
+def _cuda_cost(prep, loss, loss_scale, counter):
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    lib = library()
+    pts, bn = prep["pts"], prep["block_np"]
+    dev, dtype = pts.device, pts.dtype
+    tbl = prep["tbl"].contiguous()
+    pxms = tuple(p.contiguous() for p in prep["pxms"])
+    dt, ls = _cuda_args(pts, loss, (tbl,) + pxms)
+    starts = prep["starts"].to(torch.int32).contiguous()
+    n_blocks = _n_blocks(dev, max(hi - lo for _, lo, hi in prep["groups"]))
+    threads = min(256, _round_up(bn, 32))
+    partial_cost = torch.zeros((n_blocks,), dtype=dtype, device=dev)
+    cost = torch.empty((), dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for (w, lo, hi), pxm in zip(prep["groups"], pxms):
+        if hi == lo:
+            continue
+        counter.launches += 1
+        check(lib.rig_cost(dt, ls, tbl.data_ptr(), starts.data_ptr(),
+                           pts.data_ptr(), pxm.data_ptr(), pts.shape[1], lo,
+                           hi - lo, bn, w, float(loss_scale),
+                           min(hi - lo, n_blocks), threads,
+                           partial_cost.data_ptr(), stream), "rig_cost")
+    check(lib.rig_reduce_cost(dt, partial_cost.data_ptr(), n_blocks,
+                              cost.data_ptr(), stream), "rig_reduce_cost")
+    return cost
+
+
+def _dispatch(t: torch.Tensor, name: str) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers and their plain versions
+# ---------------------------------------------------------------------------
+
+
+def linearize_grid_banded_plain(
+    points, point_free, sp, grid, free_outer, free_inner, free_intr, starts,
+    w_band, loss="trivial", loss_scale=0.5, block_np=256, intr_frozen=False,
+    pxm=None,
+):
+    """Plain PyTorch version of :func:`linearize_grid_banded`."""
+    prep = _prep_linearize_banded(points, point_free, sp, grid, free_outer,
+                                  free_inner, free_intr, starts, w_band,
+                                  block_np, intr_frozen, pxm)
+    return _plain_linearize(prep, loss, loss_scale)
+
+
+def linearize_grid_banded(
+    points, point_free, sp, grid, free_outer, free_inner, free_intr, starts,
+    w_band, loss="trivial", loss_scale=0.5, block_np=256, intr_frozen=False,
+    pxm=None,
+):
+    """Fused linearization over per-tile cell bands.
+
+    ``starts`` is the (n_pad / block_np,) int32 8-row slab start per point
+    tile from :func:`deeparc_tpu_torch.solver.rig_band.band_grid`;
+    ``w_band`` one width (multiple of 8, <= t_pad) or a tuple of
+    ``(w, tile_lo, tile_hi)`` width groups; ``pxm`` the pre-gathered
+    :func:`gather_banded_planes` stack(s) for these groups.
+    ``intr_frozen=True`` returns an ext-only E (N, 3, 6R) and zero intrinsic
+    slot entries. Returns (cost, g_p (N,3), hpp (N,3,3), g_slots (T,18),
+    hcc_slots (T,18,18), E_native (N, 3, Cn))."""
+    if not _dispatch(points, "linearize_grid_banded"):
+        return linearize_grid_banded_plain(
+            points, point_free, sp, grid, free_outer, free_inner, free_intr,
+            starts, w_band, loss, loss_scale, block_np, intr_frozen, pxm)
+    prep = _prep_linearize_banded(points, point_free, sp, grid, free_outer,
+                                  free_inner, free_intr, starts, w_band,
+                                  block_np, intr_frozen, pxm)
+    return _cuda_linearize(prep, loss, loss_scale, linearize_grid_banded)
+
+
+def cost_grid_banded_plain(points, sp, grid, starts, w_band, loss="trivial",
+                           loss_scale=0.5, block_np=1024, pxm=None):
+    """Plain PyTorch version of :func:`cost_grid_banded`."""
+    prep = _prep_cost_banded(points, sp, grid, starts, w_band, block_np, pxm)
+    return _plain_cost(prep, loss, loss_scale)
+
+
+def cost_grid_banded(points, sp, grid, starts, w_band, loss="trivial",
+                     loss_scale=0.5, block_np=1024, pxm=None):
+    """Banded robustified half-SSE (the trial-cost pass over live bands).
+    ``starts``/``pxm`` are the band table and stacks built for THIS
+    ``block_np``; ``w_band`` as in :func:`linearize_grid_banded`."""
+    if not _dispatch(points, "cost_grid_banded"):
+        return cost_grid_banded_plain(points, sp, grid, starts, w_band, loss,
+                                      loss_scale, block_np, pxm)
+    prep = _prep_cost_banded(points, sp, grid, starts, w_band, block_np, pxm)
+    return _cuda_cost(prep, loss, loss_scale, cost_grid_banded)
+
+
+def linearize_grid_plain(points, point_free, sp, grid, free_outer, free_inner,
+                         free_intr, loss="trivial", loss_scale=0.5,
+                         block_np=256):
+    """Plain PyTorch version of :func:`linearize_grid`."""
+    prep = _prep_linearize_mono(points, point_free, sp, grid, free_outer,
+                                free_inner, free_intr, block_np)
+    return _plain_linearize(prep, loss, loss_scale)
+
+
+def linearize_grid(points, point_free, sp, grid, free_outer, free_inner,
+                   free_intr, loss="trivial", loss_scale=0.5, block_np=256):
+    """Fused full-problem linearization over all t_pad cells. Returns the
+    same tuple as :func:`linearize_grid_banded`; E always holds the
+    intrinsic columns."""
+    if not _dispatch(points, "linearize_grid"):
+        return linearize_grid_plain(points, point_free, sp, grid, free_outer,
+                                    free_inner, free_intr, loss, loss_scale,
+                                    block_np)
+    prep = _prep_linearize_mono(points, point_free, sp, grid, free_outer,
+                                free_inner, free_intr, block_np)
+    return _cuda_linearize(prep, loss, loss_scale, linearize_grid)
+
+
+def cost_grid_plain(points, sp, grid, loss="trivial", loss_scale=0.5,
+                    block_np=1024):
+    """Plain PyTorch version of :func:`cost_grid`."""
+    return _plain_cost(_prep_cost_mono(points, sp, grid, block_np), loss,
+                       loss_scale)
+
+
+def cost_grid(points, sp, grid, loss="trivial", loss_scale=0.5,
+              block_np=1024):
+    """Fused robustified half-SSE over the whole grid (trial-cost pass)."""
+    if not _dispatch(points, "cost_grid"):
+        return cost_grid_plain(points, sp, grid, loss, loss_scale, block_np)
+    return _cuda_cost(_prep_cost_mono(points, sp, grid, block_np), loss,
+                      loss_scale, cost_grid)
+
+
+KERNEL_WRAPPERS = (linearize_grid_banded, cost_grid_banded, linearize_grid,
+                   cost_grid)
+for _fn in KERNEL_WRAPPERS:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

@@ -1,0 +1,117 @@
+"""Command-line interface for the port's SfM pipeline (grid engine).
+
+Usage:
+    python -m deeparc_tpu_torch.pipeline.cli scene.deeparc -o out/
+    python -m deeparc_tpu_torch.pipeline.cli --synthetic --n-points 2000 -o out/
+    deeparc-tpu-torch scene.deeparc --device cpu
+
+``--device cuda`` (the default) runs the hand-written CUDA kernels and fails
+if no card is present; ``--device cpu`` runs their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="deeparc-tpu-torch",
+        description="structure-from-motion bundle adjustment for "
+                    "shared-extrinsic rigs, PyTorch + CUDA")
+    p.add_argument("input", nargs="?", help=".deeparc input file")
+    p.add_argument("-o", "--output-dir", default=None)
+    p.add_argument("--basename", default=None, help="output file prefix")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda = the hand kernels (fails without a card); "
+                        "cpu = their plain PyTorch versions")
+    p.add_argument("--f32", action="store_true",
+                   help="compute in float32 (default float64)")
+    # solver (defaults: sfm.cc:66-73,111,121)
+    p.add_argument("--max-iterations", type=int, default=100)
+    p.add_argument("--max-seconds", type=float, default=3600.0)
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "grid", "indexed", "tiles",
+                            "grid-sharded", "tiles-sharded"],
+                   help="auto/grid = the dense grid engine for shared rigs; "
+                        "the other engines are not ported yet and exit "
+                        "with the ROADMAP item that ports them")
+    p.add_argument("--quiet", action="store_true")
+    # filter (defaults: sfm.cc:112,122; DeepArcManager.cc:347-349,387)
+    p.add_argument("--error-boundary", type=float, default=5.0)
+    p.add_argument("--parity-inverted", action="store_true",
+                   help="reproduce the reference's mse<threshold removal")
+    p.add_argument("--no-hemisphere-cut", action="store_true")
+    p.add_argument("--hemisphere-iterations", type=int, default=1000)
+    p.add_argument("--no-snapshots", action="store_true")
+    # synthetic problem generation
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--n-arc", type=int, default=5)
+    p.add_argument("--n-ring", type=int, default=12)
+    p.add_argument("--n-points", type=int, default=2000)
+    p.add_argument("--pixel-noise", type=float, default=1.0)
+    p.add_argument("--point-noise", type=float, default=0.05)
+    p.add_argument("--random-points", action="store_true")
+    p.add_argument("--occlusion-rings", type=int, default=None,
+                   help="synthetic rig: self-occlusion window in turntable "
+                        "steps (the banded kernels exploit it)")
+    p.add_argument("--visibility", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    import os
+
+    import torch
+
+    from deeparc_tpu_torch.config import (
+        FilterOptions,
+        PipelineOptions,
+        SolverOptions,
+    )
+    from deeparc_tpu_torch.io import make_hemisphere_rig, read_deeparc_fast
+    from deeparc_tpu_torch.pipeline.driver import check_device, run_pipeline
+
+    device = check_device(args.device)
+    if args.synthetic:
+        data = make_hemisphere_rig(
+            n_arc=args.n_arc, n_ring=args.n_ring, n_points=args.n_points,
+            pixel_noise=args.pixel_noise, point_noise=args.point_noise,
+            random_points=args.random_points, seed=args.seed,
+            occlusion_rings=args.occlusion_rings,
+            visibility=args.visibility).data
+        basename = args.basename or "synthetic"
+    elif args.input:
+        data = read_deeparc_fast(args.input)
+        basename = args.basename or os.path.splitext(
+            os.path.basename(args.input))[0]
+    else:
+        print("error: provide an input file or --synthetic", file=sys.stderr)
+        return 2
+
+    options = PipelineOptions(
+        solver=SolverOptions(max_iterations=args.max_iterations,
+                             max_seconds=args.max_seconds,
+                             progress_to_stdout=not args.quiet),
+        filter=FilterOptions(error_boundary=args.error_boundary,
+                             parity_inverted=args.parity_inverted,
+                             hemisphere_cut=not args.no_hemisphere_cut),
+        hemisphere_max_iterations=args.hemisphere_iterations,
+        write_snapshots=not args.no_snapshots,
+        engine=args.engine,
+    )
+    result = run_pipeline(
+        data, options, output_dir=args.output_dir, basename=basename,
+        dtype=torch.float32 if args.f32 else torch.float64, device=device,
+        verbose=not args.quiet)
+    print(f"[deeparc] done: rounds={result.filter_rounds} "
+          f"cost={result.final_cost:.6e} rmse={result.final_rmse_px:.4f}px")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,479 @@
+"""Dense-grid bundle adjustment for shared-extrinsic rigs, PyTorch port of
+``deeparc_tpu.solver.rig_grid`` (the kernel path).
+
+A camera cell is an (arc, ring) pair whose extrinsic/intrinsic ids depend
+only on the cell, so observations lie on a dense (N points x T cells) grid
+with a visibility mask. Each LM step linearizes with the fused grid kernels
+(``kernels/rig_grid.py``: banded when ``band_grid`` found locality,
+monolithic otherwise), eliminates the 3x3 point blocks, solves the reduced
+camera system exactly with a dense Cholesky (DENSE_SCHUR,
+``src/sfm.cc:67``) and evaluates the trial point with the fused cost pass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from deeparc_tpu_torch.config import SolverOptions
+from deeparc_tpu_torch.geometry.rotation import (
+    angle_axis_to_matrix,
+    so3_right_jacobian,
+)
+from deeparc_tpu_torch.residuals.reprojection import (
+    flatten_camera,
+    unflatten_camera,
+)
+from deeparc_tpu_torch.scene import BAParams, Scene
+from deeparc_tpu_torch.solver import trust_region as tr_mod
+from deeparc_tpu_torch.solver.ba import BAResult, StepInfo
+from deeparc_tpu_torch.solver.linalg import inv3x3, masked_spd_solve
+
+
+@dataclasses.dataclass
+class GridIndex:
+    """Dense (N points x T cells) observation grid + per-cell structure."""
+
+    xy0: torch.Tensor          # (N, T) observed pixel x (0 where masked)
+    xy1: torch.Tensor          # (N, T) observed pixel y
+    mask: torch.Tensor         # (N, T) 1.0 = observed
+    point_mask: torch.Tensor   # (N,)
+    slot_outer: torch.Tensor   # (T,) int32 extrinsic row ids
+    slot_inner: torch.Tensor   # (T,)
+    slot_intr: torch.Tensor    # (T,)
+    onehot_outer: torch.Tensor  # (T, R)
+    onehot_inner: torch.Tensor  # (T, R)
+    onehot_intr: torch.Tensor   # (T, K)
+    focal_shared: torch.Tensor  # (T,)
+    dist_m1: torch.Tensor       # (T,)
+    dist_m2: torch.Tensor       # (T,)
+    # live-band tables from solver/rig_band.band_grid: (starts_lin,
+    # starts_cost[, pxm_lin groups, pxm_cost groups])
+    band: tuple = ()
+
+
+def grid_from_scene(scene: Scene, dtype=None) -> GridIndex:
+    """Densify the observation list onto the (N, A*R) cell grid, on the
+    scene's device. Only LIVE observations are scattered, and their
+    (point, cell) pairs must be unique: a scatter of duplicates has no
+    defined winner."""
+    if not scene.meta.share_extrinsic:
+        raise ValueError("grid layout requires a shared-extrinsic rig scene")
+    A, R_rings = scene.meta.arc_size, scene.meta.ring_size
+    T, N = A * R_rings, scene.n_points
+    dtype = dtype or scene.params.points.dtype
+    dev = scene.params.points.device
+
+    arc = np.repeat(np.arange(A), R_rings).astype(np.int64)
+    ring = np.tile(np.arange(R_rings), A).astype(np.int64)
+    ring_rec = np.where(ring == 0, 0, ring + A - 1)
+    identity = scene.identity_ext
+    outer = np.where(ring == 0, arc, np.where(arc == 0, ring_rec, arc))
+    inner = np.where((ring == 0) | (arc == 0), identity, ring_rec)
+    intr = arc
+
+    cell = torch.as_tensor(scene.meta.obs_arc.astype(np.int64) * R_rings
+                           + scene.meta.obs_ring.astype(np.int64), device=dev)
+    live = scene.index.obs_mask > 0.5
+    op = scene.index.obs_point.long()[live]
+    cell = cell[live]
+    keys = op * T + cell
+    if torch.unique(keys).numel() != keys.numel():
+        raise ValueError("two live observations share one (point, cell) "
+                         "pair; the dense grid holds one per pair")
+    xy = scene.index.obs_xy[live].to(dtype)
+    xy0 = torch.zeros((N, T), dtype=dtype, device=dev)
+    xy1 = torch.zeros((N, T), dtype=dtype, device=dev)
+    mask = torch.zeros((N, T), dtype=dtype, device=dev)
+    xy0[op, cell] = xy[:, 0]
+    xy1[op, cell] = xy[:, 1]
+    mask[op, cell] = scene.index.obs_mask[live].to(dtype)
+
+    n_ext_rows = scene.params.ext_rot.shape[0]
+    K = scene.n_intrinsics
+
+    def onehot(ids, n):
+        out = np.zeros((T, n))
+        out[np.arange(T), ids] = 1.0
+        return torch.as_tensor(out, dtype=dtype, device=dev)
+
+    per_intr = lambda t: t.to(dtype)[torch.as_tensor(intr, device=dev)]
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    return GridIndex(
+        xy0=xy0, xy1=xy1, mask=mask,
+        point_mask=scene.index.point_mask.to(dtype),
+        slot_outer=i32(outer), slot_inner=i32(inner), slot_intr=i32(intr),
+        onehot_outer=onehot(outer, n_ext_rows),
+        onehot_inner=onehot(inner, n_ext_rows),
+        onehot_intr=onehot(intr, K),
+        focal_shared=per_intr(scene.index.focal_shared),
+        dist_m1=per_intr(scene.index.dist_m1),
+        dist_m2=per_intr(scene.index.dist_m2),
+    )
+
+
+class SlotParams(NamedTuple):
+    """Per-cell camera quantities (all (T, ...))."""
+
+    R_i: torch.Tensor
+    R_o: torch.Tensor
+    R_oi: torch.Tensor
+    t_i: torch.Tensor
+    t_o: torch.Tensor
+    Jr_o: torch.Tensor
+    Jr_i: torch.Tensor
+    center: torch.Tensor
+    fx: torch.Tensor
+    fy: torch.Tensor
+    d0: torch.Tensor   # masked by m1
+    d1: torch.Tensor   # masked by m2
+
+
+def slot_params(params: BAParams, grid: GridIndex) -> SlotParams:
+    so, si = grid.slot_outer.long(), grid.slot_inner.long()
+    sk = grid.slot_intr.long()
+    w_o, w_i = params.ext_rot[so], params.ext_rot[si]
+    R_o, R_i = angle_axis_to_matrix(w_o), angle_axis_to_matrix(w_i)
+    focal, dist = params.focal[sk], params.dist[sk]
+    return SlotParams(
+        R_i=R_i, R_o=R_o, R_oi=R_o @ R_i,
+        t_i=params.ext_trans[si], t_o=params.ext_trans[so],
+        Jr_o=so3_right_jacobian(w_o), Jr_i=so3_right_jacobian(w_i),
+        center=params.center[sk], fx=focal[:, 0],
+        fy=torch.where(grid.focal_shared > 0.5, focal[:, 0], focal[:, 1]),
+        d0=dist[:, 0] * grid.dist_m1, d1=dist[:, 1] * grid.dist_m2,
+    )
+
+
+def grid_residuals(points: torch.Tensor, sp: SlotParams,
+                   grid: GridIndex) -> torch.Tensor:
+    """Masked residuals (N, T, 2), evaluated on (N, T) planes."""
+    from deeparc_tpu_torch.solver.rig_planes import _project_planes
+
+    c = _project_planes(points, sp, grid.xy0, grid.xy1, grid.mask)
+    return torch.stack([c["r0"], c["r1"]], dim=-1)
+
+
+class GridSystem(NamedTuple):
+    cost: torch.Tensor   # scalar
+    g_p: torch.Tensor    # (N, 3)
+    hpp: torch.Tensor    # (N, 3, 3)
+    g_c: torch.Tensor    # (C,) flat camera order
+    hcc: torch.Tensor    # (C, C) flat camera order
+    E: torch.Tensor      # (N, 3, Cn) the kernel's native column order
+
+
+def _bin_slot_system(g_slots, hcc_slots, grid, C, dtype):
+    """Fold per-slot (T, 18) / (T, 18, 18) pieces into the flat camera
+    gradient (C,) and dense H_cc (C, C) via the one-hot bin matrices."""
+    R_rows = grid.onehot_outer.shape[1]
+    g_ext = (torch.einsum("tr,tj->rj", grid.onehot_outer, g_slots[:, 0:6])
+             + torch.einsum("tr,tj->rj", grid.onehot_inner, g_slots[:, 6:12]))
+    g_c = torch.cat([g_ext.reshape(-1),
+                     torch.einsum("tk,tj->kj", grid.onehot_intr,
+                                  g_slots[:, 12:18]).reshape(-1)])
+    groups = ((grid.onehot_outer, slice(0, 6), 0),
+              (grid.onehot_inner, slice(6, 12), 0),
+              (grid.onehot_intr, slice(12, 18), 6 * R_rows))
+    hcc = torch.zeros((C, C), dtype=dtype, device=g_slots.device)
+    for oh_a, sl_a, off_a in groups:
+        Ra = oh_a.shape[1]
+        for oh_b, sl_b, off_b in groups:
+            Rb = oh_b.shape[1]
+            dense = torch.einsum("tij,tu,tv->uivj", hcc_slots[:, sl_a, sl_b],
+                                 oh_a, oh_b).reshape(6 * Ra, 6 * Rb)
+            hcc[off_a:off_a + 6 * Ra, off_b:off_b + 6 * Rb] += dense
+    return g_c, hcc
+
+
+def assemble_grid_system(points, sp, grid, cam_free, point_free,
+                         chunk_size: int = 8192, loss: str = "trivial",
+                         loss_scale: float = 0.5, band_width=0,
+                         band_block: int = 0,
+                         band_intr_frozen: bool = False) -> GridSystem:
+    """Linearize with the fused grid kernels and bin the slot pieces into
+    the flat camera system. ``E`` stays in the kernel's native column
+    order; ``g_c``/``hcc`` are in flat order."""
+    from deeparc_tpu_torch.kernels.rig_grid import (
+        linearize_grid,
+        linearize_grid_banded,
+    )
+
+    R_rows = grid.onehot_outer.shape[1]
+    K = grid.onehot_intr.shape[1]
+    C = 6 * R_rows + 6 * K
+    rows = cam_free[: 6 * R_rows].reshape(R_rows, 6)
+    intr = cam_free[6 * R_rows:].reshape(K, 6)
+    free_outer = rows[grid.slot_outer.long()]
+    free_inner = rows[grid.slot_inner.long()]
+    free_intr = intr[grid.slot_intr.long()]
+    if band_width and grid.band:
+        out = linearize_grid_banded(
+            points, point_free, sp, grid, free_outer, free_inner, free_intr,
+            grid.band[0], w_band=band_width, loss=loss, loss_scale=loss_scale,
+            block_np=band_block or min(chunk_size, 256),
+            intr_frozen=band_intr_frozen,
+            pxm=grid.band[2] if len(grid.band) > 2 else None)
+    else:
+        out = linearize_grid(
+            points, point_free, sp, grid, free_outer, free_inner, free_intr,
+            loss=loss, loss_scale=loss_scale, block_np=min(chunk_size, 256))
+    cost, g_p, hpp, g_slots, hcc_slots, E_nat = out
+    g_c, hcc = _bin_slot_system(g_slots, hcc_slots, grid, C, points.dtype)
+    return GridSystem(cost=cost, g_p=g_p, hpp=hpp, g_c=g_c, hcc=hcc, E=E_nat)
+
+
+def grid_cost(points, sp, grid, chunk_size: int = 16384,
+              loss: str = "trivial", loss_scale: float = 0.5,
+              band_width=0, band_block: int = 0) -> torch.Tensor:
+    """Residual-only (robustified) cost pass with the fused cost kernels."""
+    from deeparc_tpu_torch.kernels.rig_grid import cost_grid, cost_grid_banded
+
+    if band_width and grid.band:
+        return cost_grid_banded(
+            points, sp, grid, grid.band[1], w_band=band_width, loss=loss,
+            loss_scale=loss_scale, block_np=band_block or min(chunk_size, 1024),
+            pxm=grid.band[3] if len(grid.band) > 3 else None)
+    return cost_grid(points, sp, grid, loss=loss, loss_scale=loss_scale,
+                     block_np=min(chunk_size, 1024))
+
+
+class GridState(NamedTuple):
+    points: torch.Tensor    # (N, 3)
+    cam_vec: torch.Tensor   # (C,) flattened camera vector
+    cost: torch.Tensor
+    tr: tr_mod.TRState
+    k: int
+    status: torch.Tensor
+
+
+def _params_from(cam_vec, points, template: BAParams) -> BAParams:
+    return dataclasses.replace(unflatten_camera(cam_vec, template),
+                               points=points)
+
+
+def make_grid_step(options: SolverOptions, template: BAParams,
+                   chunk_size: int = 8192, band_widths: tuple = (0, 0),
+                   band_blocks: tuple = (0, 0),
+                   band_intr_frozen: bool = False):
+    """LM step over the grid layout:
+    step(state, grid, cam_free, point_free) -> (state, info).
+
+    ``band_widths`` = (linearize, cost) live-band widths or width groups
+    from ``rig_band.band_grid`` ((0, 0) = monolithic kernels) and
+    ``band_blocks`` the point-tile widths their start tables were built
+    for; the grid must then carry the matching ``band`` tables."""
+    from deeparc_tpu_torch.kernels.rig_grid import (
+        flat_of_native,
+        native_of_flat,
+    )
+
+    # permutations between E's native column order and the flat camera
+    # order; only C-sized quantities are ever permuted, never E. Banded with
+    # frozen intrinsics, E comes back ext-only (N, 3, 6R): its columns are
+    # the first 6R flat columns, zeros elsewhere.
+    ext_only = band_intr_frozen and bool(band_widths[0])
+    R_rows, K = template.ext_rot.shape[0], template.center.shape[0]
+    dev = template.points.device
+    C_full, ce = 6 * (R_rows + K), 6 * R_rows
+    k_e = 0 if ext_only else K
+    n2f = torch.as_tensor(native_of_flat(R_rows, k_e), device=dev).long()
+    f2n = torch.as_tensor(flat_of_native(R_rows, k_e), device=dev).long()
+
+    def to_flat(v):
+        if not ext_only:
+            return v[n2f] if v.ndim == 1 else v[n2f][:, n2f]
+        out = torch.zeros((C_full,) * v.ndim, dtype=v.dtype, device=dev)
+        if v.ndim == 1:
+            out[:ce] = v[n2f]
+        else:
+            out[:ce, :ce] = v[n2f][:, n2f]
+        return out
+
+    def to_nat(v):
+        return v[:ce][f2n] if ext_only else v[f2n]
+
+    def step(state: GridState, grid: GridIndex, cam_free, point_free):
+        params = _params_from(state.cam_vec, state.points, template)
+        sys = assemble_grid_system(
+            state.points, slot_params(params, grid), grid, cam_free,
+            point_free, chunk_size, options.loss, options.loss_scale,
+            band_width=band_widths[0], band_block=band_blocks[0],
+            band_intr_frozen=band_intr_frozen)
+        dtype = state.points.dtype
+
+        # augmented per-point blocks, eliminated in closed form
+        d2p = tr_mod.lm_diagonal(torch.diagonal(sys.hpp, dim1=-2, dim2=-1),
+                                 options.min_lm_diagonal,
+                                 options.max_lm_diagonal)
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        aug = sys.hpp + eye3 * d2p[:, :, None] / state.tr.radius
+        aug = aug + (1.0 - point_free)[:, :, None] * eye3
+        binv = inv3x3(aug)
+        d2c = tr_mod.lm_diagonal(torch.diagonal(sys.hcc),
+                                 options.min_lm_diagonal,
+                                 options.max_lm_diagonal)
+
+        # reduced camera system S dc = rhs (the Schur complement)
+        N, Cn = sys.E.shape[0], sys.E.shape[2]
+        E2 = sys.E.reshape(N * 3, Cn)
+        bg = torch.einsum("pij,pj->pi", binv, sys.g_p).reshape(-1)
+        rhs = (-sys.g_c + to_flat(E2.T @ bg)) * cam_free
+        be = torch.einsum("pij,pjd->pid", binv, sys.E).reshape(N * 3, Cn)
+        corr = to_flat(E2.T @ be)
+        S = sys.hcc + torch.diag(d2c / state.tr.radius) - corr
+        dc = masked_spd_solve(S, rhs, cam_free)
+
+        e_dc = (E2 @ to_nat(dc)).reshape(N, 3)
+        dp = -torch.einsum("pij,pj->pi", binv, sys.g_p + e_dc) * point_free
+
+        # model cost change from the stored quadratic pieces
+        dtg = torch.sum(dp * sys.g_p) + torch.dot(dc, sys.g_c)
+        dhd = (torch.einsum("pi,pij,pj->", dp, sys.hpp, dp)
+               + 2.0 * torch.sum(dp * e_dc) + dc @ (sys.hcc @ dc))
+        mcc = -(dtg + 0.5 * dhd)
+
+        new_points = state.points + dp
+        new_cam = state.cam_vec + dc
+        trial = _params_from(new_cam, new_points, template)
+        new_cost = grid_cost(new_points, slot_params(trial, grid), grid,
+                             loss=options.loss, loss_scale=options.loss_scale,
+                             band_width=band_widths[1],
+                             band_block=band_blocks[1])
+
+        rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
+        accept = (mcc > 0) & (rho > options.min_relative_decrease)
+        tr_next = tr_mod.select(
+            accept, tr_mod.step_accepted(state.tr, rho, options.max_radius),
+            tr_mod.step_rejected(state.tr))
+        grad_max = torch.maximum(torch.max(torch.abs(sys.g_c)),
+                                 torch.max(torch.abs(sys.g_p)))
+        step_norm = torch.sqrt(torch.sum(dp * dp) + torch.dot(dc, dc))
+        x_norm = torch.sqrt(torch.sum(state.points * state.points)
+                            + torch.dot(state.cam_vec, state.cam_vec))
+        cost_change = state.cost - new_cost
+        ftol = accept & (torch.abs(cost_change)
+                         <= options.function_tolerance * state.cost)
+        ptol = accept & (step_norm <= options.parameter_tolerance
+                         * (x_norm + options.parameter_tolerance))
+        gtol = grad_max <= options.gradient_tolerance
+        radius_min = tr_next.radius <= options.min_radius
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        status = torch.where(gtol, 3, torch.where(ftol, 2, torch.where(
+            ptol, 4, torch.where(radius_min, 5, zero))))
+        info = StepInfo(cost=torch.where(accept, new_cost, state.cost),
+                        cost_change=cost_change, grad_max=grad_max,
+                        step_norm=step_norm, radius=state.tr.radius, rho=rho,
+                        accepted=accept)
+        next_state = GridState(
+            points=torch.where(accept, new_points, state.points),
+            cam_vec=torch.where(accept, new_cam, state.cam_vec),
+            cost=info.cost, tr=tr_next, k=state.k + 1, status=status)
+        return next_state, info
+
+    return step
+
+
+def init_grid_state(params: BAParams, grid: GridIndex, options: SolverOptions,
+                    band_widths: tuple = (0, 0),
+                    band_blocks: tuple = (0, 0)) -> GridState:
+    """The start state. Its cost comes from the same cost kernel as every
+    trial cost, so a borderline first-step rho cannot flip on rounding."""
+    dtype, dev = params.points.dtype, params.points.device
+    cost0 = grid_cost(params.points, slot_params(params, grid), grid,
+                      loss=options.loss, loss_scale=options.loss_scale,
+                      band_width=band_widths[1], band_block=band_blocks[1])
+    return GridState(points=params.points, cam_vec=flatten_camera(params),
+                     cost=cost0,
+                     tr=tr_mod.init_tr(options.initial_radius, dtype, dev),
+                     k=0, status=torch.zeros((), dtype=torch.int64,
+                                             device=dev))
+
+
+def _strip_planes(prep):
+    """The prep without its plane stacks (``band_grid_update`` gathers
+    them again), so a stored prep holds no stale copy of the planes."""
+    g = dataclasses.replace(prep.grid, band=prep.grid.band[:2])
+    return prep._replace(grid=g)
+
+
+def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
+                  options: SolverOptions = SolverOptions(),
+                  chunk_size: int = 8192,
+                  band_reuse: dict | None = None) -> BAResult:
+    """LM to convergence on the grid engine, one Python-driven step per
+    iteration with Ceres-style progress lines and the wall-clock cap
+    (``src/sfm.cc:71``).
+
+    The live-band prep (``solver/rig_band.py``) runs first; when it finds
+    locality the solve takes the banded kernels (points are permuted
+    internally and returned in their original order), otherwise the
+    monolithic ones.
+    ``band_reuse`` is a caller-held dict that carries the prep across the
+    pipeline's solve/filter rounds (the filter only removes observations,
+    so the stored covers stay valid)."""
+    from deeparc_tpu_torch.solver.rig_band import (
+        band_grid,
+        band_grid_update,
+    )
+
+    if band_reuse is not None and "prep" in band_reuse:
+        stored = band_reuse["prep"]
+        prep = None if stored is None else band_grid_update(stored, grid)
+    else:
+        prep = band_grid(grid)
+        if band_reuse is not None:
+            band_reuse["prep"] = None if prep is None else _strip_planes(prep)
+    band_widths = band_blocks = (0, 0)
+    intr_frozen = False
+    unperm = lambda pts: pts
+    if prep is not None:
+        if options.progress_to_stdout:
+            print(f"[grid] live-band solve: w_band<={prep.w_band} of "
+                  f"{grid.mask.shape[1]} cells, lin groups "
+                  f"{[g[0] for g in prep.lin_groups]} "
+                  f"(cost pass <={prep.w_band_cost}, groups "
+                  f"{[g[0] for g in prep.cost_groups]})")
+        grid = prep.grid
+        perm, inv = prep.perm.long(), prep.inv.long()
+        params = dataclasses.replace(params, points=params.points[perm])
+        free = dataclasses.replace(free, points=free.points[perm])
+        unperm = lambda pts: pts[inv]
+        band_widths, band_blocks = prep.widths
+        # all intrinsic columns frozen -> ext-only E (src/sfm.cc:60-62 is
+        # the reference's standard BA mode)
+        n_ext_rows = params.ext_rot.shape[0]
+        intr_frozen = not bool(torch.any(
+            flatten_camera(free)[6 * n_ext_rows:] != 0))
+
+    cam_free = flatten_camera(free)
+    point_free = free.points
+    step = make_grid_step(options, params, chunk_size,
+                          band_widths=band_widths, band_blocks=band_blocks,
+                          band_intr_frozen=intr_frozen)
+    state = init_grid_state(params, grid, options, band_widths=band_widths,
+                            band_blocks=band_blocks)
+    t0 = time.time()
+    k = 0
+    if options.progress_to_stdout:
+        print(f"{'iter':>4} {'cost':>14} {'cost_change':>12} {'|gradient|':>11}"
+              f" {'tr_radius':>10} {'rho':>9} {'accept':>6}")
+        print(f"{k:>4} {float(state.cost):>14.6e}")
+    while int(state.status) == 0 and k < options.max_iterations:
+        if time.time() - t0 > options.max_seconds:
+            break
+        state, info = step(state, grid, cam_free, point_free)
+        k += 1
+        if options.progress_to_stdout:
+            print(f"{k:>4} {float(info.cost):>14.6e}"
+                  f" {float(info.cost_change):>12.4e}"
+                  f" {float(info.grad_max):>11.4e}"
+                  f" {float(info.radius):>10.3e} {float(info.rho):>9.3f}"
+                  f" {bool(info.accepted)!s:>6}")
+    out_params = _params_from(state.cam_vec, unperm(state.points), params)
+    return BAResult(params=out_params, cost=float(state.cost), iterations=k,
+                    status=int(state.status), seconds=time.time() - t0)

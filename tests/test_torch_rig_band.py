@@ -1,0 +1,161 @@
+"""Port parity: live-band prep and grid densification (PyTorch port vs JAX).
+
+The band tables (starts, width groups, cell order) must be IDENTICAL. The
+point order is identical up to points whose circular-mean angles agree
+to 1e-12: such points tie in exact arithmetic, and the two packages' matmuls
+break the tie in different last bits."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeparc_tpu.io import make_hemisphere_rig
+from deeparc_tpu.io.synthetic import make_grid_rig_device
+from deeparc_tpu.kernels import rig_pallas as jk
+from deeparc_tpu.scene import from_deeparc as jfrom_deeparc
+from deeparc_tpu.solver.rig_band import band_grid as jband_grid
+from deeparc_tpu.solver.rig_grid import grid_from_scene as jgrid_from_scene
+from deeparc_tpu_torch.kernels import rig_grid as tk
+from deeparc_tpu_torch.scene import from_deeparc
+from deeparc_tpu_torch.solver.rig_band import (
+    band_grid,
+    band_grid_update,
+    point_angles,
+)
+from deeparc_tpu_torch.solver.rig_grid import grid_from_scene
+from torch_parity import as_np, grid_to_torch
+
+
+@pytest.fixture(scope="module")
+def occlusion():
+    rig = make_hemisphere_rig(n_arc=3, n_ring=16, n_points=420,
+                              occlusion_rings=4, visibility=0.9,
+                              pixel_noise=0.8, point_noise=0.02, seed=5)
+    return rig.data, jgrid_from_scene(jfrom_deeparc(rig.data))
+
+
+def test_grid_from_scene_matches_jax(occlusion):
+    data, jgrid = occlusion
+    grid = grid_from_scene(from_deeparc(data))
+    for k, v in jgrid._asdict().items():
+        if k != "band":
+            np.testing.assert_array_equal(as_np(getattr(grid, k)),
+                                          np.asarray(v), err_msg=k)
+
+
+def test_grid_from_scene_scatters_live_only_and_rejects_duplicates(occlusion):
+    data, _ = occlusion
+    scene = from_deeparc(data)
+    # a dead duplicate of a live observation must not reach the grid
+    dup = dataclasses.replace(
+        scene.index,
+        **{f: torch.cat([getattr(scene.index, f), getattr(scene.index, f)[:1]])
+           for f in ("obs_point", "obs_outer", "obs_inner", "obs_intr",
+                     "obs_xy", "obs_mask")})
+    dup.obs_xy[-1] += 100.0
+    dup.obs_mask[-1] = 0.0
+    meta = dataclasses.replace(
+        scene.meta, obs_arc=np.append(scene.meta.obs_arc, scene.meta.obs_arc[0]),
+        obs_ring=np.append(scene.meta.obs_ring, scene.meta.obs_ring[0]))
+    g0 = grid_from_scene(scene)
+    g1 = grid_from_scene(dataclasses.replace(scene, index=dup, meta=meta))
+    assert torch.equal(g0.xy0, g1.xy0) and torch.equal(g0.mask, g1.mask)
+    # two LIVE observations on one (point, cell) pair have no defined winner
+    dup.obs_mask[-1] = 1.0
+    with pytest.raises(ValueError, match="share one"):
+        grid_from_scene(dataclasses.replace(scene, index=dup, meta=meta))
+
+
+@pytest.mark.parametrize("block_np,cost_block_np", [(64, 128), (256, 1024)])
+def test_band_grid_matches_jax(occlusion, block_np, cost_block_np):
+    _, jgrid = occlusion
+    want = jband_grid(jgrid, block_np=block_np, cost_block_np=cost_block_np)
+    tgrid = grid_to_torch(jgrid)
+    got = band_grid(tgrid, block_np=block_np, cost_block_np=cost_block_np)
+    assert want is not None and got is not None
+    assert got.lin_groups == want.lin_groups
+    assert got.cost_groups == want.cost_groups
+    assert (got.w_band, got.w_band_cost) == (want.w_band, want.w_band_cost)
+    np.testing.assert_array_equal(as_np(got.cell_perm),
+                                  np.asarray(want.cell_perm))
+    for a, b in zip(got.grid.band[:2], want.grid.band[:2]):
+        np.testing.assert_array_equal(as_np(a), np.asarray(b))
+    # same point order, up to exact-arithmetic ties of the sort key
+    theta = as_np(point_angles(tgrid.mask, got.cell_perm))
+    perm_t, perm_j = as_np(got.perm), np.asarray(want.perm)
+    np.testing.assert_allclose(theta[perm_t], theta[perm_j], rtol=0,
+                               atol=1e-12)
+    differ = perm_t != perm_j
+    assert differ.sum() <= 0.02 * perm_t.size, differ.sum()
+    np.testing.assert_array_equal(np.sort(perm_t), np.arange(perm_t.size))
+
+
+def test_band_prep_invariants(occlusion):
+    """Every live cell of every point tile lies inside its cyclic band, and
+    the permutation is a bijection."""
+    _, jgrid = occlusion
+    tgrid = grid_to_torch(jgrid)
+    prep = band_grid(tgrid, block_np=64, cost_block_np=128)
+    t_pad = -(-tgrid.mask.shape[1] // 8) * 8
+    mask, starts = as_np(prep.grid.mask), as_np(prep.grid.band[0])
+    widths = {}
+    for w, lo, hi in prep.lin_groups:
+        for i in range(lo, hi):
+            widths[i] = w
+    for i, s0 in enumerate(starts):
+        rows = mask[i * 64:(i + 1) * 64]
+        live = np.nonzero(rows.any(axis=0))[0]
+        assert ((live - s0 * 8) % t_pad < widths[i]).all(), (i, s0, live)
+    perm, inv = as_np(prep.perm), as_np(prep.inv)
+    assert (perm[inv] == np.arange(perm.size)).all()
+    assert np.isclose(mask.sum(), as_np(tgrid.mask).sum())
+
+
+def test_band_grid_declines_without_locality():
+    """Dense and uniform-random masks fall back to the monolithic kernels,
+    as the reference's band_grid does (tests/test_rig_band.py)."""
+    _, dense, _ = make_grid_rig_device(
+        n_arc=3, n_ring=16, n_points=256, occlusion_rings=None,
+        visibility=None, seed=1, dtype=jnp.float64)
+    _, rand, _ = make_grid_rig_device(
+        n_arc=3, n_ring=16, n_points=256, occlusion_rings=None,
+        visibility=0.2, seed=1, dtype=jnp.float64)
+    for g in (dense, rand):
+        assert jband_grid(g, block_np=64) is None
+        assert band_grid(grid_to_torch(g), block_np=64) is None
+
+
+def test_banded_planes_gather_matches_jax(occlusion):
+    """The port's plane stacks, gathered from the reference's band-prepped
+    grid and start tables, equal the reference's stacks."""
+    _, jgrid = occlusion
+    prep = jband_grid(jgrid, block_np=64, cost_block_np=128)
+    tgrid = grid_to_torch(prep.grid)
+    n_pad = -(-tgrid.mask.shape[0] // 128) * 128
+    w_max = max(prep.w_band, prep.w_band_cost)
+    pxm_ext = tk.banded_planes(tgrid, n_pad, w_max)
+    np.testing.assert_array_equal(
+        as_np(pxm_ext), np.asarray(jk.banded_planes(prep.grid, n_pad, w_max)))
+    starts = torch.as_tensor(np.asarray(prep.grid.band[0]))
+    for (w, lo, hi), want in zip(prep.lin_groups, prep.grid.band[2]):
+        got = tk.gather_banded_planes(pxm_ext, starts, w, 64, lo, hi)
+        np.testing.assert_array_equal(as_np(got), np.asarray(want))
+
+
+def test_band_grid_update_refuses_a_grown_mask(occlusion):
+    _, jgrid = occlusion
+    tgrid = grid_to_torch(jgrid)
+    prep = band_grid(tgrid, block_np=64, cost_block_np=128)
+    # a filter round removes observations: the stored covers are reused
+    shrunk = dataclasses.replace(tgrid, mask=tgrid.mask.clone())
+    shrunk.mask[0] = 0.0
+    upd = band_grid_update(prep, shrunk)
+    assert upd.lin_groups == prep.lin_groups
+    assert float(upd.grid.mask.sum()) == float(shrunk.mask.sum())
+    # a mask with more live observations than the prep saw is refused
+    grown = dataclasses.replace(tgrid, mask=torch.ones_like(tgrid.mask))
+    with pytest.raises(ValueError, match="gained observations"):
+        band_grid_update(prep, grown)

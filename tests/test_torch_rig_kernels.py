@@ -1,0 +1,158 @@
+"""Port parity: the grid kernels' plain PyTorch versions vs the JAX Pallas
+kernels run in interpret mode, on the same inputs.
+
+Tolerances are the reference's own for these kernels: 1e-8 .. 1e-10 on
+the monolithic pair (tests/test_pallas_kernels.py) and 1e-4 .. 1e-5 on the
+banded pair (tests/test_rig_band.py); both sides compute in float64."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeparc_tpu.io import make_hemisphere_rig
+from deeparc_tpu.kernels import rig_pallas as jk
+from deeparc_tpu.residuals.reprojection import flatten_camera as jflatten
+from deeparc_tpu.scene import freeze_masks as jfreeze
+from deeparc_tpu.scene import from_deeparc as jfrom_deeparc
+from deeparc_tpu.solver.rig_band import band_grid as jband_grid
+from deeparc_tpu.solver.rig_grid import grid_from_scene as jgrid_from_scene
+from deeparc_tpu.solver.rig_grid import slot_params as jslot_params
+from deeparc_tpu_torch.kernels import rig_grid as tk
+from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+from deeparc_tpu_torch.solver.rig_grid import slot_params
+from torch_parity import close, grid_to_torch, params_to_torch
+
+
+def _free_tables(cam_free, grid, R, K):
+    rows = cam_free[: 6 * R].reshape(R, 6)
+    intr = cam_free[6 * R:].reshape(K, 6)
+    idx = lambda t: t.long() if isinstance(t, torch.Tensor) else t
+    return (rows[idx(grid.slot_outer)], rows[idx(grid.slot_inner)],
+            intr[idx(grid.slot_intr)])
+
+
+@pytest.fixture(scope="module", params=[dict(focal_size=1, dist_size=0),
+                                        dict(focal_size=2, dist_size=2)])
+def mono(request):
+    rig = make_hemisphere_rig(n_arc=3, n_ring=5, n_points=50, pixel_noise=0.5,
+                              point_noise=0.04, visibility=0.8, seed=31,
+                              **request.param)
+    scene = jfrom_deeparc(rig.data)
+    grid = jgrid_from_scene(scene)
+    free = jfreeze(scene)
+    return scene, grid, free
+
+
+def _mono_inputs(mono):
+    scene, grid, free = mono
+    R, K = grid.onehot_outer.shape[1], grid.onehot_intr.shape[1]
+    j_in = (scene.params.points, free.points, jslot_params(scene.params, grid),
+            grid, *_free_tables(jflatten(free), grid, R, K))
+    params, tgrid = params_to_torch(scene.params), grid_to_torch(grid)
+    tfree = params_to_torch(free)
+    t_in = (params.points, tfree.points, slot_params(params, tgrid), tgrid,
+            *_free_tables(flatten_camera(tfree), tgrid, R, K))
+    return j_in, t_in
+
+
+@pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("cauchy", 2.0),
+                                        ("huber", 3.0)])
+def test_linearize_grid_plain_matches_pallas(mono, loss, scale):
+    j_in, t_in = _mono_inputs(mono)
+    want = jk.linearize_grid(*j_in, loss=loss, loss_scale=scale, block_np=16,
+                             interpret=True)
+    got = tk.linearize_grid(*t_in, loss=loss, loss_scale=scale, block_np=16)
+    for g, w, rtol, atol in zip(got, want, (1e-9, 1e-8, 1e-8, 1e-8, 1e-8, 1e-8),
+                                (0, 1e-10, 1e-10, 1e-9, 1e-9, 1e-10)):
+        close(g, w, rtol, atol)
+
+
+def test_cost_grid_plain_matches_pallas(mono):
+    j_in, t_in = _mono_inputs(mono)
+    want = jk.cost_grid(j_in[0], j_in[2], j_in[3], loss="huber",
+                        loss_scale=3.0, block_np=16, interpret=True)
+    got = tk.cost_grid(t_in[0], t_in[2], t_in[3], loss="huber",
+                       loss_scale=3.0, block_np=16)
+    close(got, want, 1e-10)
+
+
+@pytest.fixture(scope="module")
+def banded():
+    """3x16-cell occlusion rig (numpy generator), band-prepped by JAX; the
+    port gets the same band-prepped grid and the same band tables
+    (test_torch_rig_band.py holds the port's own band prep against JAX)."""
+    rig = make_hemisphere_rig(n_arc=3, n_ring=16, n_points=420,
+                              occlusion_rings=4, visibility=0.9,
+                              pixel_noise=0.8, point_noise=0.02, seed=5)
+    scene = jfrom_deeparc(rig.data)
+    prep = jband_grid(jgrid_from_scene(scene), block_np=64, cost_block_np=128)
+    assert prep is not None
+    tg = grid_to_torch(prep.grid)
+    starts, starts_cost, pxm_lin, pxm_cost = prep.grid.band
+    t = lambda a: torch.as_tensor(np.asarray(a))
+    tg.band = (t(starts), t(starts_cost), tuple(t(p) for p in pxm_lin),
+               tuple(t(p) for p in pxm_cost))
+    return scene, prep, tg
+
+
+@pytest.mark.parametrize("loss,scale,intr_frozen", [
+    ("trivial", 0.5, False),   # full E: extrinsic + intrinsic columns
+    ("huber", 2.0, True),      # ext-only E, intrinsic slot entries zero
+])
+def test_linearize_banded_plain_matches_pallas(banded, loss, scale,
+                                               intr_frozen):
+    scene, prep, tg = banded
+    g = prep.grid
+    perm = np.asarray(prep.perm)
+    params = dataclasses.replace(scene.params,
+                                 points=scene.params.points[perm])
+    R, K = g.onehot_outer.shape[1], g.onehot_intr.shape[1]
+    cam_free = np.ones(6 * (R + K))
+    if intr_frozen:
+        cam_free[6 * R:] = 0.0
+    pf = np.ones_like(np.asarray(params.points))
+    want = jk.linearize_grid_banded(
+        params.points, jnp.asarray(pf), jslot_params(params, g), g,
+        *_free_tables(jnp.asarray(cam_free), g, R, K), g.band[0],
+        w_band=prep.lin_groups, loss=loss, loss_scale=scale, block_np=64,
+        interpret=True, intr_frozen=intr_frozen, pxm=g.band[2])
+    tparams = params_to_torch(params)
+    got = tk.linearize_grid_banded(
+        tparams.points, torch.as_tensor(pf), slot_params(tparams, tg), tg,
+        *_free_tables(torch.as_tensor(cam_free), tg, R, K), tg.band[0],
+        w_band=prep.lin_groups, loss=loss, loss_scale=scale, block_np=64,
+        intr_frozen=intr_frozen, pxm=tg.band[2])
+    assert got[5].shape == want[5].shape
+    for g_, w_, rtol, atol in zip(got, want, (1e-5, 1e-4, 1e-4, 1e-4, 1e-4,
+                                              1e-4),
+                                  (0, 1e-5, 1e-5, 1e-4, 1e-4, 1e-5)):
+        close(g_, w_, rtol, atol)
+
+
+def test_cost_banded_plain_matches_pallas(banded):
+    scene, prep, tg = banded
+    g = prep.grid
+    params = dataclasses.replace(
+        scene.params, points=scene.params.points[np.asarray(prep.perm)])
+    tparams = params_to_torch(params)
+    want = jk.cost_grid_banded(params.points, jslot_params(params, g), g,
+                               g.band[1], w_band=prep.cost_groups,
+                               loss="cauchy", loss_scale=3.0, block_np=128,
+                               interpret=True, pxm=g.band[3])
+    got = tk.cost_grid_banded(tparams.points, slot_params(tparams, tg), tg,
+                              tg.band[1], w_band=prep.cost_groups,
+                              loss="cauchy", loss_scale=3.0, block_np=128,
+                              pxm=tg.band[3])
+    close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("R,K", [(7, 3), (32, 8), (5, 0)])
+def test_native_of_flat_identical(R, K):
+    np.testing.assert_array_equal(tk.native_of_flat(R, K),
+                                  jk.native_of_flat(R, K))
+    np.testing.assert_array_equal(tk.flat_of_native(R, K),
+                                  jk.flat_of_native(R, K))
+

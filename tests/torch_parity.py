@@ -1,0 +1,31 @@
+"""Helpers shared by the port's parity tests: hand one problem, as numpy
+arrays, to both the JAX reference and the PyTorch port."""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+import deeparc_tpu_torch.scene as tscene
+
+
+def as_np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def params_to_torch(params_jax, dtype=torch.float64):
+    """JAX BAParams -> port BAParams through numpy."""
+    d = {f.name: np.asarray(getattr(params_jax, f.name))
+         for f in dataclasses.fields(params_jax)}
+    return tscene.params_from_numpy(d, dtype=dtype)
+
+
+def grid_to_torch(grid_jax, dtype=torch.float64):
+    """JAX GridIndex (band tables dropped) -> port GridIndex through numpy."""
+    d = {k: np.asarray(v) for k, v in grid_jax._asdict().items() if k != "band"}
+    return tscene.grid_from_numpy(d, dtype=dtype)
+
+
+def close(got, want, rtol, atol=0.0):
+    np.testing.assert_allclose(as_np(got), np.asarray(want), rtol=rtol,
+                               atol=atol)
