@@ -2,24 +2,42 @@
 """Smoke run of the PyTorch + CUDA port (``deeparc_tpu_torch``) on one card.
 
     python3 chip_smoke.py                    # the full run, one card
-    python3 chip_smoke.py --n-points 20000   # the same phases, smaller rig
+    python3 chip_smoke.py --n-points 20000 --tile-points 100000   # smaller
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
      exits 1 without a CUDA device;
-  2. build the hand-written kernels from ``deeparc_tpu_torch/kernels/csrc``;
-  3. each kernel against its plain PyTorch version on the card, in float64
-     and float32, at the main path's shapes: the 8x24-cell occlusion rig,
-     band-prepped, for the banded pair, and a uniform-random rig of the
-     same size for the monolithic pair (max relative error against the
-     stated tolerance; milliseconds, median of CUDA-event timings);
-  4. the main path: ``run_pipeline`` on the 8x24-cell occlusion rig
-     (400k points), float64 on the card; the banded kernels must have
-     launched and the final RMSE must sit under twice the pixel noise;
-  5. a small uniform-random rig through ``run_pipeline``, which takes the
-     monolithic kernels;
-then one JSON line with every kernel's record, the nvidia-smi line, and the
-result line ``{"ok": true, "device": {...}}``.
+  2. build the hand-written kernels from ``deeparc_tpu_torch/kernels/csrc``
+     (one nvcc per source, in parallel);
+  3. each grid kernel against its plain PyTorch version on the card, in
+     float64 and float32, at the grid path's shapes: the 8x24-cell
+     occlusion rig, band-prepped, for the banded pair, and a uniform-random
+     rig of the same size for the monolithic pair;
+  4. the grid main path: ``run_pipeline`` on the 8x24-cell occlusion rig
+     (400k points), float64; the banded kernels must launch and the final
+     RMSE must sit under twice the pixel noise;
+  5. a small uniform-random rig through ``run_pipeline`` (monolithic);
+  6. each tile kernel against its plain version on the card at the tile
+     path's shapes: the windowed BAL scene (2000 shuffled cameras, 1M
+     points, 8 observations each, 8 hub cameras), laid out with locality
+     for ``tile_linearize_local`` / ``tile_sweep_local`` and without it
+     (V = 2000 global cells) for ``tile_sweep``; float64, float32 and bf16
+     planes; each kernel run twice must give the same bits;
+  7. the tile main path: ``run_pipeline`` on that scene, float64,
+     ITERATIVE_SCHUR with 30 PCG iterations; the tile kernels must launch
+     and the final RMSE must sit under twice the pixel noise;
+  8. ``solve_ba_tiles(locality=False)`` on a smaller scene of the same
+     generator: ``tile_sweep`` must launch and the cost must go down; then
+     a small scene with several bucket widths (every routing of the step)
+     solved on the card and on the CPU must end at the same cost;
+then one JSON line with every kernel's record (errors, milliseconds, the
+bound, launches on the main paths), the nvidia-smi line, and the result
+line ``{"ok": true, "device": {...}}``.
+
+Times are medians of CUDA-event timings. A kernel's bound is the larger of
+its bytes (each input read once, each output written once) over 3.35 TB/s
+and its operations over the data-sheet peak for its type (float64 34
+TFLOP/s, float32 67 TFLOP/s, outside the tensor cores).
 """
 
 from __future__ import annotations
@@ -33,16 +51,35 @@ import time
 
 # max relative error (max |kernel - plain| / max |plain|, per output) that a
 # kernel may show against its plain version: float64 sums in another order
-# differ in the last digits; float32 sums over ~1e6 terms differ in ~1e-5
-TOLERANCE = {"float64": 1e-9, "float32": 2e-3}
+# differ in the last digits; float32 sums over ~1e6 terms differ in ~1e-5;
+# bf16 planes differ by one rounding step where the two working values
+# straddle a bf16 rounding boundary, and the sweeps sum such planes
+TOLERANCE = {"float64": 1e-9, "float32": 2e-3, "bf16": 1e-2}
 PIXEL_NOISE = 1.0
-SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_grid.cu"
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+# operations per (point, cell) slot, counted from the arithmetic of
+# csrc/rig_slot.cuh and the kernels: the slot chain ~60, its Jacobian ~240,
+# the point sums ~36; the grid linearize adds ~144 for the E row and ~270
+# for the slot Gram, the tile linearize ~570 for the 189 bin values; a
+# matvec sweep ~170 (E v, B^-1, E^T w), rhs ~90, edot ~84
+OPS_PER_SLOT = {"linearize_grid_banded": 750, "linearize_grid": 750,
+                "cost_grid_banded": 60, "cost_grid": 60,
+                "tile_linearize_local": 906, "rhs": 90, "matvec": 170,
+                "edot": 84}
+GRID_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_grid.cu"
+TILE_SOURCE = "deeparc_tpu_torch/kernels/csrc/tile.cu"
 REPLACES = {
     "linearize_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:615",
     "cost_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:777",
     "linearize_grid": "deeparc_tpu/kernels/rig_pallas.py:363",
     "cost_grid": "deeparc_tpu/kernels/rig_pallas.py:859",
+    "tile_linearize_local": "deeparc_tpu/kernels/tile_pallas.py:573",
+    "tile_sweep_local": "deeparc_tpu/kernels/tile_pallas.py:207",
+    "tile_sweep": "deeparc_tpu/kernels/tile_pallas.py:282",
 }
+TILE_SCENE = dict(n_cameras=2000, track_length=8, window=128, n_hubs=8,
+                  hub_frac=0.15, pixel_noise=PIXEL_NOISE, point_noise=0.02)
 
 
 def nvidia_smi() -> str:
@@ -82,36 +119,84 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def compare(name, dtype_name, kernel_out, plain_out):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_moved, ops, dtype_name):
+    """(bound_ms, bound_by) of work moving these bytes and doing these ops."""
+    t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name, dtype_name, kernel_out, plain_out, labels, tol_name=None):
     """Per-output errors of a kernel against its plain version; raises on a
     non-finite output, a shape mismatch or an error over tolerance."""
     import torch
 
+    tol = TOLERANCE[tol_name or dtype_name]
     kernel_out = kernel_out if isinstance(kernel_out, tuple) else (kernel_out,)
     plain_out = plain_out if isinstance(plain_out, tuple) else (plain_out,)
-    labels = (("cost", "g_p", "hpp", "g_slots", "hcc_slots", "E")
-              if len(kernel_out) == 6 else ("cost",))
     worst_rel = worst_abs = 0.0
     for label, k, p in zip(labels, kernel_out, plain_out):
-        if k.shape != p.shape:
-            raise AssertionError(f"{name} {label}: shape {tuple(k.shape)} "
-                                 f"!= plain {tuple(p.shape)}")
+        if k.shape != p.shape or k.dtype != p.dtype:
+            raise AssertionError(f"{name} {label}: {tuple(k.shape)} {k.dtype}"
+                                 f" != plain {tuple(p.shape)} {p.dtype}")
         if not bool(torch.isfinite(k).all()):
             raise AssertionError(f"{name} {label}: non-finite output")
         diff = float((k.double() - p.double()).abs().max())
         scale = float(p.double().abs().max())
         rel = diff / scale if scale > 0 else diff
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, diff)
-        print(f"  {name:22s} {dtype_name} {label:9s} max_rel_err={rel:.3e} "
-              f"max_abs_err={diff:.3e} (tol {TOLERANCE[dtype_name]:.0e})")
-        if rel > TOLERANCE[dtype_name]:
+        print(f"  {name:22s} {tol_name or dtype_name:8s} {label:9s} "
+              f"max_rel_err={rel:.3e} max_abs_err={diff:.3e} (tol {tol:.0e})")
+        if rel > tol:
             raise AssertionError(f"{name} {label} {dtype_name}: relative "
                                  f"error {rel:.3e} over tolerance")
     return worst_rel, worst_abs
 
 
+def check_repeatable(name, fn):
+    """Two runs of a kernel give the same bits."""
+    import torch
+
+    a, b = fn(), fn()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two runs gave different bits")
+
+
+def measure(records, name, dtype_name, kern, plain, labels, reps,
+            bytes_moved, ops, tol_name=None, mode=None):
+    """Compare, check repeatability, time kernel and plain version; the
+    record goes under ``records[name]["<dtype or bf16>[:<mode>]"]``."""
+    import torch
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    rel, ab = compare(name, dtype_name, got, want, labels, tol_name)
+    del got, want
+    check_repeatable(name, kern)
+    ms = time_ms(kern, reps)
+    plain_ms = time_ms(plain, reps)
+    b_ms, b_by = bound(bytes_moved, ops, dtype_name)
+    key = (tol_name or dtype_name) + (f":{mode}" if mode else "")
+    print(f"  {name:22s} {key:15s} kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {b_ms:.3f} ms ({b_by}), bitwise repeatable")
+    records.setdefault(name, {})[key] = dict(
+        max_rel_err=rel, max_abs_err=ab, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by)
+
+
+# ---------------------------------------------------------------------------
+# Grid engine (phases 3-5)
+# ---------------------------------------------------------------------------
+
+
 def kernel_inputs(data, dtype, banded):
-    """Arguments for the four wrappers on the main path's shapes: the
+    """Arguments for the four grid wrappers on the main path's shapes: the
     pipeline's full-BA free mask (gauge extrinsic and intrinsics frozen)."""
     import dataclasses
 
@@ -144,74 +229,86 @@ def kernel_inputs(data, dtype, banded):
     return params.points, free.points, sp, grid, tables, prep
 
 
-def phase_kernels(args, records):
+def phase_grid_kernels(args, records):
     """Phase 3; returns the occlusion rig for the main path."""
     import torch
 
     from deeparc_tpu_torch.kernels import rig_grid as k
 
-    print("[phase 3] kernels vs plain versions on the card")
+    print("[phase 3] grid kernels vs plain versions on the card")
     rigs = {True: flagship_rig(args.n_points, 6, 0),
             False: flagship_rig(args.n_points, None, 1)}
+    lin_labels = ("cost", "g_p", "hpp", "g_slots", "hcc_slots", "E")
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for banded, data in rigs.items():
             pts, pf, sp, grid, tables, prep = kernel_inputs(data, dtype,
                                                             banded)
+            N, T = grid.mask.shape
+            esz = pts.element_size()
             density = float(grid.mask.mean())
             if banded:
                 (bw_lin, bw_cost), (bb_lin, bb_cost) = prep.widths
-                print(f"  banded rig: {pts.shape[0]} points, "
-                      f"{grid.mask.shape[1]} cells, density {density:.4f}, "
-                      f"lin groups {prep.lin_groups}, cost groups "
-                      f"{prep.cost_groups}")
+                print(f"  banded rig: {N} points, {T} cells, density "
+                      f"{density:.4f}, lin groups {prep.lin_groups}, cost "
+                      f"groups {prep.cost_groups}")
+                lin_slots = sum(w * (hi - lo) * bb_lin
+                                for w, lo, hi in prep.lin_groups)
+                cost_slots = sum(w * (hi - lo) * bb_cost
+                                 for w, lo, hi in prep.cost_groups)
+                lin_in = (nbytes(pts, pf, *grid.band[2]) + T * 78 * esz)
+                cost_in = nbytes(pts, *grid.band[3]) + T * 78 * esz
                 calls = {
                     "linearize_grid_banded": (
                         k.linearize_grid_banded, k.linearize_grid_banded_plain,
                         (pts, pf, sp, grid, *tables, grid.band[0], bw_lin),
                         dict(block_np=bb_lin, intr_frozen=True,
-                             pxm=grid.band[2])),
+                             pxm=grid.band[2]), lin_in, lin_slots),
                     "cost_grid_banded": (
                         k.cost_grid_banded, k.cost_grid_banded_plain,
                         (pts, sp, grid, grid.band[1], bw_cost),
-                        dict(block_np=bb_cost, pxm=grid.band[3])),
+                        dict(block_np=bb_cost, pxm=grid.band[3]), cost_in,
+                        cost_slots),
                 }
             else:
-                print(f"  uniform rig: {pts.shape[0]} points, "
-                      f"{grid.mask.shape[1]} cells, density {density:.4f}")
+                print(f"  uniform rig: {N} points, {T} cells, density "
+                      f"{density:.4f}")
+                t_pad = -(-T // 8) * 8
+                planes = nbytes(grid.xy0, grid.xy1, grid.mask)
                 calls = {
-                    "linearize_grid": (k.linearize_grid,
-                                       k.linearize_grid_plain,
-                                       (pts, pf, sp, grid, *tables),
-                                       dict(block_np=256)),
-                    "cost_grid": (k.cost_grid, k.cost_grid_plain,
-                                  (pts, sp, grid), dict(block_np=1024)),
+                    "linearize_grid": (
+                        k.linearize_grid, k.linearize_grid_plain,
+                        (pts, pf, sp, grid, *tables), dict(block_np=256),
+                        nbytes(pts, pf) + planes + T * 78 * esz, N * t_pad),
+                    "cost_grid": (
+                        k.cost_grid, k.cost_grid_plain, (pts, sp, grid),
+                        dict(block_np=1024),
+                        nbytes(pts) + planes + T * 78 * esz, N * t_pad),
                 }
-            for name, (kern, plain, a, kw) in calls.items():
-                got, want = kern(*a, **kw), plain(*a, **kw)
-                torch.cuda.synchronize()
-                rel, ab = compare(name, dname, got, want)
-                ms = time_ms(lambda: kern(*a, **kw), args.reps)
-                plain_ms = time_ms(lambda: plain(*a, **kw), args.reps)
-                print(f"  {name:22s} {dname} kernel {ms:.3f} ms, plain "
-                      f"{plain_ms:.3f} ms (median of {args.reps})")
-                rec = records.setdefault(name, {})
-                rec[dname] = dict(max_rel_err=rel, max_abs_err=ab, ms=ms,
-                                  plain_ms=plain_ms)
-            del got, want, pts, pf, sp, grid, tables, prep, calls
+            for name, (kern, plain, a, kw, in_bytes, slots) in calls.items():
+                out = kern(*a, **kw)
+                out_bytes = nbytes(*(out if isinstance(out, tuple) else
+                                     (out,)))
+                del out
+                labels = lin_labels if "linearize" in name else ("cost",)
+                measure(records, name, dname,
+                        lambda: kern(*a, **kw), lambda: plain(*a, **kw),
+                        labels, args.reps, in_bytes + out_bytes,
+                        slots * OPS_PER_SLOT[name])
+            del pts, pf, sp, grid, tables, prep, calls
             torch.cuda.empty_cache()
     return rigs[True]
 
 
-def run_main_path(data, args, label):
+def run_main_path(data, args, label, solver=None):
     import torch
 
     from deeparc_tpu_torch.config import PipelineOptions, SolverOptions
+
     from deeparc_tpu_torch.pipeline import run_pipeline
 
-    opts = PipelineOptions(
-        solver=SolverOptions(max_iterations=args.max_iterations),
-        write_snapshots=False)
+    solver = solver or SolverOptions(max_iterations=args.max_iterations)
+    opts = PipelineOptions(solver=solver, write_snapshots=False)
     torch.cuda.synchronize()
     t0 = time.time()
     res = run_pipeline(data, opts, device="cuda", dtype=torch.float64,
@@ -222,18 +319,281 @@ def run_main_path(data, args, label):
     print(f"  {label}: points {res.scene.n_points}, rounds "
           f"{res.filter_rounds}, final_cost {res.final_cost:.6e}, "
           f"final_rmse_px {res.final_rmse_px:.6f}, LM iterations "
-          f"{res.solve_iterations}, {per_iter:.6f} s/iteration, pipeline "
-          f"{seconds:.3f} s (max_iterations {args.max_iterations} per solve)")
+          f"{res.solve_iterations}, CG iterations {res.cg_iterations}, "
+          f"{per_iter:.6f} s/iteration, pipeline {seconds:.3f} s (LM bound "
+          f"{solver.max_iterations} iterations per solve)")
     if not res.final_rmse_px < 2 * PIXEL_NOISE:
         raise AssertionError(f"{label}: final RMSE {res.final_rmse_px} px "
                              f"not under {2 * PIXEL_NOISE} px")
     return res
 
 
+# ---------------------------------------------------------------------------
+# Tile engine (phases 6-8)
+# ---------------------------------------------------------------------------
+
+
+def tile_layout(data, locality):
+    import torch
+
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.rig_grid import slot_params
+    from deeparc_tpu_torch.solver.tiles import pack_cells, tiles_from_scene
+
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    free = freeze_masks(scene)
+    t0 = time.time()
+    tiles, params_t, free_t = tiles_from_scene(scene, free, locality=locality)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    cam_free = flatten_camera(free)
+    packed = pack_cells(slot_params(params_t, tiles.cells), tiles.cells,
+                        cam_free)
+    layout_bytes = sum(nbytes(b.cell, b.xy0, b.xy1, b.mask, *b.loc)
+                       for b in tiles.buckets)
+    print(f"  layout (locality={locality}): {tiles.cells.cols.shape[0]} "
+          f"cells, widths {[b.cell.shape[1] for b in tiles.buckets]}, rows "
+          f"{[b.cell.shape[0] for b in tiles.buckets]}, v_local "
+          f"{[b.loc[1].shape[1] if b.loc else None for b in tiles.buckets]}, "
+          f"chunks {[b.loc[1].shape[0] if b.loc else None for b in tiles.buckets]}, "
+          f"{layout_bytes / 1e9:.3f} GB of planes, built in {build_s:.1f} s")
+    return tiles, params_t, free_t, packed, cam_free
+
+
+def tile_step_breakdown(layout):
+    """One classic tile LM step (30 PCG iterations) on the main path's
+    layout, float64: host wall time around a synchronised step, then the
+    device time of each kernel under torch.profiler, split into the
+    linearize's row and bin passes, the PCG sweeps' row and bin passes,
+    the bins' second pass, and everything else (torch ops)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.solver.tiles import init_tile_state, make_tile_step
+
+    tiles, params_t, free_t, _, cam_free = layout
+    opts = SolverOptions(linear_solver="iterative_schur", cg_max_iterations=30)
+    step = make_tile_step(opts, params_t)
+    state = init_tile_state(params_t, tiles, opts, cam_free)
+    state, info = step(state, tiles, cam_free, free_t)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, info = step(state, tiles, cam_free, free_t)
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, tiles, cam_free, free_t)
+        torch.cuda.synchronize()
+    parts = ("linearize_rows", "linearize_bins", "sweep_rows", "sweep_bins",
+             "reduce_bins")
+    split = dict.fromkeys(parts + ("other",), 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0))
+        part = next((p for p in parts if p in e.key), "other")
+        split[part] += us / 1e3
+    busy = sum(split.values())
+    print(f"  one LM step (f64, {info.cg_iters} PCG iterations): wall "
+          f"{wall:.3f} ms (median of 3); device time by part (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; device busy {busy:.3f} ms, idle share "
+          + (f"{1 - busy / wall:.3f}" if busy else "not measured (the "
+             "profiler saw no device time)"))
+
+
+def lin_args(b, points, free, packed, dtype, local):
+    """tile_linearize_local's inputs for bucket b. ``local=False`` lays a
+    global-id bucket out as ONE chunk whose local table is the whole
+    packed table (the planes that tile_sweep then sweeps)."""
+    import torch
+
+    Nb = b.cell.shape[0]
+    pts = torch.cat([points.T, free.T, torch.zeros((2, Nb), dtype=dtype,
+                                                   device=points.device)])
+    if local:
+        cell_t, tables = b.loc[0].T, packed[b.loc[1].long()]
+    else:
+        cell_t, tables = b.cell.T, packed[None]
+    c = lambda t: t.to(dtype).contiguous()
+    return (c(pts), cell_t.contiguous(), c(b.xy0.T), c(b.xy1.T), c(b.mask.T),
+            c(tables))
+
+
+def phase_tile_kernels(args, records):
+    """Phase 6; returns the scene for the main path."""
+    import torch
+
+    from deeparc_tpu_torch.io import make_bal_windowed_host
+    from deeparc_tpu_torch.kernels import tile as k
+    from deeparc_tpu_torch.solver.linalg import inv3x3
+
+    print("[phase 6] tile kernels vs plain versions on the card")
+    t0 = time.time()
+    data = make_bal_windowed_host(n_points=args.tile_points, seed=0,
+                                  **TILE_SCENE)
+    print(f"  windowed BAL scene: {data.n_points} points, {data.n_obs} "
+          f"observations, {data.n_extrinsics} cameras "
+          f"({time.time() - t0:.1f} s)")
+    layouts = {True: tile_layout(data, True), False: tile_layout(data, False)}
+    lin_labels = ("cost", "pout", "r_t", "jx_t", "jcam_t", "gc", "hc")
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    cases = (("float64", torch.float64, None),
+             ("float32", torch.float32, None),
+             ("bf16", torch.float64, torch.bfloat16))
+    for key, dtype, pdt in cases:
+        dname = str(dtype).replace("torch.", "")
+        for local, (tiles, params_t, free_t, packed, _) in layouts.items():
+            b = max(tiles.buckets, key=lambda bb: bb.cell.numel())
+            if local and not b.loc:
+                raise AssertionError("the windowed scene lost its locality")
+            Nb, W = b.cell.shape
+            off = sum(bb.cell.shape[0] for bb in
+                      tiles.buckets[:tiles.buckets.index(b)])
+            la = lin_args(b, params_t.points[off:off + Nb],
+                          free_t[off:off + Nb], packed, dtype, local)
+            bins = b.bins
+            lin = lambda: k.tile_linearize_local(*la, plane_dtype=pdt,
+                                                 bins=bins)
+            lin_plain = lambda: k.tile_linearize_local_plain(
+                *la, plane_dtype=pdt)
+            cost, pout, r_t, jx_t, jcam_t, gc, hc = lin()
+            if local:
+                in_bytes = nbytes(*la)
+                measure(records, "tile_linearize_local", dname, lin, lin_plain,
+                        lin_labels, args.reps,
+                        in_bytes + nbytes(pout, r_t, jx_t, jcam_t, gc, hc),
+                        W * Nb * OPS_PER_SLOT["tile_linearize_local"],
+                        tol_name=key)
+            hpp = pout[3:12].T.reshape(Nb, 3, 3)
+            binv_t = inv3x3(hpp + 0.1 * torch.eye(3, dtype=dtype,
+                                                  device="cuda"))
+            binv_t = binv_t.reshape(Nb, 9).T.contiguous()
+            gp_t = pout[0:3].contiguous()
+            V = tiles.cells.cols.shape[0]
+            v_cells = torch.randn((V, 18), dtype=dtype, device="cuda",
+                                  generator=rng)
+            if local:
+                cc = b.loc[1].long()
+                v_arg = v_cells[cc].transpose(1, 2).contiguous()
+                cell_t, name = b.loc[0].T.contiguous(), "tile_sweep_local"
+                kern, plain = k.tile_sweep_local, k.tile_sweep_local_plain
+            else:
+                v_arg, cell_t, name = v_cells, b.cell.T.contiguous(), \
+                    "tile_sweep"
+                kern, plain = k.tile_sweep, k.tile_sweep_plain
+            sw = (cell_t, jcam_t, jx_t, binv_t, gp_t, v_arg)
+            plane_bytes = nbytes(cell_t, jcam_t, jx_t)
+            for mode in ("rhs", "matvec", "edot"):
+                out = kern(*sw, mode=mode, bins=bins)
+                moved = (plane_bytes + nbytes(out)
+                         + (nbytes(binv_t) if mode != "edot" else 0)
+                         + (nbytes(gp_t) if mode == "rhs" else nbytes(v_arg)))
+                del out
+                measure(records, name, dname,
+                        lambda: kern(*sw, mode=mode, bins=bins),
+                        lambda: plain(*sw, mode=mode),
+                        (mode,), args.reps, moved,
+                        W * Nb * OPS_PER_SLOT[mode], tol_name=key,
+                        mode=mode)
+            del la, cost, pout, r_t, jx_t, jcam_t, gc, hc, sw
+            torch.cuda.empty_cache()
+    print("[phase 6b] where one tile LM step's time goes")
+    tile_step_breakdown(layouts[True])
+    del layouts
+    torch.cuda.empty_cache()
+    return data
+
+
+def phase_tile_global(args):
+    """Phase 8: a few LM steps of solve_ba_tiles on the global cell table.
+    Returns tile_sweep's launches in that solve alone."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.io import make_bal_windowed_host
+    from deeparc_tpu_torch.residuals.reprojection import cost
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.tiles import solve_ba_tiles
+
+    data = make_bal_windowed_host(n_points=args.global_points, seed=1,
+                                  **TILE_SCENE)
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    free = freeze_masks(scene)
+    cost0 = float(cost(scene.params, scene.index))
+    opts = SolverOptions(linear_solver="iterative_schur", cg_max_iterations=30,
+                         max_iterations=3)
+    k.reset_launch_counts()
+    res = solve_ba_tiles(scene, free, opts, locality=False)
+    torch.cuda.synchronize()
+    launches = k.tile_sweep.launches
+    print(f"  {data.n_points} points, locality=False: cost {cost0:.6e} -> "
+          f"{res.cost:.6e} in {res.iterations} LM iterations "
+          f"({res.cg_iterations} CG), {res.seconds:.3f} s")
+    if not res.cost < cost0:
+        raise AssertionError("solve_ba_tiles(locality=False) did not lower "
+                             "the cost")
+
+    # every routing of the step on a small scene with several bucket widths
+    # (fused linearize for W <= 32, the torch chunk path with kernel sweeps
+    # above), solved on the card and through the plain versions on the CPU
+    from deeparc_tpu_torch.io import make_bal_synthetic
+    from deeparc_tpu_torch.solver.tiles import tiles_from_scene
+
+    mixed = make_bal_synthetic(n_cameras=64, n_points=3000, track_length=24,
+                               pixel_noise=1.0, point_noise=0.02, seed=3).data
+    opts = SolverOptions(linear_solver="iterative_schur", cg_max_iterations=30,
+                         max_iterations=5)
+    costs = {}
+    for dev in ("cuda", "cpu"):
+        scene = from_deeparc(mixed, dtype=torch.float64, device=dev)
+        free = freeze_masks(scene)
+        if dev == "cuda":
+            tiles, _, _ = tiles_from_scene(scene, free)
+            print(f"  mixed-width scene: {mixed.n_obs} observations, widths "
+                  f"{[b.cell.shape[1] for b in tiles.buckets]}, locality "
+                  f"{[bool(b.loc) for b in tiles.buckets]}")
+        costs[dev] = solve_ba_tiles(scene, free, opts).cost
+    rel = abs(costs["cuda"] - costs["cpu"]) / costs["cpu"]
+    print(f"  mixed-width scene after 5 LM iterations: cost on the card "
+          f"{costs['cuda']:.9e}, plain on the CPU {costs['cpu']:.9e}, "
+          f"relative difference {rel:.3e} (tol 1e-6)")
+    if not rel < 1e-6:
+        raise AssertionError("the card's tile solve disagrees with the CPU's")
+    return launches
+
+
+def kernel_record(name, rec, launches):
+    """The JSON record of one kernel: the float64 numbers (a sweep's matvec
+    mode, the one PCG repeats), every other measurement nested."""
+    r64 = rec["float64:matvec" if "float64:matvec" in rec else "float64"]
+    return dict(
+        name=name, route="cuda",
+        source=TILE_SOURCE if name.startswith("tile") else GRID_SOURCE,
+        replaces=REPLACES[name], launches=launches[name],
+        max_abs_err=r64["max_abs_err"], max_rel_err=r64["max_rel_err"],
+        ms=r64["ms"], plain_ms=r64["plain_ms"], bound_ms=r64["bound_ms"],
+        bound_by=r64["bound_by"], library_ms=None,
+        measured=rec)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-points", type=int, default=400_000,
                     help="points of the 8x24-cell rigs (cut only this)")
+    ap.add_argument("--tile-points", type=int, default=1_000_000,
+                    help="points of the windowed BAL scene (cut only this)")
+    ap.add_argument("--global-points", type=int, default=100_000,
+                    help="points of phase 8's scene")
     ap.add_argument("--max-iterations", type=int, default=100,
                     help="LM iterations per solve")
     ap.add_argument("--reps", type=int, default=5,
@@ -251,8 +611,11 @@ def main(argv=None) -> int:
     print(f"  device: {name}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    t_start = time.time()
 
-    from deeparc_tpu_torch.kernels import build, rig_grid as k
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.kernels import build
 
     print("[phase 2] build")
     t0 = time.time()
@@ -260,23 +623,24 @@ def main(argv=None) -> int:
     print(f"  kernels built and loaded in {time.time() - t0:.1f} s "
           f"(nvcc {build.build_seconds:.1f} s)")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "Compiling entry" in line):
             print("  ptxas:", line.strip())
 
     records: dict = {}
-    data = phase_kernels(args, records)
+    data = phase_grid_kernels(args, records)
 
-    print("[phase 4] main path: run_pipeline, 8x24-cell occlusion rig, "
-          "float64")
+    print("[phase 4] grid main path: run_pipeline, 8x24-cell occlusion "
+          "rig, float64")
     print(f"  rig: {data.n_points} points after the track filter, "
           f"{data.n_obs} observations"
           + ("" if args.n_points == 400_000 else
              f" (n_points cut from 400000 to {args.n_points})"))
+    # each path's counts are set to 0 just before it runs and read just after
     k.reset_launch_counts()
     run_main_path(data, args, "occlusion rig")
-    for fn in (k.linearize_grid_banded, k.cost_grid_banded):
-        if fn.launches <= 0:
-            raise AssertionError(f"{fn.__name__} was not launched")
+    launches = {fn.__name__: fn.launches
+                for fn in (k.linearize_grid_banded, k.cost_grid_banded)}
 
     print("[phase 5] uniform-random rig through run_pipeline (monolithic)")
     from deeparc_tpu_torch.io import make_hemisphere_rig
@@ -284,22 +648,43 @@ def main(argv=None) -> int:
     small = make_hemisphere_rig(n_arc=5, n_ring=12, n_points=20_000,
                                 visibility=0.3, pixel_noise=PIXEL_NOISE,
                                 point_noise=0.02, seed=2).data
+    k.reset_launch_counts()
     run_main_path(small, args, "uniform rig")
-    launches = {fn.__name__: fn.launches for fn in k.KERNEL_WRAPPERS}
-    print(f"  launches on the main path: {launches}")
+    launches.update({fn.__name__: fn.launches
+                     for fn in (k.linearize_grid, k.cost_grid)})
+    print(f"  launches on the grid paths: {launches}")
+
+    tile_data = phase_tile_kernels(args, records)
+
+    print("[phase 7] tile main path: run_pipeline, windowed BAL scene, "
+          "float64, ITERATIVE_SCHUR with 30 PCG iterations")
+    print(f"  scene: {tile_data.n_points} points, {tile_data.n_obs} "
+          f"observations"
+          + ("" if args.tile_points == 1_000_000 else
+             f" (n_points cut from 1000000 to {args.tile_points})"))
+    k.reset_launch_counts()
+    run_main_path(tile_data, args, "windowed BAL scene", SolverOptions(
+        linear_solver="iterative_schur", cg_max_iterations=30,
+        max_iterations=args.max_iterations))
+    launches.update({fn.__name__: fn.launches
+                     for fn in (k.tile_linearize_local, k.tile_sweep_local)})
+    del tile_data
+    torch.cuda.empty_cache()
+
+    print("[phase 8] solve_ba_tiles(locality=False): the tile_sweep path")
+    launches["tile_sweep"] = phase_tile_global(args)
+    print(f"  launches on the main paths: {launches}")
     for kname, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{kname} was not launched on the main path")
+            raise AssertionError(f"{kname} was not launched on its path")
 
-    kernels = []
-    for kname, rec in records.items():
-        r64 = rec["float64"]
-        kernels.append(dict(
-            name=kname, route="cuda", source=SOURCE, replaces=REPLACES[kname],
-            launches=launches[kname], max_abs_err=r64["max_abs_err"],
-            max_rel_err=r64["max_rel_err"], ms=r64["ms"],
-            plain_ms=r64["plain_ms"], float32=rec["float32"]))
-    assert "jax" not in sys.modules, "the port imported jax"
+    kernels = [kernel_record(kname, rec, launches)
+               for kname, rec in records.items()]
+    for mod in list(sys.modules):
+        if mod == "jax" or mod.startswith(("jax.", "deeparc_tpu.")) \
+                or mod == "deeparc_tpu":
+            raise AssertionError(f"the port imported {mod}")
+    print(f"  script {time.time() - t_start:.1f} s after the card check")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

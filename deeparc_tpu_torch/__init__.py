@@ -1,17 +1,19 @@
 """deeparc_tpu_torch — the PyTorch + CUDA port of ``deeparc_tpu``.
 
-Runs the shared-rig main path (``pipeline.run_pipeline`` on the grid engine)
-on an NVIDIA Hopper card. The JAX package ``deeparc_tpu`` stays beside it as
-the reference the port is tested against; this package never imports JAX.
-It reuses the numpy-only modules of the reference (``.deeparc`` / PLY / BAL
-I/O, the numpy rig generator, the option dataclasses) as they are.
+Runs ``pipeline.run_pipeline`` on an NVIDIA Hopper card: shared-extrinsic
+rigs on the grid engine, non-shared (BAL-style) scenes on the tile engine.
+The JAX package ``deeparc_tpu`` stays beside it as the reference the port
+is tested against; this package imports neither JAX nor ``deeparc_tpu``
+and keeps its own copies of the numpy I/O, the problem generators and the
+option dataclasses.
 
 Layer map (mirrors ``deeparc_tpu``):
+  io/         .deeparc / PLY / BAL I/O, native parser binding, generators
   geometry/   rotations, projection model, camera centers
   scene       dataclasses of tensors (BAParams, SceneIndex, Scene)
   residuals/  reprojection + hemisphere residuals
-  solver/     losses, trust region, small linear algebra, LM, grid engine,
-              live-band prep
+  solver/     losses, trust region, small linear algebra and PCG, LM, the
+              grid engine with its live-band prep, the tile engine
   kernels/    the hand-written Hopper kernels (CUDA C++ under csrc/) with
               their plain PyTorch versions
   pipeline/   hemisphere fit -> freeze solve -> filter loop driver, CLI

@@ -1,0 +1,28 @@
+"""Host-side I/O and synthetic problems (numpy only).
+
+The port's own copies of the reference package's ``.deeparc`` / PLY / BAL
+readers and writers, the ctypes binding to the repo's native parser
+(``native/``), and the numpy problem generators; nothing here imports
+``deeparc_tpu``.
+"""
+
+from deeparc_tpu_torch.io.bal import read_bal
+from deeparc_tpu_torch.io.deeparc_format import (
+    DeepArcData,
+    read_deeparc,
+    write_deeparc,
+)
+from deeparc_tpu_torch.io.native import read_bal_fast, read_deeparc_fast
+from deeparc_tpu_torch.io.ply import write_ply
+from deeparc_tpu_torch.io.synthetic import (
+    SyntheticRig,
+    make_bal_synthetic,
+    make_bal_windowed_host,
+    make_hemisphere_rig,
+)
+
+__all__ = [
+    "DeepArcData", "read_deeparc", "write_deeparc", "read_deeparc_fast",
+    "read_bal", "read_bal_fast", "write_ply", "SyntheticRig",
+    "make_hemisphere_rig", "make_bal_synthetic", "make_bal_windowed_host",
+]

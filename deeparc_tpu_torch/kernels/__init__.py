@@ -1,5 +1,6 @@
+from deeparc_tpu_torch.kernels import rig_grid as _rig_grid
+from deeparc_tpu_torch.kernels import tile as _tile
 from deeparc_tpu_torch.kernels.rig_grid import (
-    KERNEL_WRAPPERS,
     cost_grid,
     cost_grid_banded,
     cost_grid_banded_plain,
@@ -10,12 +11,35 @@ from deeparc_tpu_torch.kernels.rig_grid import (
     linearize_grid_banded_plain,
     linearize_grid_plain,
     native_of_flat,
-    reset_launch_counts,
+)
+from deeparc_tpu_torch.kernels.tile import (
+    MAX_KERNEL_WIDTH,
+    MAX_LIN_WIDTH,
+    pack_bucket_planes,
+    slot_bins,
+    tile_linearize_local,
+    tile_linearize_local_plain,
+    tile_sweep,
+    tile_sweep_local,
+    tile_sweep_local_plain,
+    tile_sweep_plain,
 )
 
+# every kernel wrapper of the port, each with its ``launches`` count
+KERNEL_WRAPPERS = _rig_grid.KERNEL_WRAPPERS + _tile.KERNEL_WRAPPERS
+
+
+def reset_launch_counts() -> None:
+    _rig_grid.reset_launch_counts()
+    _tile.reset_launch_counts()
+
+
 __all__ = [
-    "KERNEL_WRAPPERS", "cost_grid", "cost_grid_banded",
-    "cost_grid_banded_plain", "cost_grid_plain", "flat_of_native",
-    "linearize_grid", "linearize_grid_banded", "linearize_grid_banded_plain",
-    "linearize_grid_plain", "native_of_flat", "reset_launch_counts",
+    "KERNEL_WRAPPERS", "MAX_KERNEL_WIDTH", "MAX_LIN_WIDTH", "cost_grid",
+    "cost_grid_banded", "cost_grid_banded_plain", "cost_grid_plain",
+    "flat_of_native", "linearize_grid", "linearize_grid_banded",
+    "linearize_grid_banded_plain", "linearize_grid_plain", "native_of_flat",
+    "pack_bucket_planes", "reset_launch_counts", "slot_bins",
+    "tile_linearize_local", "tile_linearize_local_plain", "tile_sweep",
+    "tile_sweep_local", "tile_sweep_local_plain", "tile_sweep_plain",
 ]

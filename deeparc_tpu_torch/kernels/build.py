@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, under ``build/`` next to the
-package; the file name carries a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the library. The library is bound
-with ``ctypes``: pointers and the stream go as ``c_void_p``. A missing
-compiler or a failed build raises.
+Every ``.cu`` under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, at first use, under ``build/`` next to
+the package; the file name carries a hash of the sources and flags, so an
+edit rebuilds and an unchanged tree reuses the library. The library is
+bound with ``ctypes``: pointers and the stream go as ``c_void_p``. A
+missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""        # the compiler's output of the last build (ptxas -v)
@@ -33,21 +34,39 @@ def _nvcc() -> str:
                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the grid kernels "
-                       "are built from source at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the kernels are "
+                       "built from source at first use")
 
 
 def _bind(lib):
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.rig_linearize.argtypes = ([i, i, i] + [p] * 5 + [i] * 8 + [d, i]
-                                  + [p] * 5)
-    lib.rig_cost.argtypes = [i, i] + [p] * 4 + [i] * 5 + [d, i, i, p, p]
-    lib.rig_reduce_slots.argtypes = [i, p] + [i] * 5 + [p, p, p]
-    lib.rig_reduce_cost.argtypes = [i, p, i, p, p]
-    for fn in (lib.rig_linearize, lib.rig_cost, lib.rig_reduce_slots,
-               lib.rig_reduce_cost):
+    sigs = {
+        "rig_linearize": [i, i, i] + [p] * 5 + [i] * 8 + [d, i] + [p] * 5,
+        "rig_cost": [i, i] + [p] * 4 + [i] * 5 + [d, i, i, p, p],
+        "rig_reduce_slots": [i, p] + [i] * 5 + [p, p, p],
+        "rig_reduce_cost": [i, p, i, p, p],
+        "tile_linearize_rows": [i, i, i] + [p] * 6 + [i] * 4 + [d, i, i]
+                               + [p] * 6,
+        "tile_linearize_bins": [i, i] + [p] * 8 + [i] * 5 + [d, p, p],
+        "tile_sweep_rows": [i] * 4 + [p] * 6 + [i] * 5 + [p] * 3,
+        "tile_sweep_bins": [i, i, p, p, i, p, p, p, i, i, p, p],
+        "tile_reduce_bins": [i, p, p, i, i, i, p, p, p],
+        "tile_reduce_cost": [i, p, i, p, p],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _run_all(cmds):
+    """Start every command, wait for all; (returncodes, joined output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [p.returncode for p in procs], "".join(outs)
 
 
 def library():
@@ -60,19 +79,28 @@ def library():
     for f in srcs:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(f.encode() + fh.read())
-    so = os.path.join(BUILD_DIR, f"librig_grid_{h.hexdigest()[:16]}.so")
+    so = os.path.join(BUILD_DIR, f"libdeeparc_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp,
-                                        os.path.join(CSRC, "rig_grid.cu")]
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.tmp"
+        objs = [os.path.join(BUILD_DIR, f"{f}.{tag}.o")
+                for f in srcs if f.endswith(".cu")]
         t0 = time.time()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        rcs, build_log = _run_all([
+            [nvcc] + NVCC_FLAGS + ["-c", "-o", o, os.path.join(CSRC, f)]
+            for f, o in zip((f for f in srcs if f.endswith(".cu")), objs)])
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed ({rcs}):\n{build_log}")
+        tmp = f"{so}.{tag}"
+        rcs, link_log = _run_all([[nvcc, "-shared", "-o", tmp] + objs])
+        build_log += link_log
         build_seconds = time.time() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        if any(rcs):
+            raise RuntimeError(f"nvcc link failed ({rcs}):\n{build_log}")
         os.replace(tmp, so)
+        for o in objs:
+            os.remove(o)
     _lib = _bind(ctypes.CDLL(so))
     return _lib
 

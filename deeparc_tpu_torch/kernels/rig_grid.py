@@ -302,13 +302,16 @@ def _loss_weight(s, loss, a):
     raise ValueError(loss)
 
 
-def _chain(col, X, xy0, xy1, mask):
-    """Projection/residual planes of a chunk of tiles: (g, w, bn)."""
+def _chain(col, X, xy0, xy1, mask, zguard=False):
+    """Projection/residual planes of a chunk of tiles: (g, w, bn).
+    ``zguard`` divides masked slots by z = 1 (their cell may be a pad cell
+    whose depth is 0), as the tile kernels do."""
     p2 = [X[0] * col(_RI + 3 * a) + X[1] * col(_RI + 3 * a + 1)
           + X[2] * col(_RI + 3 * a + 2) + col(_TI + a) for a in range(3)]
     p3 = [p2[0] * col(_RO + 3 * a) + p2[1] * col(_RO + 3 * a + 1)
           + p2[2] * col(_RO + 3 * a + 2) + col(_TO + a) for a in range(3)]
-    inv_z = 1.0 / p3[2]
+    z = p3[2] * mask + (1.0 - mask) if zguard else p3[2]
+    inv_z = 1.0 / z
     u0, u1 = p3[0] * inv_z, p3[1] * inv_z
     r2 = u0 * u0 + u1 * u1
     dcoef = 1.0 + r2 * (col(_D0) + col(_D1) * r2)
@@ -319,11 +322,11 @@ def _chain(col, X, xy0, xy1, mask):
 
 
 def _slot_products(col, X, pf, xy0, xy1, mask, loss, loss_scale,
-                   intr_frozen=False):
+                   intr_frozen=False, zguard=False):
     """Residual + per-slot Jacobian planes (the math of csrc/rig_slot.cuh
     ``slot_products``). Returns (cost, r0, r1, jx_f, P) with P[k] the
     camera-Jacobian planes: 18, or the 12 extrinsic ones when frozen."""
-    c = _chain(col, X, xy0, xy1, mask)
+    c = _chain(col, X, xy0, xy1, mask, zguard)
     p2, inv_z, u0, u1 = c["p2"], c["inv_z"], c["u0"], c["u1"]
     r2, dcoef, r0, r1 = c["r2"], c["dcoef"], c["r0"], c["r1"]
     raw_s = r0 * r0 + r1 * r1

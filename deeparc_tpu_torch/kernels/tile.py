@@ -1,0 +1,475 @@
+"""Tile-engine kernels: the fused bucket linearization and the PCG sweeps,
+as CUDA kernels for Hopper, their plain PyTorch versions, and the slot
+bins the kernels reduce through.
+
+PyTorch port of ``deeparc_tpu/kernels/tile_pallas.py``. Three wrappers keep
+the reference's names, positional signatures and returns:
+
+  tile_linearize_local -> (cost, pout, r_t, jx_t, jcam_t, gc, hc)
+  tile_sweep_local     -> (n_chunks, V_local, 18) bins, or (Nb, 3) E v rows
+  tile_sweep           -> (V, 18) cell values, or (Nb, 3) E v rows
+
+A wrapper given CUDA tensors launches the hand-written kernels
+(``csrc/tile.cu``) and raises if it cannot; given CPU tensors it runs the
+plain version (``*_plain``). Each wrapper counts its launches in a plain
+``int`` attribute, ``launches``.
+
+Layout (as in the reference): TRANSPOSED planes, rows (points) in columns.
+For a bucket of Nb rows and W slots:
+
+    cell_t  (W, Nb)     int32 cell id per (slot, row): chunk-LOCAL ids for
+                        the ``*_local`` functions, global ids for tile_sweep
+    jcam_t  (36W, Nb)   row w*36 + k*18 + j = d r_k / d cam_j of slot w
+    jx_t    (6W, Nb)    row w*6 + k*3 + i   = d r_k / d X_i of slot w
+    r_t     (2W, Nb)    row 2w + k          = r_k of slot w
+    binv_t  (9, Nb), gp_t (3, Nb), pout (12, Nb): g_p then row-major H_pp
+
+The rows of a bucket are cut into n_chunks chunks of B = Nb / n_chunks
+rows; a chunk's local cell l is global cell ``chunk_cells[chunk, l]``.
+
+Binning a per-slot value into its cell is a reduction across rows into
+data-dependent cells. The kernels do it without float atomics, through
+:class:`SlotBins`: the flat slot ids (w * Nb + p) sorted by bin (chunk *
+V_local + local id, or the global cell id), cut into segments of at most
+``SEGMENT`` slots. One warp sums one segment in list order; a second pass
+sums each bin's segments in order. Every run gives the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from deeparc_tpu_torch.kernels.rig_grid import (
+    _DTYPE_IDS,
+    _LOSS_IDS,
+    _dispatch,
+    _slot_products,
+)
+
+# the sweep kernels take buckets up to this width; wider buckets (the heavy
+# tail of a track distribution) run the torch sweeps (solver/tiles._e_sweep)
+MAX_KERNEL_WIDTH = 64
+# the fused linearize takes buckets up to this width (the reference's cap)
+MAX_LIN_WIDTH = 32
+
+PACKED_DIM = 78
+# most slots one warp sums before its bin spills into a further segment
+SEGMENT = 256
+# slots the plain versions process at once (bounds their temporaries)
+_PLAIN_SLOTS = 1 << 19
+_MODES = {"rhs": 0, "matvec": 1, "edot": 2}
+
+# packed-table column of each slot-table column of kernels/rig_grid.py: the
+# tile table (solver/tiles.pack_cells) keeps t_i, t_o before the right
+# Jacobians, the grid table after them; everything else coincides
+_TILE_COL = (list(range(27)) + list(range(33, 51)) + list(range(27, 33))
+             + list(range(51, 78)))
+
+
+def pack_bucket_planes(j_x, j_cam, cell):
+    """((Nb,W,2,3), (Nb,W,2,18), (Nb,W)) -> transposed plane tensors."""
+    Nb, W = cell.shape
+    jcam_t = j_cam.permute(1, 2, 3, 0).reshape(W * 36, Nb)
+    jx_t = j_x.permute(1, 2, 3, 0).reshape(W * 6, Nb)
+    return cell.T.contiguous(), jcam_t.contiguous(), jx_t.contiguous()
+
+
+class SlotBins(NamedTuple):
+    """A bucket's slots grouped by bin, for the kernels' reductions."""
+
+    order: torch.Tensor      # (W*Nb,) int32 flat slot ids, sorted by bin
+    seg_start: torch.Tensor  # (n_seg + 1,) int32 segment bounds in ``order``
+    bin_seg: torch.Tensor    # (n_bins + 1,) int32 first segment of each bin
+    n_bins: int
+
+
+def slot_bins(cell_t: torch.Tensor, n_chunks: int, n_cells: int) -> SlotBins:
+    """The bins of a (W, Nb) cell plane: bin = chunk * n_cells + cell, with
+    ``n_chunks`` chunks of Nb / n_chunks rows (1 chunk for global ids).
+    Depends on the cell ids only, so it is built once per layout; slots
+    whose mask is 0 carry zeros and cost work but no error."""
+    W, Nb = cell_t.shape
+    dev = cell_t.device
+    B = Nb // n_chunks
+    chunk = torch.arange(Nb, device=dev) // B
+    key = (chunk[None, :] * n_cells + cell_t.long()).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    n_bins = n_chunks * n_cells
+    counts = torch.bincount(key, minlength=n_bins)
+    n_seg_bin = (counts + SEGMENT - 1) // SEGMENT
+    bin_seg = torch.zeros(n_bins + 1, dtype=torch.long, device=dev)
+    bin_seg[1:] = torch.cumsum(n_seg_bin, 0)
+    bin_lo = torch.cumsum(counts, 0) - counts
+    seg_bin = torch.repeat_interleave(torch.arange(n_bins, device=dev),
+                                      n_seg_bin)
+    seg_lo = (bin_lo[seg_bin]
+              + (torch.arange(seg_bin.numel(), device=dev)
+                 - bin_seg[seg_bin]) * SEGMENT)
+    seg_start = torch.cat([seg_lo, torch.full((1,), key.numel(),
+                                              dtype=torch.long, device=dev)])
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return SlotBins(order=i32(order), seg_start=i32(seg_start),
+                    bin_seg=i32(bin_seg), n_bins=n_bins)
+
+
+def _check_bins(bins, W, Nb, n_bins, dev):
+    """The card path bins through the layout's own slot lists, built once
+    with the layout (``solver.tiles.with_bins``); it never builds them."""
+    if not isinstance(bins, SlotBins):
+        raise ValueError("the tile kernels need the bucket's slot bins "
+                         "(TileBucket.bins, from solver.tiles.with_bins)")
+    if bins.order.numel() != W * Nb or bins.n_bins != n_bins:
+        raise ValueError(f"slot bins of {bins.order.numel()} slots and "
+                         f"{bins.n_bins} bins do not fit a ({W}, {Nb}) "
+                         f"plane with {n_bins} bins")
+    if bins.order.device != dev:
+        raise TypeError(f"slot bins on {bins.order.device}, expected {dev}")
+    return bins
+
+
+def _rows_of_chunks(Nb, n_chunks):
+    if n_chunks <= 0 or Nb % n_chunks:
+        raise ValueError(f"{Nb} rows do not split into {n_chunks} chunks")
+    return Nb // n_chunks
+
+
+def _pieces(Nb, W):
+    """Row ranges of the plain versions, ~_PLAIN_SLOTS slots each."""
+    step = max(1, _PLAIN_SLOTS // W)
+    for r0 in range(0, Nb, step):
+        yield r0, min(Nb, r0 + step)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def tile_linearize_local_plain(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables,
+                               loss="trivial", loss_scale=0.5, block_n=256,
+                               plane_dtype=None):
+    """Plain PyTorch version of :func:`tile_linearize_local`: each slot's
+    table row is gathered by its local id (the reference selects it with a
+    one-hot matmul), the slot math is the grid engine's (``_slot_products``)
+    on the tile table's columns, and the bins are ``index_add_``."""
+    W, Nb = cell_t.shape
+    n_chunks, Vl, _ = tables.shape
+    B = _rows_of_chunks(Nb, n_chunks)
+    dtype, dev = xy0_t.dtype, xy0_t.device
+    pdt = plane_dtype or dtype
+    pout = torch.empty((12, Nb), dtype=dtype, device=dev)
+    r_t = torch.empty((2 * W, Nb), dtype=pdt, device=dev)
+    jx_t = torch.empty((6 * W, Nb), dtype=pdt, device=dev)
+    jcam_t = torch.empty((36 * W, Nb), dtype=pdt, device=dev)
+    gc = torch.zeros((n_chunks * Vl, 18), dtype=dtype, device=dev)
+    hc = torch.zeros((n_chunks * Vl, 171), dtype=dtype, device=dev)
+    cost = torch.zeros((), dtype=dtype, device=dev)
+    iu, ju = torch.triu_indices(18, 18, device=dev)
+    for r0, r1 in _pieces(Nb, W):
+        n = r1 - r0
+        chunk = torch.arange(r0, r1, device=dev) // B
+        loc = cell_t[:, r0:r1].long()
+        tb = tables[chunk[None, :], loc]                      # (W, n, 78)
+        col = lambda c: tb[..., _TILE_COL[c]]
+        X = [pts_pack[a, r0:r1][None, :] for a in range(3)]
+        pf = [pts_pack[3 + a, r0:r1][None, :] for a in range(3)]
+        c_val, rr0, rr1, jx_f, P = _slot_products(
+            col, X, pf, xy0_t[:, r0:r1], xy1_t[:, r0:r1], mask_t[:, r0:r1],
+            loss, loss_scale, zguard=True)
+        cost = cost + c_val
+        J = torch.stack([torch.stack(jx_f[k]) for k in range(2)])  # 2,3,W,n
+        Pk = torch.stack([torch.stack(P[k]) for k in range(2)])    # 2,18,W,n
+        r_t[:, r0:r1] = torch.stack([rr0, rr1], 1).reshape(2 * W, n).to(pdt)
+        jx_t[:, r0:r1] = J.permute(2, 0, 1, 3).reshape(6 * W, n).to(pdt)
+        jcam_t[:, r0:r1] = Pk.permute(2, 0, 1, 3).reshape(36 * W, n).to(pdt)
+        pout[0:3, r0:r1] = (J[0] * rr0 + J[1] * rr1).sum(1)
+        pout[3:12, r0:r1] = torch.einsum("kawn,kbwn->abn", J, J).reshape(9, n)
+        key = (chunk[None, :] * Vl + loc).reshape(-1)
+        g18 = Pk[0] * rr0 + Pk[1] * rr1                           # 18,W,n
+        h171 = Pk[0][iu] * Pk[0][ju] + Pk[1][iu] * Pk[1][ju]       # 171,W,n
+        gc.index_add_(0, key, g18.reshape(18, -1).T)
+        hc.index_add_(0, key, h171.reshape(171, -1).T)
+    return (cost, pout, r_t, jx_t, jcam_t, gc.reshape(n_chunks, Vl, 18),
+            hc.reshape(n_chunks, Vl, 171))
+
+
+def _sweep_plain(cell_t, jcam_t, jx_t, binv_t, gp_t, v_of, mode, n_chunks,
+                 n_cells):
+    """Shared plain sweep: ``v_of(chunk, cell)`` gives each slot's (W, n,
+    18) v values; bins are chunk * n_cells + cell."""
+    W, Nb = cell_t.shape
+    B = _rows_of_chunks(Nb, n_chunks)
+    dtype, dev = binv_t.dtype, binv_t.device
+    if mode not in _MODES:
+        raise ValueError(f"unknown sweep mode {mode!r}")
+    if mode == "edot":
+        ev_out = torch.empty((Nb, 3), dtype=dtype, device=dev)
+    else:
+        out = torch.zeros((n_chunks * n_cells, 18), dtype=dtype, device=dev)
+    for r0, r1 in _pieces(Nb, W):
+        n = r1 - r0
+        chunk = torch.arange(r0, r1, device=dev) // B
+        cell = cell_t[:, r0:r1].long()
+        jc = jcam_t[:, r0:r1].to(dtype).reshape(W, 2, 18, n)
+        jx = jx_t[:, r0:r1].to(dtype).reshape(W, 2, 3, n)
+        if mode == "rhs":
+            rhs = gp_t[:, r0:r1]
+        else:
+            t = torch.einsum("wkjn,wnj->wkn", jc, v_of(chunk, cell))
+            rhs = torch.einsum("wkin,wkn->in", jx, t)
+            if mode == "edot":
+                ev_out[r0:r1] = rhs.T
+                continue
+        wv = torch.einsum("ijn,jn->in", binv_t[:, r0:r1].reshape(3, 3, n),
+                          rhs)
+        t2 = torch.einsum("wkin,in->wkn", jx, wv)
+        u = torch.einsum("wkjn,wkn->wnj", jc, t2)
+        out.index_add_(0, (chunk[None, :] * n_cells + cell).reshape(-1),
+                       u.reshape(-1, 18))
+    if mode == "edot":
+        return ev_out
+    return out.reshape(n_chunks, n_cells, 18)
+
+
+def tile_sweep_local_plain(cell_t, jcam_t, jx_t, binv_t, gp_t, v_locals,
+                           mode="matvec", block_n=256):
+    """Plain PyTorch version of :func:`tile_sweep_local`."""
+    n_chunks, _, Vl = v_locals.shape
+    v_of = lambda chunk, cell: v_locals.to(binv_t.dtype)[chunk[None, :], :,
+                                                         cell]
+    return _sweep_plain(cell_t, jcam_t, jx_t, binv_t, gp_t, v_of, mode,
+                        n_chunks, Vl)
+
+
+def tile_sweep_plain(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells,
+                     mode="matvec", block_n=256):
+    """Plain PyTorch version of :func:`tile_sweep`."""
+    V = v_cells.shape[0]
+    v_of = lambda chunk, cell: v_cells.to(binv_t.dtype)[cell]
+    out = _sweep_plain(cell_t, jcam_t, jx_t, binv_t, gp_t, v_of, mode, 1, V)
+    return out if mode == "edot" else out[0]
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _plane_id(planes, dtype):
+    """0 = planes stored in the working dtype, 1 = bfloat16."""
+    if planes.dtype == dtype:
+        return 0
+    if planes.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"planes of {planes.dtype} with working dtype {dtype}")
+
+
+def _check_inputs(dtype, ints, floats, planes=()):
+    """Device, dtype and contiguity checks before pointers reach a kernel."""
+    if dtype not in _DTYPE_IDS:
+        raise TypeError(f"tile kernels take float32 or float64, not {dtype}")
+    dev = floats[0].device
+    for t in ints + floats + planes:
+        if t.device != dev:
+            raise TypeError(f"kernel input on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"index input of {t.dtype}, expected int32")
+    for t in floats:
+        if t.dtype != dtype:
+            raise TypeError(f"kernel input of {t.dtype}, expected {dtype}")
+    return _DTYPE_IDS[dtype]
+
+
+def _threads(block_n):
+    return max(32, min(256, (int(block_n) // 32) * 32))
+
+
+def _reduce_bins(lib, dt, partial, bins, nv, na, out_a, out_b, stream):
+    from deeparc_tpu_torch.kernels.build import check
+
+    check(lib.tile_reduce_bins(dt, partial.data_ptr(), bins.bin_seg.data_ptr(),
+                               bins.n_bins, nv, na, out_a.data_ptr(),
+                               out_b.data_ptr(), stream), "tile_reduce_bins")
+
+
+def _cuda_linearize(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables, loss,
+                    loss_scale, block_n, plane_dtype, bins):
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    lib = library()
+    W, Nb = cell_t.shape
+    n_chunks, Vl, _ = tables.shape
+    B = _rows_of_chunks(Nb, n_chunks)
+    dtype, dev = xy0_t.dtype, xy0_t.device
+    if loss not in _LOSS_IDS:
+        raise ValueError(f"unknown loss {loss!r}")
+    if W > MAX_LIN_WIDTH:
+        raise ValueError(f"tile_linearize_local takes W <= {MAX_LIN_WIDTH}, "
+                         f"not {W}")
+    if tables.shape[2] != PACKED_DIM or pts_pack.shape != (8, Nb):
+        raise ValueError("tables must be (n_chunks, V_local, 78) and "
+                         "pts_pack (8, Nb)")
+    dt = _check_inputs(dtype, (cell_t,), (pts_pack, xy0_t, xy1_t, mask_t,
+                                          tables))
+    pdt = plane_dtype or dtype
+    pid = _plane_id(torch.empty(0, dtype=pdt), dtype)
+    bins = _check_bins(bins, W, Nb, n_chunks * Vl, dev)
+    threads = _threads(block_n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(-(-Nb // threads), 4 * sms))
+    pout = torch.empty((12, Nb), dtype=dtype, device=dev)
+    r_t = torch.empty((2 * W, Nb), dtype=pdt, device=dev)
+    jx_t = torch.empty((6 * W, Nb), dtype=pdt, device=dev)
+    jcam_t = torch.empty((36 * W, Nb), dtype=pdt, device=dev)
+    partial_cost = torch.empty((grid,), dtype=dtype, device=dev)
+    n_seg = bins.seg_start.numel() - 1
+    partial = torch.empty((max(n_seg, 1), 189), dtype=dtype, device=dev)
+    gc = torch.empty((n_chunks, Vl, 18), dtype=dtype, device=dev)
+    hc = torch.empty((n_chunks, Vl, 171), dtype=dtype, device=dev)
+    cost = torch.empty((), dtype=dtype, device=dev)
+    stream = _stream(dev)
+    ls = _LOSS_IDS[loss]
+    common = (pts_pack.data_ptr(), cell_t.data_ptr(), xy0_t.data_ptr(),
+              xy1_t.data_ptr(), mask_t.data_ptr(), tables.data_ptr())
+    tile_linearize_local.launches += 1
+    check(lib.tile_linearize_rows(
+        dt, pid, ls, *common, W, Nb, B, Vl, float(loss_scale), threads, grid,
+        pout.data_ptr(), r_t.data_ptr(), jx_t.data_ptr(), jcam_t.data_ptr(),
+        partial_cost.data_ptr(), stream), "tile_linearize_rows")
+    check(lib.tile_linearize_bins(
+        dt, ls, *common, bins.order.data_ptr(), bins.seg_start.data_ptr(),
+        n_seg, W, Nb, B, Vl, float(loss_scale), partial.data_ptr(), stream),
+        "tile_linearize_bins")
+    _reduce_bins(lib, dt, partial, bins, 189, 18, gc, hc, stream)
+    check(lib.tile_reduce_cost(dt, partial_cost.data_ptr(), grid,
+                               cost.data_ptr(), stream), "tile_reduce_cost")
+    return cost, pout, r_t, jx_t, jcam_t, gc, hc
+
+
+def _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v, mode, block_n, local,
+                n_chunks, n_cells, bins, counter):
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    lib = library()
+    W, Nb = cell_t.shape
+    B = _rows_of_chunks(Nb, n_chunks)
+    dtype, dev = binv_t.dtype, binv_t.device
+    if mode not in _MODES:
+        raise ValueError(f"unknown sweep mode {mode!r}")
+    if W > MAX_KERNEL_WIDTH:
+        raise ValueError(f"the sweep kernels take W <= {MAX_KERNEL_WIDTH}, "
+                         f"not {W}")
+    if jcam_t.shape != (36 * W, Nb) or jx_t.shape != (6 * W, Nb):
+        raise ValueError("plane shapes do not match the cell plane")
+    v = v.to(dtype).contiguous()
+    dt = _check_inputs(dtype, (cell_t,), (binv_t, gp_t, v), (jcam_t, jx_t))
+    pid = _plane_id(jcam_t, dtype)
+    if _plane_id(jx_t, dtype) != pid:
+        raise TypeError("jcam_t and jx_t must share one storage dtype")
+    if mode != "edot":
+        _check_bins(bins, W, Nb, n_chunks * n_cells, dev)
+    threads = _threads(block_n)
+    stream = _stream(dev)
+    wbuf = torch.empty((3, Nb), dtype=dtype, device=dev)
+    ev = torch.empty((Nb, 3) if mode == "edot" else (1, 3), dtype=dtype,
+                     device=dev)
+    counter.launches += 1
+    check(lib.tile_sweep_rows(
+        dt, pid, _MODES[mode], int(local), cell_t.data_ptr(),
+        jcam_t.data_ptr(), jx_t.data_ptr(), binv_t.data_ptr(),
+        gp_t.data_ptr(), v.data_ptr(), W, Nb, B, n_cells, threads,
+        wbuf.data_ptr(), ev.data_ptr(), stream), "tile_sweep_rows")
+    if mode == "edot":
+        return ev
+    n_seg = bins.seg_start.numel() - 1
+    partial = torch.empty((max(n_seg, 1), 18), dtype=dtype, device=dev)
+    out = torch.empty((n_chunks, n_cells, 18), dtype=dtype, device=dev)
+    check(lib.tile_sweep_bins(
+        dt, pid, bins.order.data_ptr(), bins.seg_start.data_ptr(), n_seg,
+        jcam_t.data_ptr(), jx_t.data_ptr(), wbuf.data_ptr(), W, Nb,
+        partial.data_ptr(), stream), "tile_sweep_bins")
+    _reduce_bins(lib, dt, partial, bins, 18, 18, out, out, stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers
+# ---------------------------------------------------------------------------
+
+
+def tile_linearize_local(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables,
+                         loss="trivial", loss_scale=0.5, block_n=256,
+                         plane_dtype=None, bins=None):
+    """Fused linearization over one locality-blocked bucket.
+
+    ``pts_pack`` is (8, Nb): rows 0:3 points^T, 3:6 point-freeze^T (6:8
+    unused). ``cell_t`` carries LOCAL ids (W, Nb), ``tables`` the per-chunk
+    packed cell tables (n_chunks, V_local, 78). Returns (cost, pout (12,
+    Nb), r_t (2W, Nb), jx_t (6W, Nb), jcam_t (36W, Nb), gc (n_chunks,
+    V_local, 18), hc (n_chunks, V_local, 171) upper-triangle Gram bins).
+    ``plane_dtype`` (e.g. ``torch.bfloat16``) stores the r/jx/jcam planes
+    in that dtype; pout, gc, hc and the cost stay in the working dtype.
+    ``bins`` is the bucket's :func:`slot_bins` (``TileBucket.bins``); the
+    kernels need it, the plain version ignores it.
+    ``block_n`` is the row kernel's threads per block."""
+    if not _dispatch(xy0_t, "tile_linearize_local"):
+        return tile_linearize_local_plain(pts_pack, cell_t, xy0_t, xy1_t,
+                                          mask_t, tables, loss, loss_scale,
+                                          block_n, plane_dtype)
+    return _cuda_linearize(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables,
+                           loss, loss_scale, block_n, plane_dtype, bins)
+
+
+def tile_sweep_local(cell_t, jcam_t, jx_t, binv_t, gp_t, v_locals,
+                     mode="matvec", block_n=256, bins=None):
+    """Fused sweep over a locality-blocked bucket.
+
+    ``cell_t`` carries LOCAL ids (W, Nb); ``v_locals`` the per-chunk local
+    v tables (n_chunks, 18, V_local), i.e. ``v_cells[chunk_cells]``
+    transposed. Modes: ``rhs`` = E^T B^-1 g_p, ``matvec`` = E^T B^-1 E v
+    (per-chunk local bins (n_chunks, V_local, 18), which the caller
+    scatters into the global (V, 18)), ``edot`` = E v as (Nb, 3) rows.
+    jcam/jx may be stored bf16; every sum is in binv's dtype. ``bins`` is
+    the bucket's :func:`slot_bins`, needed by the kernels in rhs/matvec."""
+    if not _dispatch(binv_t, "tile_sweep_local"):
+        return tile_sweep_local_plain(cell_t, jcam_t, jx_t, binv_t, gp_t,
+                                      v_locals, mode, block_n)
+    n_chunks, _, Vl = v_locals.shape
+    v = v_locals.to(binv_t.dtype).contiguous()
+    return _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v, mode, block_n,
+                       True, n_chunks, Vl, bins, tile_sweep_local)
+
+
+def tile_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode="matvec",
+               block_n=256, bins=None):
+    """Fused bucket sweep against the global cell vector ``v_cells`` (V,
+    18), for buckets without local tables. Returns (V, 18) for rhs/matvec,
+    (Nb, 3) E v rows for edot; ``gp_t`` is read in rhs mode only and
+    ``v_cells`` in matvec/edot only. ``bins`` as for
+    :func:`tile_sweep_local`."""
+    if not _dispatch(binv_t, "tile_sweep"):
+        return tile_sweep_plain(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells,
+                                mode, block_n)
+    V = v_cells.shape[0]
+    out = _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode,
+                      block_n, False, 1, V, bins, tile_sweep)
+    return out if mode == "edot" else out[0]
+
+
+KERNEL_WRAPPERS = (tile_linearize_local, tile_sweep_local, tile_sweep)
+for _fn in KERNEL_WRAPPERS:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

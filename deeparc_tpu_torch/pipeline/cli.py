@@ -1,9 +1,9 @@
-"""Command-line interface for the port's SfM pipeline (grid engine).
+"""Command-line interface for the port's SfM pipeline.
 
 Usage:
     python -m deeparc_tpu_torch.pipeline.cli scene.deeparc -o out/
     python -m deeparc_tpu_torch.pipeline.cli --synthetic --n-points 2000 -o out/
-    deeparc-tpu-torch scene.deeparc --device cpu
+    deeparc-tpu-torch scene.bal --device cpu
 
 ``--device cuda`` (the default) runs the hand-written CUDA kernels and fails
 if no card is present; ``--device cpu`` runs their plain PyTorch versions.
@@ -18,9 +18,9 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="deeparc-tpu-torch",
-        description="structure-from-motion bundle adjustment for "
-                    "shared-extrinsic rigs, PyTorch + CUDA")
-    p.add_argument("input", nargs="?", help=".deeparc input file")
+        description="structure-from-motion bundle adjustment, PyTorch + "
+                    "CUDA")
+    p.add_argument("input", nargs="?", help=".deeparc (or .bal) input file")
     p.add_argument("-o", "--output-dir", default=None)
     p.add_argument("--basename", default=None, help="output file prefix")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -31,12 +31,21 @@ def build_parser() -> argparse.ArgumentParser:
     # solver (defaults: sfm.cc:66-73,111,121)
     p.add_argument("--max-iterations", type=int, default=100)
     p.add_argument("--max-seconds", type=float, default=3600.0)
+    p.add_argument("--linear-solver", default="dense_schur",
+                   choices=["dense_schur", "iterative_schur"],
+                   help="grid engine: dense Schur; the tile engine always "
+                        "solves by PCG")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "grid", "indexed", "tiles",
                             "grid-sharded", "tiles-sharded"],
-                   help="auto/grid = the dense grid engine for shared rigs; "
-                        "the other engines are not ported yet and exit "
-                        "with the ROADMAP item that ports them")
+                   help="auto = the dense grid engine for shared rigs, the "
+                        "tile engine for non-shared (BAL-style) scenes; the "
+                        "indexed and sharded engines are not ported yet and "
+                        "exit with the ROADMAP item that ports them")
+    p.add_argument("--sweep-dtype", default=None, choices=["f32", "bf16"],
+                   help="tile engine: bf16 stores the Jacobian planes the "
+                        "PCG sweeps re-read in half the bytes (every sum "
+                        "stays in the working dtype)")
     p.add_argument("--quiet", action="store_true")
     # filter (defaults: sfm.cc:112,122; DeepArcManager.cc:347-349,387)
     p.add_argument("--error-boundary", type=float, default=5.0)
@@ -73,8 +82,13 @@ def main(argv=None) -> int:
         PipelineOptions,
         SolverOptions,
     )
-    from deeparc_tpu_torch.io import make_hemisphere_rig, read_deeparc_fast
-    from deeparc_tpu_torch.pipeline.driver import check_device, run_pipeline
+    from deeparc_tpu_torch.device import check_device
+    from deeparc_tpu_torch.io import (
+        make_hemisphere_rig,
+        read_bal_fast,
+        read_deeparc_fast,
+    )
+    from deeparc_tpu_torch.pipeline.driver import run_pipeline
 
     device = check_device(args.device)
     if args.synthetic:
@@ -86,7 +100,8 @@ def main(argv=None) -> int:
             visibility=args.visibility).data
         basename = args.basename or "synthetic"
     elif args.input:
-        data = read_deeparc_fast(args.input)
+        is_bal = args.input.endswith((".bal", ".bal.gz"))
+        data = (read_bal_fast if is_bal else read_deeparc_fast)(args.input)
         basename = args.basename or os.path.splitext(
             os.path.basename(args.input))[0]
     else:
@@ -96,6 +111,7 @@ def main(argv=None) -> int:
     options = PipelineOptions(
         solver=SolverOptions(max_iterations=args.max_iterations,
                              max_seconds=args.max_seconds,
+                             linear_solver=args.linear_solver,
                              progress_to_stdout=not args.quiet),
         filter=FilterOptions(error_boundary=args.error_boundary,
                              parity_inverted=args.parity_inverted,
@@ -103,6 +119,7 @@ def main(argv=None) -> int:
         hemisphere_max_iterations=args.hemisphere_iterations,
         write_snapshots=not args.no_snapshots,
         engine=args.engine,
+        sweep_dtype=args.sweep_dtype,
     )
     result = run_pipeline(
         data, options, output_dir=args.output_dir, basename=basename,

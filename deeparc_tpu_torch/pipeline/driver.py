@@ -1,5 +1,5 @@
-"""The SfM pipeline on the grid engine: hemisphere fit -> freeze solve ->
-filter loop, PyTorch port of the grid branch of
+"""The SfM pipeline: hemisphere fit -> freeze solve -> filter loop, PyTorch
+port of the grid and tile branches of
 ``deeparc_tpu.pipeline.driver.run_pipeline`` (reference ``src/sfm.cc:77-131``):
 
   1. load the scene, compute camera centers              (sfm.cc:83-86)
@@ -11,10 +11,13 @@ filter loop, PyTorch port of the grid branch of
      count stops changing                                (sfm.cc:118-127)
   7. final PLY + refined .deeparc                        (sfm.cc:129-130)
 
-Every solve is ``solve_ba_grid``: the banded kernels when ``band_grid``
-finds locality, the monolithic ones otherwise. The
-tensors' device picks the hand kernels (CUDA) or their plain versions
-(CPU); the band prep and its reuse across rounds are the same on both.
+A shared-extrinsic rig runs on the grid engine (``solve_ba_grid``: the
+banded kernels when ``band_grid`` finds locality, the monolithic ones
+otherwise); a non-shared (BAL-style) scene runs on the tile engine
+(``solve_tiles_prepared`` on one layout that every round reuses, the
+filter editing its mask planes). The tensors' device picks the hand
+kernels (CUDA) or their plain versions (CPU); the layouts and their reuse
+across rounds are the same on both.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from deeparc_tpu_torch.config import PipelineOptions
+from deeparc_tpu_torch.device import check_device
 from deeparc_tpu_torch.geometry.camera import (
     camera_center_single,
     hemisphere_camera_centers,
@@ -46,7 +50,6 @@ from deeparc_tpu_torch.solver.lm import fit_hemisphere
 
 # what the port does not run yet, and the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "tiles": "the tile engine (ROADMAP.md Queue 1 item 8)",
     "indexed": "the indexed engine (ROADMAP.md Queue 1 item 9)",
     "grid-sharded": "the sharded engines (ROADMAP.md Queue 1 item 10)",
     "tiles-sharded": "the sharded engines (ROADMAP.md Queue 1 item 10)",
@@ -62,6 +65,7 @@ class PipelineResult(NamedTuple):
     rounds: tuple = ()           # per-round records (the sidecar payload)
     solve_iterations: int = 0    # LM iterations over every solve
     solve_seconds: float = 0.0   # wall clock of those LM loops
+    cg_iterations: int = 0       # PCG iterations over every solve (tiles)
 
 
 def scene_camera_centers(scene: Scene) -> torch.Tensor:
@@ -125,21 +129,9 @@ def rmse_px(scene: Scene) -> float:
     return float(np.sqrt(float(torch.sum(r * r)) / n))
 
 
-def check_device(device) -> torch.device:
-    """The device to run on; asking for CUDA without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
-                           "device (pass device='cpu' to run the plain "
-                           "PyTorch versions of the kernels)")
-    return device
-
-
-def run_pipeline(data: DeepArcData,
-                 options: PipelineOptions = PipelineOptions(),
-                 output_dir: Optional[str] = None, basename: str = "scene",
-                 dtype=torch.float64, device="cuda",
-                 verbose: bool = True) -> PipelineResult:
+def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
+    """The freeze solve and the solve/filter rounds on the grid engine;
+    returns (scene, rounds)."""
     from deeparc_tpu_torch.pipeline.filtering import (
         FilterStats,
         filter_masks_grid,
@@ -149,47 +141,13 @@ def run_pipeline(data: DeepArcData,
         solve_ba_grid,
     )
 
-    device = check_device(device)
-    engine = options.engine
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(f"engine={engine!r}: {_NOT_PORTED[engine]}"
-                                  " is not ported yet")
-    if not data.share_extrinsic:
-        raise NotImplementedError(
-            f"a non-shared scene needs {_NOT_PORTED['tiles']}, which is not "
-            "ported yet")
-    if engine not in ("auto", "grid"):
-        raise ValueError(f"unknown engine {engine!r}")
-    if options.impl not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"impl={options.impl!r}: the port runs the grid engine through "
-            "its hand kernels only (the einsum/planes impls are left out, "
-            "ROADMAP.md Queue 1)")
-
-    t_start = time.time()
-    out = lambda name: os.path.join(output_dir, name) if output_dir else None
-    if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-    log = print if verbose else (lambda *a, **k: None)
-
-    scene = from_deeparc(data, dtype=dtype, device=device)
-    log(f"[deeparc] loaded: {scene.n_obs} obs, {scene.n_points} points, "
-        f"{scene.n_extrinsics} extrinsics, {scene.n_intrinsics} intrinsics, "
-        f"share_extrinsic={scene.meta.share_extrinsic}, device={device}")
-
-    hemi = fit_hemisphere(scene_camera_centers(scene),
-                          options.hemisphere_max_iterations).cpu().numpy()
-    log(f"[deeparc] hemisphere fit: center={hemi[:3]} r^2={hemi[3]:.6f}")
-    if output_dir and options.write_snapshots:
-        _snapshot(scene, out(f"{basename}_init.ply"))
-
+    dev, dtype = scene.params.points.device, scene.params.points.dtype
     grid = grid_from_scene(scene)
     log(f"[deeparc] engine=grid ({grid.mask.shape[1]} cells, "
         f"{float(grid.mask.mean()) * 100:.1f}% grid density, "
-        f"kernels={'cuda' if device.type == 'cuda' else 'plain torch'})")
-    hemi_center = torch.as_tensor(hemi[:3], dtype=dtype, device=device)
+        f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
+    hemi_center = torch.as_tensor(hemi[:3], dtype=dtype, device=dev)
     band_state: dict = {}    # band prep shared across filter rounds
-    totals = {"iterations": 0, "seconds": 0.0}
 
     def run_solve(free):
         res = solve_ba_grid(scene.params, grid, free, options.solver,
@@ -219,9 +177,8 @@ def run_pipeline(data: DeepArcData,
     scene = _sync_grid_masks(scene, grid)
 
     step = 0
-    rounds_log: list = []
-    if output_dir and options.write_snapshots:
-        _snapshot(scene, out(f"{basename}_adjust_point_{step}.ply"))
+    rounds: list = []
+    snapshot(scene, step)
     old_points, current_points = -1, stats.points_alive
     while current_points != old_points and step < options.max_filter_rounds:
         step += 1
@@ -233,20 +190,168 @@ def run_pipeline(data: DeepArcData,
         current_points = stats.points_alive
         log(f"block: {stats.obs_alive}")
         log(f"point3d: {current_points}")
-        if output_dir and options.write_snapshots:
-            _snapshot(scene, out(f"{basename}_adjust_point_{step}.ply"))
-        rounds_log.append(_write_sidecar(
-            out(f"{basename}_state.json") if output_dir else None,
-            step, result, stats, t_start))
+        snapshot(scene, step)
+        rounds.append(sidecar(step, result, stats))
+    return scene, rounds
 
-    log(f"TOTAL REPEAT: {step}")
+
+def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
+    """The freeze solve and the solve/filter rounds on the tile engine, on
+    one layout that every round reuses; returns (scene, rounds)."""
+    from deeparc_tpu_torch.pipeline.filtering import (
+        FilterStats,
+        filter_masks_tiles,
+    )
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.solver.tiles import (
+        solve_tiles_prepared,
+        tiles_from_scene,
+        unpermute_points,
+    )
+
+    dev, dtype = scene.params.points.device, scene.params.points.dtype
+    free0 = freeze_masks(scene)
+    tiles, params_t, free_t, slot_src = tiles_from_scene(
+        scene, free0, with_slot_src=True)
+    v_loc = [b.loc[1].shape[1] if b.loc else None for b in tiles.buckets]
+    log(f"[deeparc] engine=tiles ({tiles.cells.cols.shape[0]} cells, "
+        f"{len(tiles.buckets)} width buckets "
+        f"{[b.cell.shape[1] for b in tiles.buckets]}, v_local={v_loc}, "
+        f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
+    cam_free_full = flatten_camera(free0)
+    cam_free_frozen = flatten_camera(freeze_masks(scene, freeze_camera=True))
+    sweep_dtype = torch.bfloat16 if options.sweep_dtype == "bf16" else None
+    hemi_center = torch.as_tensor(hemi[:3], dtype=dtype, device=dev)
+    solve_cache: dict = {}   # the step, shared across filter rounds
+
+    def run_solve(tiles_cur, params_cur, cam_free, free_rows):
+        res = solve_tiles_prepared(params_cur, tiles_cur, free_rows, cam_free,
+                                   options.solver, unpermute=False,
+                                   sweep_dtype=sweep_dtype,
+                                   _cache=solve_cache)
+        totals["iterations"] += res.iterations
+        totals["seconds"] += res.seconds
+        totals["cg"] += res.cg_iterations
+        return res
+
+    def run_filter(tiles_cur, params_cur):
+        masks, row_mask = filter_masks_tiles(
+            params_cur.points, params_cur, tiles_cur, hemi_center,
+            float(hemi[3]), options.filter)
+        stats = FilterStats(obs_alive=int(sum(m.sum() for m in masks)),
+                            points_alive=int(row_mask.sum()))
+        buckets = tuple(b._replace(mask=m)
+                        for b, m in zip(tiles_cur.buckets, masks))
+        return tiles_cur._replace(buckets=buckets), row_mask, stats
+
+    def sync_scene(scn, params_cur, tiles_cur, row_mask):
+        """Row-space results back onto the observation-list scene."""
+        pts = unpermute_points(params_cur.points, tiles)
+        obs_mask = np.zeros(scn.n_obs)
+        for b, src in zip(tiles_cur.buckets, slot_src):
+            valid = src >= 0
+            obs_mask[src[valid]] = b.mask.cpu().numpy()[valid]
+        pmask = row_mask[tiles.row_of_point.long()]
+        index = dataclasses.replace(
+            scn.index, obs_mask=torch.as_tensor(obs_mask, dtype=dtype,
+                                                device=dev),
+            point_mask=pmask.to(dtype))
+        return dataclasses.replace(
+            scn, params=dataclasses.replace(params_cur, points=pts),
+            index=index)
+
+    result = run_solve(tiles, params_t, cam_free_frozen, free_t)
+    params_rows = result.params
+    log(f"[deeparc] freeze-camera solve: cost={result.cost:.6e} "
+        f"iters={result.iterations}")
+    tiles_cur, row_mask, stats = run_filter(tiles, params_rows)
+    free_rows = free_t * row_mask[:, None]
+    log(f"block: {stats.obs_alive}")
+    log(f"point3d: {stats.points_alive}")
+    scene = sync_scene(scene, params_rows, tiles_cur, row_mask)
+
+    step = 0
+    rounds: list = []
+    snapshot(scene, step)
+    old_points, current_points = -1, stats.points_alive
+    while current_points != old_points and step < options.max_filter_rounds:
+        step += 1
+        old_points = current_points
+        result = run_solve(tiles_cur, params_rows, cam_free_full, free_rows)
+        params_rows = result.params
+        tiles_cur, row_mask, stats = run_filter(tiles_cur, params_rows)
+        free_rows = free_t * row_mask[:, None]
+        scene = sync_scene(scene, params_rows, tiles_cur, row_mask)
+        current_points = stats.points_alive
+        log(f"block: {stats.obs_alive}")
+        log(f"point3d: {current_points}")
+        snapshot(scene, step)
+        rounds.append(sidecar(step, result, stats))
+    return scene, rounds
+
+
+def run_pipeline(data: DeepArcData,
+                 options: PipelineOptions = PipelineOptions(),
+                 output_dir: Optional[str] = None, basename: str = "scene",
+                 dtype=torch.float64, device="cuda",
+                 verbose: bool = True) -> PipelineResult:
+    """The whole pipeline on ``device``. ``engine="auto"`` takes the grid
+    engine for a shared-extrinsic rig and the tile engine otherwise;
+    ``data`` is read by field name (the reference's ``DeepArcData`` serves
+    as well as the port's)."""
+    device = check_device(device)
+    engine = options.engine
+    if engine in _NOT_PORTED:
+        raise NotImplementedError(f"engine={engine!r}: {_NOT_PORTED[engine]}"
+                                  " is not ported yet")
+    if engine not in ("auto", "grid", "tiles"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if options.impl not in ("auto", "pallas"):
+        raise NotImplementedError(
+            f"impl={options.impl!r}: the port runs its engines through the "
+            "hand kernels only (the einsum/planes/xla impls are left out, "
+            "ROADMAP.md Queue 1)")
+    use_grid = engine == "grid" or (engine == "auto" and data.share_extrinsic)
+
+    t_start = time.time()
+    out = lambda name: os.path.join(output_dir, name) if output_dir else None
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+    log = print if verbose else (lambda *a, **k: None)
+
+    scene = from_deeparc(data, dtype=dtype, device=device)
+    log(f"[deeparc] loaded: {scene.n_obs} obs, {scene.n_points} points, "
+        f"{scene.n_extrinsics} extrinsics, {scene.n_intrinsics} intrinsics, "
+        f"share_extrinsic={scene.meta.share_extrinsic}, device={device}")
+
+    hemi = fit_hemisphere(scene_camera_centers(scene),
+                          options.hemisphere_max_iterations).cpu().numpy()
+    log(f"[deeparc] hemisphere fit: center={hemi[:3]} r^2={hemi[3]:.6f}")
+    if output_dir and options.write_snapshots:
+        _snapshot(scene, out(f"{basename}_init.ply"))
+
+    def snapshot(scn, step):
+        if output_dir and options.write_snapshots:
+            _snapshot(scn, out(f"{basename}_adjust_point_{step}.ply"))
+
+    def sidecar(step, result, stats):
+        return _write_sidecar(
+            out(f"{basename}_state.json") if output_dir else None,
+            step, result, stats, t_start)
+
+    totals = {"iterations": 0, "seconds": 0.0, "cg": 0}
+    rounds_fn = _grid_rounds if use_grid else _tile_rounds
+    scene, rounds_log = rounds_fn(scene, options, hemi, log, snapshot,
+                                  sidecar, totals)
+
+    log(f"TOTAL REPEAT: {len(rounds_log)}")
     scene = compact(scene)
     if output_dir:
         _snapshot(scene, out(f"{basename}_clear.ply"))
         write_deeparc(to_deeparc(scene), out(f"{basename}_output.deeparc"))
     return PipelineResult(
-        scene=scene, hemisphere=hemi, filter_rounds=step,
+        scene=scene, hemisphere=hemi, filter_rounds=len(rounds_log),
         final_cost=float(cost(scene.params, scene.index)),
         final_rmse_px=rmse_px(scene), rounds=tuple(rounds_log),
         solve_iterations=totals["iterations"],
-        solve_seconds=totals["seconds"])
+        solve_seconds=totals["seconds"], cg_iterations=totals["cg"])

@@ -1,2 +1,3 @@
-"""Solvers: robust losses, trust region, small linear algebra, dense LM,
-and the grid engine (``rig_grid``) with its live-band prep (``rig_band``)."""
+"""Solvers: robust losses, trust region, small linear algebra and PCG,
+dense LM, the grid engine (``rig_grid``) with its live-band prep
+(``rig_band``), and the tile engine (``tiles``)."""

@@ -19,6 +19,9 @@ class StepInfo(NamedTuple):
     radius: torch.Tensor
     rho: torch.Tensor
     accepted: torch.Tensor
+    # PCG iterations the linear solve used (the tile engine's
+    # ITERATIVE_SCHUR; -1 where the solve is direct)
+    cg_iters: int = -1
 
 
 class BAResult(NamedTuple):
@@ -28,3 +31,5 @@ class BAResult(NamedTuple):
     status: int
     # wall-clock seconds of the LM loop (every step ends in a host sync)
     seconds: float = 0.0
+    # PCG iterations over the solve (the tile engine's ITERATIVE_SCHUR)
+    cg_iterations: int = 0

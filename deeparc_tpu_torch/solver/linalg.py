@@ -1,9 +1,12 @@
 """Small batched linear algebra, PyTorch port of the parts of
-``deeparc_tpu.solver.linalg`` the grid engine uses: closed-form batched
-3x3 inverses for the point-block eliminations and the masked Cholesky
-solve of the reduced camera system."""
+``deeparc_tpu.solver.linalg`` the engines use: closed-form batched 3x3
+inverses for the point-block eliminations, the masked Cholesky solve of the
+grid engine's reduced camera system, and the matrix-free PCG of the tile
+engine's ITERATIVE_SCHUR."""
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -34,3 +37,42 @@ def masked_spd_solve(A: torch.Tensor, b: torch.Tensor,
     L, info = torch.linalg.cholesky_ex(A_m)
     x = torch.cholesky_solve((b * free)[:, None], L)[:, 0]
     return torch.where(info == 0, x * free, torch.full_like(x, float("nan")))
+
+
+class CGResult(NamedTuple):
+    x: torch.Tensor
+    iterations: int
+    residual_norm: torch.Tensor
+
+
+def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
+        precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
+        max_iterations: int = 500, tol: float = 1e-10) -> CGResult:
+    """Matrix-free preconditioned conjugate gradient for A x = b, ``matvec``
+    applying the SPD operator A (the Schur complement, never formed).
+
+    A Python loop with the reference's stopping rule: iterate while
+    ||r||^2 > (tol ||b||)^2 and fewer than ``max_iterations`` steps were
+    taken; the test reads one scalar back from the device per iteration."""
+    if precond is None:
+        precond = lambda v: v
+    atol2 = (tol * torch.linalg.norm(b)) ** 2
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.dot(r, z)
+    k = 0
+    while k < max_iterations and bool(torch.dot(r, r) > atol2):
+        Ap = matvec(p)
+        denom = torch.dot(p, Ap)
+        alpha = torch.where(denom > 0, rz / denom, torch.zeros_like(rz))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.dot(r, z)
+        beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return CGResult(x=x, iterations=k, residual_norm=torch.linalg.norm(r))

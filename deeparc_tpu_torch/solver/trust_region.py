@@ -12,13 +12,16 @@ from typing import NamedTuple
 
 import torch
 
+from deeparc_tpu_torch.device import check_device
+
 
 class TRState(NamedTuple):
     radius: torch.Tensor           # scalar
     decrease_factor: torch.Tensor  # scalar, doubles on consecutive rejects
 
 
-def init_tr(radius: float, dtype=torch.float64, device="cpu") -> TRState:
+def init_tr(radius: float, dtype=torch.float64, device="cuda") -> TRState:
+    device = check_device(device)
     return TRState(radius=torch.tensor(radius, dtype=dtype, device=device),
                    decrease_factor=torch.tensor(2.0, dtype=dtype,
                                                 device=device))

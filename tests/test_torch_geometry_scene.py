@@ -100,7 +100,7 @@ def test_from_to_deeparc_roundtrip(source):
     data = (read_deeparc(GOLDEN) if source == "golden" else
             make_hemisphere_rig(n_arc=3, n_ring=5, n_points=60, seed=4,
                                 pixel_noise=0.5).data)
-    scene = from_deeparc(data)
+    scene = from_deeparc(data, device="cpu")
     jscene = jfrom_deeparc(data)
     for f in ("obs_point", "obs_outer", "obs_inner", "obs_intr", "obs_xy",
               "focal_shared", "dist_m1", "dist_m2"):
@@ -125,7 +125,7 @@ def test_freeze_masks_match_jax(kw):
     from deeparc_tpu.scene import freeze_masks as jfreeze
 
     data = read_deeparc(GOLDEN)
-    got, want = freeze_masks(from_deeparc(data), **kw), jfreeze(
+    got, want = freeze_masks(from_deeparc(data, device="cpu"), **kw), jfreeze(
         jfrom_deeparc(data), **kw)
     for f in ("points", "ext_rot", "ext_trans", "center", "focal", "dist"):
         np.testing.assert_array_equal(as_np(getattr(got, f)),

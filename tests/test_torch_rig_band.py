@@ -39,7 +39,7 @@ def occlusion():
 
 def test_grid_from_scene_matches_jax(occlusion):
     data, jgrid = occlusion
-    grid = grid_from_scene(from_deeparc(data))
+    grid = grid_from_scene(from_deeparc(data, device="cpu"))
     for k, v in jgrid._asdict().items():
         if k != "band":
             np.testing.assert_array_equal(as_np(getattr(grid, k)),
@@ -48,7 +48,7 @@ def test_grid_from_scene_matches_jax(occlusion):
 
 def test_grid_from_scene_scatters_live_only_and_rejects_duplicates(occlusion):
     data, _ = occlusion
-    scene = from_deeparc(data)
+    scene = from_deeparc(data, device="cpu")
     # a dead duplicate of a live observation must not reach the grid
     dup = dataclasses.replace(
         scene.index,

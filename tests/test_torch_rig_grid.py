@@ -130,7 +130,7 @@ def test_solve_ba_grid_band_auto_matches_jax():
                               jfreeze(jscene),
                               dataclasses.replace(OPTIONS, max_iterations=3),
                               impl="planes", chunk_size=128)
-    scene = from_deeparc(data)
+    scene = from_deeparc(data, device="cpu")
     state: dict = {}
     res_t = trg.solve_ba_grid(scene.params, trg.grid_from_scene(scene),
                               freeze_masks(scene),
@@ -147,7 +147,7 @@ def test_band_reuse_keeps_no_planes_and_matches_fresh_prep():
     """The prep stored for reuse across filter rounds holds no plane
     stacks; the next round re-gathers them for the shrunk mask and solves
     exactly as a fresh prep does."""
-    scene = from_deeparc(_solve_inputs())
+    scene = from_deeparc(_solve_inputs(), device="cpu")
     grid = trg.grid_from_scene(scene)
     free = freeze_masks(scene)
     options = dataclasses.replace(OPTIONS, max_iterations=2)

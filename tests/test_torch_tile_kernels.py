@@ -1,0 +1,248 @@
+"""Port parity: the tile kernels' plain versions against the JAX Pallas
+kernels (interpret mode) and the JAX XLA sweeps.
+
+The sweeps are the same sums in another order: rtol 1e-10, atol 1e-12 (the
+tolerance of tests/test_tile_pallas.py). The fused linearize is held to the
+tolerances of tests/test_tile_pallas.py:124-137,194-197 (cost rtol 1e-12,
+system and planes rtol 1e-9). bf16 planes may differ by one bf16 rounding
+step (a relative 2^-8) where the two f64 values straddle a rounding
+boundary."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeparc_tpu.io.synthetic import make_bal_synthetic, make_bal_tile_device
+from deeparc_tpu.kernels import tile_pallas as jk
+from deeparc_tpu.residuals.reprojection import camera_dim
+from deeparc_tpu.residuals.reprojection import flatten_camera as jflatten
+from deeparc_tpu.scene import freeze_masks as jfreeze
+from deeparc_tpu.scene import from_deeparc as jfrom_deeparc
+from deeparc_tpu.solver import tiles as jt
+from deeparc_tpu.solver.linalg import inv3x3 as jinv3x3
+from deeparc_tpu.solver.rig_grid import slot_params as jslot_params
+from deeparc_tpu_torch.kernels import tile as tk
+from deeparc_tpu_torch.solver import tiles as tt
+from deeparc_tpu_torch.solver.rig_grid import slot_params
+from torch_parity import as_np, close, params_to_torch, tiles_to_torch
+
+CHUNK = 64
+T = lambda a: torch.tensor(np.asarray(a))
+
+
+@pytest.fixture(scope="module")
+def sweep_problem():
+    rig = make_bal_synthetic(n_cameras=10, n_points=90, track_length=5.0,
+                             pixel_noise=0.5, point_noise=0.03, seed=9)
+    scene = jfrom_deeparc(rig.data, dtype=jnp.float64)
+    free = jfreeze(scene)
+    tiles, params_t, free_t = jt.tiles_from_scene(scene, free,
+                                                  chunk_obs=CHUNK)
+    packed = jt.pack_cells(jslot_params(params_t, tiles.cells), tiles.cells,
+                           jflatten(free))
+    C = camera_dim(params_t)
+    sys = jt.linearize_tiles(params_t.points, packed, tiles, free_t, C, CHUNK)
+    binv = jinv3x3(sys.hpp + 0.1 * jnp.eye(3, dtype=jnp.float64))
+    v = jnp.asarray(np.random.default_rng(0).normal(size=(C,)))
+    return tiles, sys, binv, jt.flat_to_cells(v, tiles.cells.cols)
+
+
+def _bucket_args(b, blk, binv, sys, offset, plane):
+    Nb = b.cell.shape[0]
+    cell_t, jcam_t, jx_t = jk.pack_bucket_planes(blk.j_x, blk.j_cam, plane)
+    binv_t = binv[offset:offset + Nb].reshape(Nb, 9).T
+    gp_t = sys.g_p[offset:offset + Nb].T
+    return cell_t, jcam_t, jx_t, binv_t, gp_t
+
+
+@pytest.mark.parametrize("mode", ["rhs", "matvec", "edot"])
+def test_tile_sweep_plain_matches_jax(sweep_problem, mode):
+    """Per bucket against JAX tile_sweep (interpret), and summed over the
+    buckets against the XLA sweeps _e_sweep / _e_dot_cells."""
+    tiles, sys, binv, v_cells = sweep_problem
+    total, rows, offset = 0.0, [], 0
+    for b, blk in zip(tiles.buckets, sys.blocks):
+        args = _bucket_args(b, blk, binv, sys, offset, b.cell)
+        want = jk.tile_sweep(*args, v_cells, mode=mode, block_n=128,
+                             interpret=True)
+        got = tk.tile_sweep(*(T(a) for a in args), T(v_cells), mode=mode)
+        close(got, want, rtol=1e-10, atol=1e-12)
+        if mode == "edot":
+            rows.append(as_np(got))
+        else:
+            total = total + as_np(got)
+        offset += b.cell.shape[0]
+    if mode == "edot":
+        tail = sys.g_p.shape[0] - offset
+        got_all = np.concatenate(rows + [np.zeros((tail, 3))])
+        want_all = jt._e_dot_cells(tiles, sys, v_cells, CHUNK)
+    else:
+        got_all = total
+        want_all = jt._e_sweep(tiles, sys, binv,
+                               None if mode == "rhs" else v_cells,
+                               mode == "rhs", CHUNK)
+    close(got_all, want_all, rtol=1e-10, atol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def fused_problem():
+    # 2 chunks, W=4, V_local=8: multi-chunk binning and the local->global
+    # scatter at the smallest shape (tests/test_tile_pallas.py:90-106)
+    params, tiles, _, cam_free = make_bal_tile_device(
+        n_cameras=24, n_points=128, track_length=3, window=8, chunk_obs=256,
+        dtype=jnp.float64)
+    packed = jt.pack_cells(jslot_params(params, tiles.cells), tiles.cells,
+                           cam_free)
+    params_p = params_to_torch(params)
+    tiles_p = tiles_to_torch(tiles)
+    packed_p = tt.pack_cells(slot_params(params_p, tiles_p.cells),
+                             tiles_p.cells, T(cam_free))
+    return params, tiles, packed, cam_free, params_p, tiles_p, packed_p
+
+
+def _lin_inputs(points, b, packed, np_mod):
+    """(pts_pack, local cell_t, xy0_t, xy1_t, mask_t, tables) of bucket b
+    in either package (np_mod = jnp or torch)."""
+    local, chunk_cells = b.loc
+    Nb = b.cell.shape[0]
+    if np_mod is torch:
+        pts = torch.cat([points.T, torch.ones((3, Nb), dtype=points.dtype),
+                         torch.zeros((2, Nb), dtype=points.dtype)])
+        return (pts, local.T.contiguous(), b.xy0.T.contiguous(),
+                b.xy1.T.contiguous(), b.mask.T.contiguous(),
+                packed[chunk_cells.long()])
+    pts = jnp.concatenate([points.T, jnp.ones((3, Nb)), jnp.zeros((2, Nb))])
+    return (pts, local.T, b.xy0.T, b.xy1.T, b.mask.T, packed[chunk_cells])
+
+
+@pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("cauchy", 2.0)])
+def test_tile_linearize_local_plain_matches_jax(fused_problem, loss, scale):
+    params, tiles, packed, _, params_p, tiles_p, packed_p = fused_problem
+    close(packed_p, packed, rtol=1e-13, atol=1e-13)
+    b, bp = tiles.buckets[0], tiles_p.buckets[0]
+    want = jk.tile_linearize_local(
+        *_lin_inputs(params.points, b, packed, jnp), loss=loss,
+        loss_scale=scale, interpret=True)
+    got = tk.tile_linearize_local(
+        *_lin_inputs(params_p.points, bp, packed_p, torch), loss=loss,
+        loss_scale=scale)
+    close(got[0], want[0], rtol=1e-12)
+    for g, w in zip(got[1:], want[1:]):
+        close(g, w, rtol=1e-9, atol=1e-9)
+        assert g.shape == w.shape
+
+
+def test_tile_linearize_local_bf16_planes_match_jax(fused_problem):
+    params, tiles, packed, _, params_p, tiles_p, packed_p = fused_problem
+    want = jk.tile_linearize_local(
+        *_lin_inputs(params.points, tiles.buckets[0], packed, jnp),
+        interpret=True, plane_dtype=jnp.bfloat16)
+    got = tk.tile_linearize_local(
+        *_lin_inputs(params_p.points, tiles_p.buckets[0], packed_p, torch),
+        plane_dtype=torch.bfloat16)
+    close(got[0], want[0], rtol=1e-12)
+    for i in (1, 5, 6):      # pout, gc, hc stay in the working dtype
+        close(got[i], want[i], rtol=1e-9, atol=1e-9)
+    for i in (2, 3, 4):      # r, jx, jcam planes
+        assert got[i].dtype == torch.bfloat16
+        w = np.asarray(want[i].astype(jnp.float32))
+        np.testing.assert_allclose(got[i].float().numpy(), w, rtol=2 ** -7,
+                                   atol=1e-30)
+
+
+@pytest.mark.parametrize("mode", ["rhs", "matvec", "edot"])
+def test_tile_sweep_local_plain_matches_jax(fused_problem, mode):
+    params, tiles, packed, cam_free, *_ = fused_problem
+    C = camera_dim(params)
+    pf = jnp.ones_like(params.points)
+    sys = jt.linearize_tiles(params.points, packed, tiles, pf, C)
+    binv = jinv3x3(sys.hpp + 0.1 * jnp.eye(3, dtype=jnp.float64))
+    v_cells = jt.flat_to_cells(
+        jnp.asarray(np.random.default_rng(1).normal(size=(C,))),
+        tiles.cells.cols)
+    b, blk = tiles.buckets[0], sys.blocks[0]
+    cc = b.loc[1]
+    v_loc = (jnp.zeros((cc.shape[0], 18, cc.shape[1])) if mode == "rhs"
+             else jnp.swapaxes(v_cells[cc], 1, 2))
+    args = _bucket_args(b, blk, binv, sys, 0, b.loc[0])
+    want = jk.tile_sweep_local(*args, v_loc, mode=mode, block_n=128,
+                               interpret=True)
+    got = tk.tile_sweep_local(*(T(a) for a in args), T(v_loc), mode=mode)
+    assert tuple(got.shape) == want.shape
+    close(got, want, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("local", [True, False])
+def test_slot_bins_reduce_like_index_add(fused_problem, local):
+    """The kernels' bin structure, emulated with torch: every slot in
+    exactly one segment, segments inside one bin and at most SEGMENT long,
+    and the segment-then-bin sums equal index_add_ over the bins."""
+    tiles_p = fused_problem[5]
+    b = tiles_p.buckets[0]
+    if local:
+        cell_t = b.loc[0].T
+        n_chunks, n_cells = b.loc[1].shape
+    else:
+        cell_t, n_chunks, n_cells = b.cell.T, 1, tiles_p.cells.cols.shape[0]
+    bins = tk.slot_bins(cell_t.contiguous(), n_chunks, n_cells)
+    W, Nb = cell_t.shape
+    order = bins.order.long()
+    assert torch.equal(torch.sort(order).values, torch.arange(W * Nb))
+    seg = bins.seg_start.long()
+    assert int((seg[1:] - seg[:-1]).max()) <= tk.SEGMENT
+    key = ((torch.arange(Nb) // (Nb // n_chunks))[None, :] * n_cells
+           + cell_t.long()).reshape(-1)
+    vals = torch.randn(W * Nb, 5, dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(0))
+    partial = torch.stack([vals[order[s0:s1]].sum(0)
+                           for s0, s1 in zip(seg[:-1], seg[1:])])
+    bin_seg = bins.bin_seg.long()
+    out = torch.stack([partial[g0:g1].sum(0)
+                       for g0, g1 in zip(bin_seg[:-1], bin_seg[1:])])
+    for s0, s1 in zip(seg[:-1], seg[1:]):
+        assert key[order[s0:s1]].unique().numel() == 1
+    want = torch.zeros(bins.n_bins, 5, dtype=torch.float64).index_add_(
+        0, key, vals)
+    close(out, want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_layout_bins_fit_and_are_required(fused_problem):
+    """The layout carries each bucket's bins (the card path never builds
+    them): they fit the bucket's plane, and missing or mismatched bins are
+    refused before a launch."""
+    b = fused_problem[5].buckets[0]
+    W, Nb = b.loc[0].T.shape
+    n_bins = b.loc[1].numel()
+    assert tk._check_bins(b.bins, W, Nb, n_bins, b.cell.device) is b.bins
+    for bins, nb in ((None, n_bins), ((), n_bins), (b.bins, n_bins + 1)):
+        with pytest.raises(ValueError):
+            tk._check_bins(bins, W, Nb, nb, b.cell.device)
+
+
+def test_linearize_tiles_chunk_path_matches_fused_and_jax(fused_problem):
+    """The torch chunk path (``linearize_tiles``, which the step takes for
+    wide or unblocked buckets) against JAX ``linearize_tiles``, and the
+    mixed linearize's fused-kernel planes against the chunk path's blocks
+    (tests/test_tile_pallas.py:109-137, tolerances as there)."""
+    params, tiles, packed, _, params_p, tiles_p, packed_p = fused_problem
+    C = camera_dim(params)
+    pf = torch.ones_like(params_p.points)
+    want = jt.linearize_tiles(params.points, packed, tiles,
+                              jnp.ones_like(params.points), C)
+    ref = tt.linearize_tiles(params_p.points, packed_p, tiles_p, pf, C)
+    sys_f, planes = tt.linearize_tiles_mixed(params_p.points, packed_p,
+                                             tiles_p, pf, C)
+    assert tt.bucket_fused_ok(tiles_p.buckets[0])
+    close(ref.cost, want.cost, rtol=1e-12)
+    close(sys_f.cost, want.cost, rtol=1e-12)
+    for f in ("g_p", "hpp", "g_c", "hcc_cells", "hcc_diag"):
+        close(getattr(ref, f), getattr(want, f), rtol=1e-9, atol=1e-9)
+        close(getattr(sys_f, f), getattr(want, f), rtol=1e-9, atol=1e-9)
+    b, blk = tiles_p.buckets[0], ref.blocks[0]
+    cell_t, jcam_t, jx_t = tk.pack_bucket_planes(blk.j_x, blk.j_cam, b.loc[0])
+    assert torch.equal(planes[0][0], cell_t)
+    close(planes[0][1], as_np(jcam_t), rtol=1e-9, atol=1e-12)
+    close(planes[0][2], as_np(jx_t), rtol=1e-9, atol=1e-12)
+    close(planes[0][3], as_np(blk.r.permute(1, 2, 0).reshape(-1, b.cell.shape[0])),
+          rtol=1e-9, atol=1e-12)

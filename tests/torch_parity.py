@@ -17,15 +17,28 @@ def params_to_torch(params_jax, dtype=torch.float64):
     """JAX BAParams -> port BAParams through numpy."""
     d = {f.name: np.asarray(getattr(params_jax, f.name))
          for f in dataclasses.fields(params_jax)}
-    return tscene.params_from_numpy(d, dtype=dtype)
+    return tscene.params_from_numpy(d, dtype=dtype, device="cpu")
 
 
 def grid_to_torch(grid_jax, dtype=torch.float64):
     """JAX GridIndex (band tables dropped) -> port GridIndex through numpy."""
     d = {k: np.asarray(v) for k, v in grid_jax._asdict().items() if k != "band"}
-    return tscene.grid_from_numpy(d, dtype=dtype)
+    return tscene.grid_from_numpy(d, dtype=dtype, device="cpu")
 
 
 def close(got, want, rtol, atol=0.0):
     np.testing.assert_allclose(as_np(got), np.asarray(want), rtol=rtol,
                                atol=atol)
+
+
+def tiles_to_torch(tiles_jax, dtype=torch.float64):
+    """JAX TileIndex -> port TileIndex (with its slot bins) through numpy."""
+    d = {
+        "cells": {k: np.asarray(v) for k, v in tiles_jax.cells._asdict().items()},
+        "buckets": [dict(cell=np.asarray(b.cell), xy0=np.asarray(b.xy0),
+                         xy1=np.asarray(b.xy1), mask=np.asarray(b.mask),
+                         loc=tuple(np.asarray(a) for a in b.loc))
+                    for b in tiles_jax.buckets],
+        "row_of_point": np.asarray(tiles_jax.row_of_point),
+    }
+    return tscene.tiles_from_numpy(d, dtype=dtype, device="cpu")
