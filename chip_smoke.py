@@ -12,7 +12,13 @@ Phases (any failure raises and exits non-zero):
   3. each grid kernel against its plain PyTorch version on the card, in
      float64 and float32, at the grid path's shapes: the 8x24-cell
      occlusion rig, band-prepped, for the banded pair, and a uniform-random
-     rig of the same size for the monolithic pair;
+     rig of the same size for the monolithic pair, and ``linearize_grid``
+     on a uniform rig with 42 extrinsic plus intrinsic rows, whose float64
+     E row no longer fits ``linearize_mono``'s shared-memory tile (the
+     route is printed); operations are counted over the live slots;
+  3b. one classic LM step on the uniform-random rig (the ``linearize_grid``
+     path), split into linearize / Schur solve / trial cost, with the
+     device's idle share;
   4. the grid main path: ``run_pipeline`` on the 8x24-cell occlusion rig
      (400k points), float64; the banded kernels must launch and the final
      RMSE must sit under twice the pixel noise;
@@ -21,8 +27,14 @@ Phases (any failure raises and exits non-zero):
      path's shapes: the windowed BAL scene (2000 shuffled cameras, 1M
      points, 8 observations each, 8 hub cameras), laid out with locality
      for ``tile_linearize_local`` / ``tile_sweep_local`` and without it
-     (V = 2000 global cells) for ``tile_sweep``; float64, float32 and bf16
-     planes; each kernel run twice must give the same bits;
+     (V = 2000 global cells) for ``tile_sweep`` (with its cell-sorted jcam
+     copy, built from unrounded working-dtype rows as the solver builds
+     it, held bit for bit against its plain version, and its build time);
+     float64, float32 and bf16 planes; each kernel
+     run twice must give the same bits; 6b splits one tile LM step on the
+     locality layout by kernel pass, 6c one on the ``locality=False``
+     layout into linearize / sweep set-up / sweeps / the rest, each with
+     the device's idle share;
   7. the tile main path: ``run_pipeline`` on that scene, float64,
      ITERATIVE_SCHUR with 30 PCG iterations; the tile kernels must launch
      and the final RMSE must sit under twice the pixel noise;
@@ -31,8 +43,9 @@ Phases (any failure raises and exits non-zero):
      a small scene with several bucket widths (every routing of the step)
      solved on the card and on the CPU must end at the same cost;
 then one JSON line with every kernel's record (errors, milliseconds, the
-bound, launches on the main paths), the nvidia-smi line, and the result
-line ``{"ok": true, "device": {...}}``.
+bound, launches on the main paths and per LM step at the kernel's timing
+scene), the nvidia-smi line, and the result line
+``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings. A kernel's bound is the larger of
 its bytes (each input read once, each output written once) over 3.35 TB/s
@@ -229,33 +242,59 @@ def kernel_inputs(data, dtype, banded):
     return params.points, free.points, sp, grid, tables, prep
 
 
-def phase_grid_kernels(args, records):
-    """Phase 3; returns the occlusion rig for the main path."""
+def mono_route(grid, dtype):
+    """The route linearize_grid takes on this rig and dtype: its own kernel
+    (``linearize_mono``) when a 32-point tile's E fits in shared memory,
+    else the kernel it shares with the banded wrapper."""
     import torch
 
+    from deeparc_tpu_torch.kernels.build import library
+
+    R, K = grid.onehot_outer.shape[1], grid.onehot_intr.shape[1]
+    blocks = library().rig_linearize_mono_grid(
+        int(dtype == torch.float64), 0, 6 * (R + K),
+        (grid.mask.shape[0] + 31) // 32)
+    if blocks < 0:
+        raise RuntimeError(f"rig_linearize_mono_grid: cudaError {-blocks}")
+    return (f"linearize_mono ({blocks} blocks)" if blocks else
+            "linearize_kernel (the E tile does not fit)"), R + K
+
+
+def phase_grid_kernels(args, records):
+    """Phase 3; returns the rigs {occluded: data}: the occlusion rig of the
+    main path (True) and the uniform-random one (False). A third, uniform
+    rig with 42 extrinsic plus intrinsic rows (one past what linearize_mono's
+    float64 E tile holds) checks linearize_grid's other route."""
+    import torch
+
+    from deeparc_tpu_torch.io import make_hemisphere_rig
     from deeparc_tpu_torch.kernels import rig_grid as k
 
     print("[phase 3] grid kernels vs plain versions on the card")
     rigs = {True: flagship_rig(args.n_points, 6, 0),
             False: flagship_rig(args.n_points, None, 1)}
+    wide = make_hemisphere_rig(
+        n_arc=8, n_ring=26, n_points=args.n_points, visibility=10 / 48,
+        pixel_noise=PIXEL_NOISE, point_noise=0.02, seed=4).data
+    cases = ((True, rigs[True], None), (False, rigs[False], None),
+             (False, wide, "wide"))
     lin_labels = ("cost", "g_p", "hpp", "g_slots", "hcc_slots", "E")
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        for banded, data in rigs.items():
+        for banded, data, tag in cases:
             pts, pf, sp, grid, tables, prep = kernel_inputs(data, dtype,
                                                             banded)
             N, T = grid.mask.shape
             esz = pts.element_size()
             density = float(grid.mask.mean())
+            # operations are counted over the live slots the data needs;
+            # the bytes are the dense planes each kernel is given
+            live = int(grid.mask.sum())
             if banded:
                 (bw_lin, bw_cost), (bb_lin, bb_cost) = prep.widths
                 print(f"  banded rig: {N} points, {T} cells, density "
-                      f"{density:.4f}, lin groups {prep.lin_groups}, cost "
-                      f"groups {prep.cost_groups}")
-                lin_slots = sum(w * (hi - lo) * bb_lin
-                                for w, lo, hi in prep.lin_groups)
-                cost_slots = sum(w * (hi - lo) * bb_cost
-                                 for w, lo, hi in prep.cost_groups)
+                      f"{density:.4f} ({live} live slots), lin groups "
+                      f"{prep.lin_groups}, cost groups {prep.cost_groups}")
                 lin_in = (nbytes(pts, pf, *grid.band[2]) + T * 78 * esz)
                 cost_in = nbytes(pts, *grid.band[3]) + T * 78 * esz
                 calls = {
@@ -263,28 +302,32 @@ def phase_grid_kernels(args, records):
                         k.linearize_grid_banded, k.linearize_grid_banded_plain,
                         (pts, pf, sp, grid, *tables, grid.band[0], bw_lin),
                         dict(block_np=bb_lin, intr_frozen=True,
-                             pxm=grid.band[2]), lin_in, lin_slots),
+                             pxm=grid.band[2]), lin_in, live),
                     "cost_grid_banded": (
                         k.cost_grid_banded, k.cost_grid_banded_plain,
                         (pts, sp, grid, grid.band[1], bw_cost),
                         dict(block_np=bb_cost, pxm=grid.band[3]), cost_in,
-                        cost_slots),
+                        live),
                 }
             else:
-                print(f"  uniform rig: {N} points, {T} cells, density "
-                      f"{density:.4f}")
-                t_pad = -(-T // 8) * 8
+                route, rows = mono_route(grid, dtype)
+                print(f"  uniform rig{' (' + tag + ')' if tag else ''}: {N} "
+                      f"points, {T} cells, {rows} extrinsic plus intrinsic "
+                      f"rows, density {density:.4f} ({live} live slots); "
+                      f"linearize_grid route: {route}")
                 planes = nbytes(grid.xy0, grid.xy1, grid.mask)
                 calls = {
                     "linearize_grid": (
                         k.linearize_grid, k.linearize_grid_plain,
                         (pts, pf, sp, grid, *tables), dict(block_np=256),
-                        nbytes(pts, pf) + planes + T * 78 * esz, N * t_pad),
+                        nbytes(pts, pf) + planes + T * 78 * esz, live),
                     "cost_grid": (
                         k.cost_grid, k.cost_grid_plain, (pts, sp, grid),
                         dict(block_np=1024),
-                        nbytes(pts) + planes + T * 78 * esz, N * t_pad),
+                        nbytes(pts) + planes + T * 78 * esz, live),
                 }
+                if tag:
+                    del calls["cost_grid"]
             for name, (kern, plain, a, kw, in_bytes, slots) in calls.items():
                 out = kern(*a, **kw)
                 out_bytes = nbytes(*(out if isinstance(out, tuple) else
@@ -294,10 +337,109 @@ def phase_grid_kernels(args, records):
                 measure(records, name, dname,
                         lambda: kern(*a, **kw), lambda: plain(*a, **kw),
                         labels, args.reps, in_bytes + out_bytes,
-                        slots * OPS_PER_SLOT[name])
+                        slots * OPS_PER_SLOT[name], mode=tag)
+                if tag:
+                    records[name][f"{dname}:{tag}"].update(route=route,
+                                                           rows=rows)
             del pts, pf, sp, grid, tables, prep, calls
             torch.cuda.empty_cache()
-    return rigs[True]
+    del wide
+    return rigs
+
+
+def wall_ms(fn, reps):
+    """Median host time of fn between two synchronisations."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def device_ms(fn):
+    """{kernel name: device ms} of everything one call of fn launches
+    (torch.profiler self times); empty when the profiler sees no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            times[e.key] = times.get(e.key, 0.0) + (
+                getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    return times
+
+
+def print_split(label, wall, parts, busy):
+    rest = wall - sum(parts.values())
+    print(f"  {label}: wall {wall:.3f} ms (median of 3); "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f", the rest {rest:.3f} ms; device busy {busy:.3f} ms, idle "
+          + (f"share {1 - busy / wall:.3f}" if busy else
+             "share not measured (the profiler saw no device time)"))
+
+
+def grid_step_split(data):
+    """Phase 3b: one classic LM step of the monolithic grid path (float64,
+    the pipeline's full-BA free mask) on the uniform-random rig of phase 3:
+    host wall time around the synchronised step; the linearize
+    (``assemble_grid_system``) and the trial cost (``grid_cost``) timed
+    alone with CUDA events; the Schur solve is the rest; the idle share
+    from the profiler's device time over one step. Returns the kernels'
+    launches in one step."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.rig_grid import (
+        assemble_grid_system,
+        grid_cost,
+        grid_from_scene,
+        init_grid_state,
+        make_grid_step,
+        slot_params,
+    )
+
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    grid = grid_from_scene(scene)
+    free = freeze_masks(scene)
+    cam_free = flatten_camera(free)
+    params = scene.params
+    opts = SolverOptions()
+    step = make_grid_step(opts, params)
+    state = init_grid_state(params, grid, opts)
+    run = lambda: step(state, grid, cam_free, free.points)
+    k.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    per_step = {fn.__name__: fn.launches
+                for fn in (k.linearize_grid, k.cost_grid)}
+    wall = wall_ms(run, 3)
+    sp = slot_params(params, grid)
+    parts = {
+        "linearize": time_ms(lambda: assemble_grid_system(
+            params.points, sp, grid, cam_free, free.points), 3),
+        "trial cost": time_ms(lambda: grid_cost(params.points, sp, grid), 3),
+    }
+    print_split("one LM step (f64), Schur solve = the rest", wall, parts,
+                sum(device_ms(run).values()))
+    return per_step
 
 
 def run_main_path(data, args, label, solver=None):
@@ -368,46 +510,93 @@ def tile_step_breakdown(layout):
     linearize's row and bin passes, the PCG sweeps' row and bin passes,
     the bins' second pass, and everything else (torch ops)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from deeparc_tpu_torch.config import SolverOptions
     from deeparc_tpu_torch.solver.tiles import init_tile_state, make_tile_step
+
+    from deeparc_tpu_torch import kernels as k
 
     tiles, params_t, free_t, _, cam_free = layout
     opts = SolverOptions(linear_solver="iterative_schur", cg_max_iterations=30)
     step = make_tile_step(opts, params_t)
     state = init_tile_state(params_t, tiles, opts, cam_free)
+    k.reset_launch_counts()
     state, info = step(state, tiles, cam_free, free_t)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        _, info = step(state, tiles, cam_free, free_t)
-        torch.cuda.synchronize()
-        walls.append((time.time() - t0) * 1e3)
-    wall = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(state, tiles, cam_free, free_t)
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    per_step = {fn.__name__: fn.launches
+                for fn in (k.tile_linearize_local, k.tile_sweep_local)}
+    run = lambda: step(state, tiles, cam_free, free_t)
+    _, info = run()
+    wall = wall_ms(run, 3)
     parts = ("linearize_rows", "linearize_bins", "sweep_rows", "sweep_bins",
              "reduce_bins")
     split = dict.fromkeys(parts + ("other",), 0.0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0.0))
-        part = next((p for p in parts if p in e.key), "other")
-        split[part] += us / 1e3
+    for key, ms in device_ms(run).items():
+        split[next((p for p in parts if p in key), "other")] += ms
     busy = sum(split.values())
     print(f"  one LM step (f64, {info.cg_iters} PCG iterations): wall "
           f"{wall:.3f} ms (median of 3); device time by part (ms): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + ", ".join(f"{p} {v:.3f}" for p, v in split.items())
           + f"; device busy {busy:.3f} ms, idle share "
           + (f"{1 - busy / wall:.3f}" if busy else "not measured (the "
              "profiler saw no device time)"))
+    return per_step
+
+
+def tile_global_step_split(layout):
+    """Phase 6c: one tile LM step (30 PCG iterations, float64) on the
+    ``locality=False`` layout of phase 6, whose sweeps are ``tile_sweep``:
+    host wall time around the synchronised step; the linearize
+    (``linearize_tiles_mixed``), the sweep set-up (``_make_kernel_sweeps``:
+    the transposed planes and each bucket's cell-sorted jcam copy) and the
+    step's sweeps (rhs, one matvec per PCG iteration, edot) timed alone
+    with CUDA events; the idle share from the profiler's device time over
+    one step. Returns tile_sweep's launches in one step."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.solver.linalg import inv3x3
+    from deeparc_tpu_torch.solver.tiles import (
+        _make_kernel_sweeps,
+        init_tile_state,
+        linearize_tiles_mixed,
+        make_tile_step,
+    )
+
+    tiles, params_t, free_t, packed, cam_free = layout
+    opts = SolverOptions(linear_solver="iterative_schur", cg_max_iterations=30)
+    step = make_tile_step(opts, params_t)
+    state = init_tile_state(params_t, tiles, opts, cam_free)
+    run = lambda: step(state, tiles, cam_free, free_t)
+    k.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, info = run()
+    torch.cuda.synchronize()
+    per_step = {"tile_sweep": k.tile_sweep.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = wall_ms(run, 3)
+    lin = lambda: linearize_tiles_mixed(state.points, packed, tiles, free_t,
+                                        cam_free.numel())
+    sys, lin_planes = lin()
+    binv = inv3x3(sys.hpp + torch.eye(3, dtype=sys.hpp.dtype, device="cuda"))
+    setup = lambda: _make_kernel_sweeps(tiles, sys, binv, lin_planes, None,
+                                        256)
+    sweep, edot = setup()
+    v = torch.randn((tiles.cells.cols.shape[0], 18), dtype=torch.float64,
+                    device="cuda")
+
+    def sweeps():
+        sweep(None, True)
+        for _ in range(info.cg_iters):
+            sweep(v, False)
+        edot(v)
+
+    parts = {"linearize": time_ms(lin, 3), "sweep set-up": time_ms(setup, 3),
+             f"sweeps (2 + {info.cg_iters})": time_ms(sweeps, 3)}
+    print_split(f"one LM step (f64, {info.cg_iters} PCG iterations, peak "
+                f"{peak:.3f} GiB)", wall, parts, sum(device_ms(run).values()))
+    return per_step
 
 
 def lin_args(b, points, free, packed, dtype, local):
@@ -481,6 +670,7 @@ def phase_tile_kernels(args, records):
             V = tiles.cells.cols.shape[0]
             v_cells = torch.randn((V, 18), dtype=dtype, device="cuda",
                                   generator=rng)
+            kw = dict(bins=bins)
             if local:
                 cc = b.loc[1].long()
                 v_arg = v_cells[cc].transpose(1, 2).contiguous()
@@ -490,27 +680,56 @@ def phase_tile_kernels(args, records):
                 v_arg, cell_t, name = v_cells, b.cell.T.contiguous(), \
                     "tile_sweep"
                 kern, plain = k.tile_sweep, k.tile_sweep_plain
+                # the cell-sorted jcam copy, built as the solver builds it
+                # once per LM step: from the (Nb, W, 2, 18) slot rows in the
+                # working dtype, unrounded, stored in the planes' dtype; it
+                # must equal the plain version's bits, rounding included, or
+                # the row and bin passes would apply two different E
+                work = jcam_t if pdt is None else k.tile_linearize_local(
+                    *la, bins=bins)[4]
+                rows = work.view(W, 2, 18, Nb).permute(3, 0, 1, 2)
+                rows = rows.contiguous()
+                del work
+                sort = lambda: k.sort_jcam(rows, bins, jcam_t.dtype)
+                kw["sorted_jcam"] = sort()
+                equal = torch.equal(kw["sorted_jcam"], k.sort_jcam_plain(
+                    rows, bins, jcam_t.dtype))
+                if not equal:
+                    raise AssertionError(f"sort_jcam {key}: the copy differs "
+                                         f"from sort_jcam_plain's")
+                sort_ms = time_ms(sort, args.reps)
+                records.setdefault(name, {})[f"{key}:sorted_copy"] = dict(
+                    ms=sort_ms, gbytes=nbytes(kw["sorted_jcam"]) / 1e9,
+                    equal_to_plain=equal)
+                print(f"  {name:22s} {key:15s} sorted jcam copy from "
+                      f"{rows.dtype} rows, "
+                      f"{nbytes(kw['sorted_jcam']) / 1e9:.3f} GB, equal to "
+                      f"the plain version's bits, built in {sort_ms:.3f} ms")
+                del rows
             sw = (cell_t, jcam_t, jx_t, binv_t, gp_t, v_arg)
             plane_bytes = nbytes(cell_t, jcam_t, jx_t)
             for mode in ("rhs", "matvec", "edot"):
-                out = kern(*sw, mode=mode, bins=bins)
+                out = kern(*sw, mode=mode, **kw)
                 moved = (plane_bytes + nbytes(out)
                          + (nbytes(binv_t) if mode != "edot" else 0)
                          + (nbytes(gp_t) if mode == "rhs" else nbytes(v_arg)))
                 del out
                 measure(records, name, dname,
-                        lambda: kern(*sw, mode=mode, bins=bins),
+                        lambda: kern(*sw, mode=mode, **kw),
                         lambda: plain(*sw, mode=mode),
                         (mode,), args.reps, moved,
                         W * Nb * OPS_PER_SLOT[mode], tol_name=key,
                         mode=mode)
-            del la, cost, pout, r_t, jx_t, jcam_t, gc, hc, sw
+            del la, cost, pout, r_t, jx_t, jcam_t, gc, hc, sw, kw
             torch.cuda.empty_cache()
     print("[phase 6b] where one tile LM step's time goes")
-    tile_step_breakdown(layouts[True])
+    per_step = tile_step_breakdown(layouts[True])
+    print("[phase 6c] one tile LM step on the locality=False layout "
+          "(the tile_sweep path)")
+    per_step.update(tile_global_step_split(layouts[False]))
     del layouts
     torch.cuda.empty_cache()
-    return data
+    return data, per_step
 
 
 def phase_tile_global(args):
@@ -538,7 +757,11 @@ def phase_tile_global(args):
     launches = k.tile_sweep.launches
     print(f"  {data.n_points} points, locality=False: cost {cost0:.6e} -> "
           f"{res.cost:.6e} in {res.iterations} LM iterations "
-          f"({res.cg_iterations} CG), {res.seconds:.3f} s")
+          f"({res.cg_iterations} CG), {res.seconds:.3f} s; tile_sweep "
+          f"launches {launches}, sorted jcam copies {k.sort_jcam.launches}")
+    if k.sort_jcam.launches < res.iterations:
+        raise AssertionError("tile_sweep's sorted jcam copy was not built "
+                             "on the card")
     if not res.cost < cost0:
         raise AssertionError("solve_ba_tiles(locality=False) did not lower "
                              "the cost")
@@ -572,9 +795,10 @@ def phase_tile_global(args):
     return launches
 
 
-def kernel_record(name, rec, launches):
+def kernel_record(name, rec, launches, per_step):
     """The JSON record of one kernel: the float64 numbers (a sweep's matvec
-    mode, the one PCG repeats), every other measurement nested."""
+    mode, the one PCG repeats), every other measurement nested;
+    ``launches_per_step`` is at the scene the kernel is timed on."""
     r64 = rec["float64:matvec" if "float64:matvec" in rec else "float64"]
     return dict(
         name=name, route="cuda",
@@ -583,7 +807,7 @@ def kernel_record(name, rec, launches):
         max_abs_err=r64["max_abs_err"], max_rel_err=r64["max_rel_err"],
         ms=r64["ms"], plain_ms=r64["plain_ms"], bound_ms=r64["bound_ms"],
         bound_by=r64["bound_by"], library_ms=None,
-        measured=rec)
+        launches_per_step=per_step.get(name), measured=rec)
 
 
 def main(argv=None) -> int:
@@ -628,7 +852,13 @@ def main(argv=None) -> int:
             print("  ptxas:", line.strip())
 
     records: dict = {}
-    data = phase_grid_kernels(args, records)
+    rigs = phase_grid_kernels(args, records)
+    print("[phase 3b] one LM step on the uniform-random rig (the "
+          "linearize_grid path)")
+    per_step = grid_step_split(rigs[False])
+    data = rigs[True]
+    del rigs
+    torch.cuda.empty_cache()
 
     print("[phase 4] grid main path: run_pipeline, 8x24-cell occlusion "
           "rig, float64")
@@ -638,9 +868,13 @@ def main(argv=None) -> int:
              f" (n_points cut from 400000 to {args.n_points})"))
     # each path's counts are set to 0 just before it runs and read just after
     k.reset_launch_counts()
-    run_main_path(data, args, "occlusion rig")
+    res = run_main_path(data, args, "occlusion rig")
     launches = {fn.__name__: fn.launches
                 for fn in (k.linearize_grid_banded, k.cost_grid_banded)}
+    # the banded pair on its own scene: launches per LM iteration of the
+    # pipeline, each solve's start cost included
+    per_step.update({kname: n / max(res.solve_iterations, 1)
+                     for kname, n in launches.items()})
 
     print("[phase 5] uniform-random rig through run_pipeline (monolithic)")
     from deeparc_tpu_torch.io import make_hemisphere_rig
@@ -654,7 +888,10 @@ def main(argv=None) -> int:
                      for fn in (k.linearize_grid, k.cost_grid)})
     print(f"  launches on the grid paths: {launches}")
 
-    tile_data = phase_tile_kernels(args, records)
+    tile_data, tile_per_step = phase_tile_kernels(args, records)
+    per_step.update(tile_per_step)
+    print("  launches per LM step at each kernel's timing scene: "
+          + ", ".join(f"{kname} {n:.2f}" for kname, n in per_step.items()))
 
     print("[phase 7] tile main path: run_pipeline, windowed BAL scene, "
           "float64, ITERATIVE_SCHUR with 30 PCG iterations")
@@ -678,7 +915,7 @@ def main(argv=None) -> int:
         if n <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
 
-    kernels = [kernel_record(kname, rec, launches)
+    kernels = [kernel_record(kname, rec, launches, per_step)
                for kname, rec in records.items()]
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "deeparc_tpu.")) \

@@ -17,6 +17,8 @@ from deeparc_tpu_torch.kernels.tile import (
     MAX_LIN_WIDTH,
     pack_bucket_planes,
     slot_bins,
+    sort_jcam,
+    sort_jcam_plain,
     tile_linearize_local,
     tile_linearize_local_plain,
     tile_sweep,
@@ -39,7 +41,8 @@ __all__ = [
     "cost_grid_banded", "cost_grid_banded_plain", "cost_grid_plain",
     "flat_of_native", "linearize_grid", "linearize_grid_banded",
     "linearize_grid_banded_plain", "linearize_grid_plain", "native_of_flat",
-    "pack_bucket_planes", "reset_launch_counts", "slot_bins",
-    "tile_linearize_local", "tile_linearize_local_plain", "tile_sweep",
-    "tile_sweep_local", "tile_sweep_local_plain", "tile_sweep_plain",
+    "pack_bucket_planes", "reset_launch_counts", "slot_bins", "sort_jcam",
+    "sort_jcam_plain", "tile_linearize_local", "tile_linearize_local_plain",
+    "tile_sweep", "tile_sweep_local", "tile_sweep_local_plain",
+    "tile_sweep_plain",
 ]

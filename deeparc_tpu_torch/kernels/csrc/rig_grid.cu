@@ -6,13 +6,17 @@
 //   cost_grid_banded      (:777, body _banded_cost_kernel :751)
 //   linearize_grid        (:363, body _linearize_kernel :278)
 //   cost_grid             (:859, body _cost_kernel :159)
-// Two kernels serve all four: the monolithic pair is the banded pair with
-// every tile's band starting at cell 0, one group of width t_pad and no
-// cyclic extension (the wrappers in kernels/rig_grid.py build those tables).
+// The monolithic pair takes the banded pair's tables with every tile's band
+// starting at cell 0, one group of width t_pad and no cyclic extension (the
+// wrappers in kernels/rig_grid.py build those tables). cost_grid runs the
+// banded cost kernel on them; linearize_grid has a kernel of its own,
+// linearize_mono (below), and falls back to linearize_kernel only for a rig
+// whose E row does not fit its shared-memory tile.
 //
-// Design. One thread owns one point of a tile of blockDim.x points and walks
-// the tile's band of w cells; a block loops over several tiles (grid-stride)
-// so the per-block scratch stays bounded.
+// Design of linearize_kernel (linearize_grid_banded). One thread owns one
+// point of a tile of blockDim.x points and walks the tile's band of w cells;
+// a block loops over several tiles (grid-stride) so the per-block scratch
+// stays bounded.
 //   * point side: g_p and the 6 unique H_pp entries stay in registers;
 //   * E: the point's row belongs to its thread, so the one-hot contractions
 //     of the TPU kernel become direct read-modify-writes at column
@@ -28,15 +32,17 @@
 //   * cost: per-thread sums, a block reduction into per-block partials and a
 //     fixed-order second pass.
 //
-// What bounds it on the card. The E row: 3 * Cn values per point (576
-// doubles at the flagship's 32 extrinsic rows, ext-only) written once by the
-// zeroing pass and read-modified-written per live slot at scattered columns
-// -- device-memory traffic with poor coalescing. Then the slot reduction:
-// NV = 90 (ext-only) or 189 warp reductions per cell, five shuffles each.
-// The float64 linearize needs up to 178 registers a thread (no spills), so
-// one 256-thread block fills an SM's register file. Making it fast
-// (staging the band's table slab in shared memory, wgmma for the Gram and
-// E contractions) is later work; this version is the simple correct one.
+// What bounds linearize_kernel on the card. The E row: 3 * Cn values per
+// point (576 doubles at the flagship's 32 extrinsic rows, ext-only) written
+// once by the zeroing pass and read-modified-written per live slot at
+// scattered columns -- device-memory traffic with poor coalescing. Then the
+// slot reduction: NV = 90 (ext-only) or 189 warp reductions per cell, five
+// shuffles each. The float64 linearize needs up to 178 registers a thread
+// (no spills), so one 256-thread block fills an SM's register file.
+// Measured on the monolithic shapes (400k points x 192 cells), the E
+// read-modify-writes were two thirds of the kernel's time and the warp
+// sums a fifth; linearize_mono is built around both. Its own note says
+// what bounds it.
 #include <cuda_runtime.h>
 
 #include "rig_slot.cuh"
@@ -166,6 +172,275 @@ linearize_kernel(const S* __restrict__ tbl, const int* __restrict__ ids,
     for (int ww = 0; ww < nwarps; ++ww) s += cost_stage[ww];
     partial_cost[blockIdx.x] += s;
   }
+}
+
+// ---------------------------------------------------------------------------
+// linearize_grid: the monolithic linearize (every point against all t_pad
+// cells, 18 camera columns)
+// ---------------------------------------------------------------------------
+
+constexpr int MONO_PTS = 32;   // points of a block's tile, one per lane
+constexpr int MONO_WARPS = 8;  // warps of a block; each takes every 8th cell
+constexpr int MONO_LD = 33;    // stage row stride: one point per bank pair
+constexpr int MONO_NV = 18 + 18 * 19 / 2;
+
+// A block owns one tile of 32 points at a time and keeps the tile's whole E
+// (32 x 3 Cn values) in shared memory; the lane's E value q sits at
+// q * 32 + (lane ^ (q & 31)), so a warp's 32 lanes hit 32 banks both when
+// they add at one column and when the block writes rows out.
+template <typename S>
+__device__ __forceinline__ S& e_at(S* Es, int q, int pt) {
+  return Es[(size_t)q * MONO_PTS + (pt ^ (q & 31))];
+}
+
+// A two-warp named barrier: the waiting warp syncs, the warp before it
+// arrives; shared-memory writes before the arrive are seen after the sync.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(64) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(64) : "memory");
+}
+
+// Warp w walks cells w, w + 8, ... of the tile. Per cell:
+//   * the slot chain (rig_slot.cuh) for the lane's point; g_p / H_pp / cost
+//     accumulate per lane;
+//   * E: the cell's 54 terms are added to the shared tile in CELL ORDER:
+//     warp w adds after warp w - 1 has added (warp 0 after warp 7 of the
+//     previous 8 cells), handed on through named barriers, so every run
+//     adds in the same order and no two warps touch E at once;
+//   * slot Gram: the warp stages its 32 points' P (18 columns) and r, one
+//     residual row k at a time, in shared memory; lane l < 27 then forms a
+//     3x3 block of the upper Gram (21 blocks) or of P^T r (6 blocks) as dot
+//     products over the staged rows, and adds it into the block's own
+//     partial row of the cell (the cell is always this warp's, so no race).
+// The tile's E rows are then written out once, contiguous and coalesced.
+//
+// What bounds it on the card. E now costs its one coalesced write (2.3 GB
+// at 400k points x 720 columns, ~0.7 ms) and shared-memory adds. The f64
+// E tile (184 KB) leaves room for one block, 8 warps, per SM, with 252
+// registers a thread, and at that occupancy the slot chain alone takes
+// about half the kernel; the E hand-offs and the Gram's shared-memory
+// loads make up the rest and overlap. The float64 Gram on the tensor
+// cores (mma.m8n8k4) measured within 2% of these FMAs, so it was not
+// kept. The E tile needs 3 * Cn * 32 values: a rig with more than ~40
+// extrinsic plus intrinsic rows in float64 takes linearize_kernel.
+template <typename S, int LOSS>
+__global__ void __launch_bounds__(MONO_PTS * MONO_WARPS, sizeof(S) == 4 ? 2 : 1)
+linearize_mono(const S* __restrict__ tbl, const int* __restrict__ ids,
+               const S* __restrict__ pts, const S* __restrict__ pxm,
+               int t_pad, int n_pad, int R, int K, int n_tiles, S scale,
+               S* __restrict__ pout, S* __restrict__ E,
+               S* __restrict__ partial, S* __restrict__ partial_cost) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ S cost_stage[MONO_WARPS];
+  const int Cn = 6 * (R + K), ecols = 3 * Cn;
+  S* Es = reinterpret_cast<S*>(smem_raw);
+  S* stage_all = Es + (size_t)ecols * MONO_PTS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  S* st = stage_all + warp * 19 * MONO_LD;
+  // E hand-offs: named barrier 1 + w passes the turn to warp w
+  const int bar_wait = 1 + warp, bar_pass = 1 + (warp + 1) % MONO_WARPS;
+
+  // this lane's 3x3 block: staged columns ca (rows of the block) x cb
+  // (columns); lanes 21..26 take P^T r (cb = the staged r), 27..31 idle
+  int ca = 0, cb = 0, blkI = 0, blkJ = 0;
+  if (lane < 21) {
+    int l = lane;
+    while (l >= 6 - blkI) {
+      l -= 6 - blkI;
+      ++blkI;
+    }
+    blkJ = blkI + l;
+    ca = 3 * blkI;
+    cb = 3 * blkJ;
+  } else {
+    blkI = lane < 27 ? lane - 21 : 0;
+    ca = 3 * blkI;
+    cb = 18;
+  }
+  const int cb_step = lane < 21 ? 1 : 0;
+  // where each of the lane's nine sums goes in a cell's partial row (-1:
+  // below the diagonal, a padding column, or an idle lane)
+  int vidx[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int a = ca + i, b = cb + j;
+      vidx[i][j] = lane < 21 ? (a <= b ? 18 + a * 18 - a * (a - 1) / 2 + (b - a)
+                                       : -1)
+                             : (lane < 27 && j == 0 ? a : -1);
+    }
+  S* part = partial + (size_t)blockIdx.x * t_pad * MONO_NV;
+  S cost_acc = S(0);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long p = (long)tile * MONO_PTS + lane;
+    for (int q = threadIdx.x; q < ecols * MONO_PTS; q += blockDim.x)
+      Es[q] = S(0);
+    __syncthreads();
+
+    S X[3], pf[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      X[a] = pts[(long)a * n_pad + p];
+      pf[a] = pts[(long)(3 + a) * n_pad + p];
+    }
+    S gp[3] = {S(0), S(0), S(0)};
+    S hp[6] = {S(0), S(0), S(0), S(0), S(0), S(0)};
+
+    // the lane's observation of its next cell is loaded one cell ahead
+    const long plane = (long)t_pad * n_pad;
+    S nxt[3];
+#pragma unroll
+    for (int e = 0; e < 3; ++e) nxt[e] = pxm[e * plane + (long)warp * n_pad + p];
+    for (int cell = warp; cell < t_pad; cell += MONO_WARPS) {
+      const S* c = tbl + (long)cell * SP_COLS;
+      const S xy0 = nxt[0], xy1 = nxt[1], mask = nxt[2];
+      if (cell + MONO_WARPS < t_pad) {
+        const long off = (long)(cell + MONO_WARPS) * n_pad + p;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) nxt[e] = pxm[e * plane + off];
+      }
+      S r0, r1, jx[2][3], P[2][18];
+      cost_acc += slot_products<S, LOSS, 18>(c, X, pf, xy0, xy1, mask, scale,
+                                             r0, r1, jx, P);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) gp[a] += jx[0][a] * r0 + jx[1][a] * r1;
+      {
+        int h = 0;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = a; b < 3; ++b, ++h)
+            hp[h] += jx[0][a] * jx[0][b] + jx[1][a] * jx[1][b];
+      }
+
+      // E: the cell's terms for its outer, inner and intrinsic rows. An
+      // inner row equal to the outer one is added with the outer group, so
+      // each group's 18 addresses are distinct and load together.
+      const int o = ids[cell], in = ids[t_pad + cell], kk = ids[2 * t_pad + cell];
+      const bool merged = in == o;
+      const int grow[3] = {o, merged ? -1 : in, kk};
+      if (cell > 0) named_sync(bar_wait);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        if (grow[g] < 0) continue;
+        const int q0 = g < 2 ? grow[g] : 6 * R + grow[g];
+        const int qs = g < 2 ? R : K;
+        S cur[3][6];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 6; ++b) cur[a][b] = e_at(Es, a * Cn + q0 + b * qs, lane);
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 6; ++b) {
+            S v = jx[0][a] * P[0][6 * g + b] + jx[1][a] * P[1][6 * g + b];
+            if (g == 0 && merged)
+              v += jx[0][a] * P[0][6 + b] + jx[1][a] * P[1][6 + b];
+            e_at(Es, a * Cn + q0 + b * qs, lane) = cur[a][b] + v;
+          }
+      }
+      if (cell + 1 < t_pad) named_arrive(bar_pass);
+
+      // slot Gram over the tile's 32 points, one residual row at a time
+      S acc[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) acc[i][j] = S(0);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int v = 0; v < 18; ++v) st[v * MONO_LD + lane] = P[k][v];
+        st[18 * MONO_LD + lane] = k == 0 ? r0 : r1;
+        __syncwarp();
+#pragma unroll 4
+        for (int pt = 0; pt < MONO_PTS; ++pt) {
+          S x[3], y[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            x[i] = st[(ca + i) * MONO_LD + pt];
+            y[i] = st[(cb + i * cb_step) * MONO_LD + pt];
+          }
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) acc[i][j] += x[i] * y[j];
+        }
+        __syncwarp();
+      }
+      // into the block's partial row of this cell: every load first, so
+      // the nine read-modify-writes wait on memory once
+      S* prow = part + (long)cell * MONO_NV;
+      S prev[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          prev[i][j] = vidx[i][j] >= 0 ? prow[vidx[i][j]] : S(0);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          if (vidx[i][j] >= 0) prow[vidx[i][j]] = prev[i][j] + acc[i][j];
+    }
+    __syncthreads();
+
+    // g_p / H_pp: the eight warps' partial sums per point, in warp order
+    S* red = stage_all;  // [warp][9][32]
+#pragma unroll
+    for (int a = 0; a < 3; ++a) red[(warp * 9 + a) * MONO_PTS + lane] = gp[a];
+#pragma unroll
+    for (int h = 0; h < 6; ++h) red[(warp * 9 + 3 + h) * MONO_PTS + lane] = hp[h];
+    __syncthreads();
+    if (warp == 0) {
+      S s[9];
+#pragma unroll
+      for (int e = 0; e < 9; ++e) s[e] = S(0);
+      for (int w = 0; w < MONO_WARPS; ++w)
+#pragma unroll
+        for (int e = 0; e < 9; ++e) s[e] += red[(w * 9 + e) * MONO_PTS + lane];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) pout[(long)a * n_pad + p] = s[a];
+      const int hidx[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          pout[(long)(3 + 3 * a + b) * n_pad + p] = s[3 + hidx[a][b]];
+    }
+    // the tile's E rows, contiguous in E: one coalesced pass
+    S* E_tile = E + (size_t)tile * MONO_PTS * ecols;
+    for (int pt = 0; pt < MONO_PTS; ++pt)
+      for (int q = threadIdx.x; q < ecols; q += blockDim.x)
+        E_tile[(size_t)pt * ecols + q] = e_at(Es, q, pt);
+    __syncthreads();
+  }
+
+  cost_acc = warp_sum(cost_acc);
+  if (lane == 0) cost_stage[warp] = cost_acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    S s = S(0);
+    for (int w = 0; w < MONO_WARPS; ++w) s += cost_stage[w];
+    partial_cost[blockIdx.x] = s;
+  }
+}
+
+// Dynamic shared memory of linearize_mono: the E tile and the warps' stages.
+inline size_t mono_smem_bytes(int Cn, size_t esz) {
+  return ((size_t)3 * Cn * MONO_PTS + (size_t)MONO_WARPS * 19 * MONO_LD) * esz;
+}
+
+template <typename S, int LOSS>
+cudaError_t mono_attr(size_t smem) {
+  return cudaFuncSetAttribute(linearize_mono<S, LOSS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 template <typename S, int LOSS>
@@ -304,6 +579,80 @@ extern "C" int rig_linearize(int dtype, int loss, int intr_frozen,
     if (loss == CAUCHY) RIG_LIN(float, CAUCHY);
   }
 #undef RIG_LIN
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of linearize_mono to launch for n_tiles tiles of 32 points (all
+// resident at once), 0 when its shared-memory E tile (3 * Cn values a
+// point) does not fit an SM, or -cudaError_t on a failed query.
+extern "C" int rig_linearize_mono_grid(int dtype, int loss, int Cn,
+                                       int n_tiles) {
+  if ((dtype != 0 && dtype != 1) || loss < TRIVIAL || loss > CAUCHY)
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = mono_smem_bytes(Cn, dtype == 1 ? 8 : 4);
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (smem > (size_t)optin) return 0;
+#define RIG_MONO_OCC(T, L)                                                   \
+  e = mono_attr<T, L>(smem);                                                 \
+  if (e == cudaSuccess)                                                      \
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                       \
+        &per_sm, linearize_mono<T, L>, MONO_PTS * MONO_WARPS, smem)
+  if (dtype == 1) {
+    if (loss == TRIVIAL) { RIG_MONO_OCC(double, TRIVIAL); }
+    if (loss == HUBER) { RIG_MONO_OCC(double, HUBER); }
+    if (loss == CAUCHY) { RIG_MONO_OCC(double, CAUCHY); }
+  } else {
+    if (loss == TRIVIAL) { RIG_MONO_OCC(float, TRIVIAL); }
+    if (loss == HUBER) { RIG_MONO_OCC(float, HUBER); }
+    if (loss == CAUCHY) { RIG_MONO_OCC(float, CAUCHY); }
+  }
+#undef RIG_MONO_OCC
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  const long grid = (long)per_sm * sms;
+  return (int)(grid < n_tiles ? grid : n_tiles);
+}
+
+extern "C" int rig_linearize_mono(int dtype, int loss, const void* tbl,
+                                  const void* ids, const void* pts,
+                                  const void* pxm, int t_pad, int n_pad,
+                                  int R, int K, int n_tiles, double scale,
+                                  int grid, void* pout, void* E,
+                                  void* partial, void* partial_cost,
+                                  void* stream) {
+  if (grid <= 0 || t_pad % MONO_WARPS != 0 || n_pad != n_tiles * MONO_PTS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mono_smem_bytes(6 * (R + K), dtype == 1 ? 8 : 4);
+  cudaStream_t s = (cudaStream_t)stream;
+#define RIG_MONO(T, L)                                                       \
+  {                                                                          \
+    const cudaError_t e = mono_attr<T, L>(smem);                             \
+    if (e != cudaSuccess) return (int)e;                                     \
+    linearize_mono<T, L><<<grid, MONO_PTS * MONO_WARPS, smem, s>>>(          \
+        (const T*)tbl, (const int*)ids, (const T*)pts, (const T*)pxm, t_pad, \
+        n_pad, R, K, n_tiles, (T)scale, (T*)pout, (T*)E, (T*)partial,        \
+        (T*)partial_cost);                                                   \
+    return (int)cudaGetLastError();                                          \
+  }
+  if (dtype == 1) {
+    if (loss == TRIVIAL) RIG_MONO(double, TRIVIAL)
+    if (loss == HUBER) RIG_MONO(double, HUBER)
+    if (loss == CAUCHY) RIG_MONO(double, CAUCHY)
+  } else if (dtype == 0) {
+    if (loss == TRIVIAL) RIG_MONO(float, TRIVIAL)
+    if (loss == HUBER) RIG_MONO(float, HUBER)
+    if (loss == CAUCHY) RIG_MONO(float, CAUCHY)
+  }
+#undef RIG_MONO
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,8 @@
 // Replaces the three Pallas TPU kernels of deeparc_tpu/kernels/tile_pallas.py:
 //   tile_linearize_local (:573, body _linearize_local_kernel :386)
 //   tile_sweep_local     (:207, body _sweep_local_kernel :134)
-//   tile_sweep           (:282, body _sweep_kernel :67)
+//   tile_sweep           (:282, body _sweep_kernel :67; rhs/matvec here in
+//                         gsweep_rows + gsweep_bins over sort_rows's copy)
 // The wrappers and plain versions are in kernels/tile.py.
 //
 // Design. Each function is a ROW pass and a BIN pass.
@@ -24,17 +25,25 @@
 //     order into its own partial row; a third kernel sums each bin's
 //     segments in order. The linearize's bin pass recomputes the slot chain
 //     from its inputs in the working type (so bins never see bf16-rounded
-//     planes); the sweeps' bin pass reads the planes and w.
+//     planes); tile_sweep_local's bin pass reads the planes and w.
+//   * tile_sweep (rhs / matvec), for buckets without local tables, where a
+//     cell's ~4000 slots lie on rows spread over the whole bucket: once per
+//     LM step sort_rows gathers a cell-sorted copy of jcam (36, W * Nb),
+//     the slots of a segment adjacent. Its row pass (gsweep_rows) writes
+//     each slot's t2 = (jx_0 . w, jx_1 . w) at the slot's sorted position;
+//     its bin pass (gsweep_bins) then reads only sorted data, every load
+//     coalesced. The sums and their order are sweep_bins's.
 //   * No float atomics anywhere, so every run gives the same bits.
 //
 // What bounds it on the card. Device-memory bytes. The linearize writes
 // 44 plane values per slot (2 r, 6 jx, 36 jcam) plus its bins; a matvec
-// sweep reads the 42 jx/jcam values of every slot. This version reads the
-// planes twice per sweep (row pass for E v, bin pass for E^T w) and the bin
-// pass's lanes touch scattered rows, so sectors are partly wasted: its
-// traffic is above the bound. bf16 planes halve (f32) or quarter (f64) the
-// plane bytes. Staging a chunk's table in shared memory, one pass per chunk
-// with both directions, and coalesced bin reads are later work.
+// sweep reads the 42 jx/jcam values of every slot. tile_sweep_local reads
+// the planes twice per sweep (row pass for E v, bin pass for E^T w), the
+// bin pass's lanes on scattered rows of the chunk, so sectors are partly
+// wasted. tile_sweep reads jcam twice too, but both reads coalesced: about
+// 720 bytes a slot in f64 against the bound's ~350, plus the sorted copy
+// (2.3 GB at 1M rows x 8 slots) built once per step. bf16 planes halve
+// (f32) or quarter (f64) the plane bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -286,6 +295,135 @@ sweep_bins(const int* __restrict__ order, const int* __restrict__ seg_start,
   }
 }
 
+// A slot's two scalars t2_k = jx_k . w, stored together (one 16- or 8-byte
+// access per slot).
+template <typename S>
+struct alignas(2 * sizeof(S)) Pair {
+  S k0, k1;
+};
+
+// tile_sweep's row pass in rhs/matvec: w = B^-1 (g_p or E v) as in
+// sweep_rows, then each slot's t2 = (jx_0 . w, jx_1 . w) is written at the
+// slot's position in the cell-sorted order (pos = inverse of SlotBins.order).
+template <typename S, typename P, int MODE>
+__global__ void __launch_bounds__(256)
+gsweep_rows(const int* __restrict__ cell, const P* __restrict__ jcam_t,
+            const P* __restrict__ jx_t, const S* __restrict__ binv,
+            const S* __restrict__ gp, const S* __restrict__ v,
+            const int* __restrict__ pos, int W, int Nb,
+            Pair<S>* __restrict__ t2) {
+  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= Nb) return;
+  S rhs[3];
+  if (MODE == RHS) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) rhs[i] = gp[(long)i * Nb + p];
+  } else {
+    S ev[3] = {S(0), S(0), S(0)};
+    for (int w = 0; w < W; ++w) {
+      const long l = cell[(long)w * Nb + p];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        S t = S(0);
+#pragma unroll
+        for (int j = 0; j < 18; ++j)
+          t += Plane<S, P>::load(jcam_t, (36L * w + 18 * k + j) * Nb + p) *
+               v[l * 18 + j];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ev[i] += Plane<S, P>::load(jx_t, (6L * w + 3 * k + i) * Nb + p) * t;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) rhs[i] = ev[i];
+  }
+  S wv[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    S s = S(0);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s += binv[(long)(3 * i + j) * Nb + p] * rhs[j];
+    wv[i] = s;
+  }
+  for (int w = 0; w < W; ++w) {
+    S t[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      S s = S(0);
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        s += Plane<S, P>::load(jx_t, (6L * w + 3 * k + a) * Nb + p) * wv[a];
+      t[k] = s;
+    }
+    t2[pos[(long)w * Nb + p]] = Pair<S>{t[0], t[1]};
+  }
+}
+
+// tile_sweep's bin pass: one warp per segment of the sorted slot list; lane
+// l takes positions lo + l, lo + l + 32, ..., so each load of the sorted
+// jcam planes (36, n_slots) and of t2 is coalesced. Same sums, in the same
+// order, as sweep_bins.
+template <typename S, typename P>
+__global__ void __launch_bounds__(WARPS * 32)
+gsweep_bins(const int* __restrict__ seg_start, int n_seg,
+            const P* __restrict__ jsrt, const Pair<S>* __restrict__ t2,
+            long n_slots, S* __restrict__ partial) {
+  const int lane = threadIdx.x & 31;
+  const long seg = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (seg >= n_seg) return;
+  const int lo = seg_start[seg], hi = seg_start[seg + 1];
+  S acc[18];
+#pragma unroll
+  for (int j = 0; j < 18; ++j) acc[j] = S(0);
+  for (long i = lo + lane; i < hi; i += 32) {
+    const Pair<S> t = t2[i];
+#pragma unroll
+    for (int j = 0; j < 18; ++j)
+      acc[j] += Plane<S, P>::load(jsrt, j * n_slots + i) * t.k0;
+#pragma unroll
+    for (int j = 0; j < 18; ++j)
+      acc[j] += Plane<S, P>::load(jsrt, (18 + j) * n_slots + i) * t.k1;
+  }
+#pragma unroll
+  for (int j = 0; j < 18; ++j) {
+    const S x = warp_sum(acc[j]);
+    if (lane == 0) partial[seg * 18 + j] = x;
+  }
+}
+
+// tile_sweep's cell-sorted jcam copy: out[c][i] = value c of slot order[i]
+// (flat id w * Nb + p), gathered from the (Nb, W, 36) slot rows. A warp
+// takes 32 sorted positions: it reads their 32 source rows whole (288
+// contiguous bytes each) into shared memory, then writes the 36 output
+// planes 32 adjacent values at a time.
+constexpr int SORT_WARPS = 4;
+
+template <typename S, typename P>
+__global__ void __launch_bounds__(SORT_WARPS * 32)
+sort_rows(const S* __restrict__ rows, const int* __restrict__ order,
+          long n_slots, int Nb, int W, P* __restrict__ out) {
+  __shared__ S tile_all[SORT_WARPS][32][37];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long i0 = ((long)blockIdx.x * SORT_WARPS + warp) * 32;
+  if (i0 >= n_slots) return;
+  S(*t)[37] = tile_all[warp];
+  const long f = i0 + lane < n_slots ? order[i0 + lane] : 0;
+  const long src = ((f % Nb) * W + f / Nb) * 36;
+  for (int r = 0; r < 32; ++r) {
+    const long s = __shfl_sync(0xffffffffu, src, r);
+    if (i0 + r < n_slots) {
+      t[r][lane] = rows[s + lane];
+      if (lane < 4) t[r][32 + lane] = rows[s + 32 + lane];
+    }
+  }
+  __syncwarp();
+  if (i0 + lane < n_slots) {
+#pragma unroll 4
+    for (int c = 0; c < 36; ++c)
+      Plane<S, P>::store(out, c * n_slots + i0 + lane, t[lane][c]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Fixed-order second passes
 // ---------------------------------------------------------------------------
@@ -411,9 +549,10 @@ extern "C" int tile_sweep_rows(int dtype, int pdtype, int mode, int local,
   if (mode == RHS) { TILE_SWEEP(T, PT, LOC, RHS); }       \
   if (mode == MATVEC) { TILE_SWEEP(T, PT, LOC, MATVEC); } \
   if (mode == EDOT) { TILE_SWEEP(T, PT, LOC, EDOT); }
+  // tile_sweep's rhs / matvec run tile_gsweep; only its edot comes here
 #define TILE_SWEEP_LOC(T, PT)                              \
   if (local) { TILE_SWEEP_MODE(T, PT, true) }              \
-  else { TILE_SWEEP_MODE(T, PT, false) }
+  else if (mode == EDOT) { TILE_SWEEP(T, PT, false, EDOT); }
   if (dtype == 1 && pdtype == 0) { TILE_SWEEP_LOC(double, double) }
   if (dtype == 1 && pdtype == 1) { TILE_SWEEP_LOC(double, __nv_bfloat16) }
   if (dtype == 0 && pdtype == 0) { TILE_SWEEP_LOC(float, float) }
@@ -442,6 +581,70 @@ extern "C" int tile_sweep_bins(int dtype, int pdtype, const void* order,
   if (dtype == 0 && pdtype == 0) { TILE_SBINS(float, float); }
   if (dtype == 0 && pdtype == 1) { TILE_SBINS(float, __nv_bfloat16); }
 #undef TILE_SBINS
+  return (int)cudaErrorInvalidValue;
+}
+
+// tile_sweep in rhs (mode 0) or matvec (mode 1): the row pass writes t2 at
+// sorted positions, the bin pass sums each segment of the sorted list.
+extern "C" int tile_gsweep(int dtype, int pdtype, int mode, const void* cell,
+                           const void* jcam_t, const void* jx_t,
+                           const void* binv, const void* gp, const void* v,
+                           const void* pos, const void* jsrt,
+                           const void* seg_start, int n_seg, int W, int Nb,
+                           int threads, void* t2, void* partial,
+                           void* stream) {
+  if (threads % 32 != 0 || threads <= 0 || threads > 256 ||
+      (mode != RHS && mode != MATVEC))
+    return (int)cudaErrorInvalidValue;
+  if (Nb == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rgrid = blocks_for(Nb, threads);
+  const int bgrid = blocks_for(n_seg, WARPS);
+  const long n_slots = (long)W * Nb;
+#define TILE_GROWS(T, PT, M)                                                 \
+  gsweep_rows<T, PT, M><<<rgrid, threads, 0, s>>>(                           \
+      (const int*)cell, (const PT*)jcam_t, (const PT*)jx_t, (const T*)binv,  \
+      (const T*)gp, (const T*)v, (const int*)pos, W, Nb, (Pair<T>*)t2)
+#define TILE_GSWEEP(T, PT)                                                   \
+  {                                                                          \
+    if (mode == RHS)                                                         \
+      TILE_GROWS(T, PT, RHS);                                                \
+    else                                                                     \
+      TILE_GROWS(T, PT, MATVEC);                                             \
+    const cudaError_t e = cudaGetLastError();                                \
+    if (e != cudaSuccess || n_seg == 0) return (int)e;                       \
+    gsweep_bins<T, PT><<<bgrid, WARPS * 32, 0, s>>>(                         \
+        (const int*)seg_start, n_seg, (const PT*)jsrt, (const Pair<T>*)t2,   \
+        n_slots, (T*)partial);                                               \
+    return (int)cudaGetLastError();                                          \
+  }
+  if (dtype == 1 && pdtype == 0) TILE_GSWEEP(double, double)
+  if (dtype == 1 && pdtype == 1) TILE_GSWEEP(double, __nv_bfloat16)
+  if (dtype == 0 && pdtype == 0) TILE_GSWEEP(float, float)
+  if (dtype == 0 && pdtype == 1) TILE_GSWEEP(float, __nv_bfloat16)
+#undef TILE_GSWEEP
+#undef TILE_GROWS
+  return (int)cudaErrorInvalidValue;
+}
+
+// The cell-sorted (36, W * Nb) jcam copy of (Nb, W, 36) slot rows in the
+// working type, stored in the plane type.
+extern "C" int tile_sort_jcam(int dtype, int pdtype, const void* rows,
+                              const void* order, int Nb, int W, void* out,
+                              void* stream) {
+  const long n_slots = (long)W * Nb;
+  if (n_slots == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (int)((n_slots + SORT_WARPS * 32 - 1) / (SORT_WARPS * 32));
+#define TILE_SORT(T, PT)                                                      \
+  sort_rows<T, PT><<<grid, SORT_WARPS * 32, 0, s>>>(                          \
+      (const T*)rows, (const int*)order, n_slots, Nb, W, (PT*)out);           \
+  return (int)cudaGetLastError()
+  if (dtype == 1 && pdtype == 0) { TILE_SORT(double, double); }
+  if (dtype == 1 && pdtype == 1) { TILE_SORT(double, __nv_bfloat16); }
+  if (dtype == 0 && pdtype == 0) { TILE_SORT(float, float); }
+  if (dtype == 0 && pdtype == 1) { TILE_SORT(float, __nv_bfloat16); }
+#undef TILE_SORT
   return (int)cudaErrorInvalidValue;
 }
 

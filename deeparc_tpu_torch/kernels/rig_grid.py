@@ -556,6 +556,53 @@ def _cuda_linearize(prep, loss, loss_scale, counter):
     return _finish_linearize(prep["N"], cost, pout, g_slots, hcc_slots, E)
 
 
+def _cuda_linearize_mono(prep, loss, loss_scale):
+    """linearize_grid's own kernel (``linearize_mono``): tiles of 32 points
+    whose E rows a block keeps in shared memory. A rig whose E row does not
+    fit there (6 (R + K) columns beyond ~250 in float64) takes the kernel
+    shared with the banded wrapper."""
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    lib = library()
+    tbl, oho, _, ohk = prep["tables"]
+    pts, T, t_pad = prep["pts"], prep["T"], prep["t_pad"]
+    dev, dtype = pts.device, pts.dtype
+    tbl, ids, (pxm,) = tbl.contiguous(), prep["ids"], prep["pxms"]
+    pxm = pxm.contiguous()
+    dt, ls = _cuda_args(pts, loss, (tbl, pxm))
+    R, K = oho.shape[1], ohk.shape[1]
+    n_pad = pts.shape[1]
+    if n_pad % 32:
+        raise ValueError(f"linearize_grid takes point tiles in multiples of "
+                         f"32, not {prep['block_np']}")
+    n_tiles = n_pad // 32
+    grid = lib.rig_linearize_mono_grid(dt, ls, 6 * (R + K), n_tiles)
+    if grid < 0:
+        raise RuntimeError(f"rig_linearize_mono_grid: cudaError {-grid}")
+    if grid == 0:
+        return _cuda_linearize(prep, loss, loss_scale, linearize_grid)
+    pout = torch.empty((12, n_pad), dtype=dtype, device=dev)
+    E = torch.empty((n_pad, 18 * (R + K)), dtype=dtype, device=dev)
+    partial = torch.zeros((grid, t_pad, 189), dtype=dtype, device=dev)
+    partial_cost = torch.empty((grid,), dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    linearize_grid.launches += 1
+    check(lib.rig_linearize_mono(
+        dt, ls, tbl.data_ptr(), ids.data_ptr(), pts.data_ptr(),
+        pxm.data_ptr(), t_pad, n_pad, R, K, n_tiles, float(loss_scale), grid,
+        pout.data_ptr(), E.data_ptr(), partial.data_ptr(),
+        partial_cost.data_ptr(), stream), "rig_linearize_mono")
+    g_slots = torch.zeros((T, 18), dtype=dtype, device=dev)
+    hcc_slots = torch.zeros((T, 18, 18), dtype=dtype, device=dev)
+    cost = torch.empty((), dtype=dtype, device=dev)
+    check(lib.rig_reduce_slots(dt, partial.data_ptr(), grid, t_pad, t_pad, T,
+                               18, g_slots.data_ptr(), hcc_slots.data_ptr(),
+                               stream), "rig_reduce_slots")
+    check(lib.rig_reduce_cost(dt, partial_cost.data_ptr(), grid,
+                              cost.data_ptr(), stream), "rig_reduce_cost")
+    return _finish_linearize(prep["N"], cost, pout, g_slots, hcc_slots, E)
+
+
 def _cuda_cost(prep, loss, loss_scale, counter):
     from deeparc_tpu_torch.kernels.build import check, library
 
@@ -676,7 +723,7 @@ def linearize_grid(points, point_free, sp, grid, free_outer, free_inner,
                                     block_np)
     prep = _prep_linearize_mono(points, point_free, sp, grid, free_outer,
                                 free_inner, free_intr, block_np)
-    return _cuda_linearize(prep, loss, loss_scale, linearize_grid)
+    return _cuda_linearize_mono(prep, loss, loss_scale)
 
 
 def cost_grid_plain(points, sp, grid, loss="trivial", loss_scale=0.5,

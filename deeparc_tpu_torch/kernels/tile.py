@@ -33,6 +33,9 @@ data-dependent cells. The kernels do it without float atomics, through
 V_local + local id, or the global cell id), cut into segments of at most
 ``SEGMENT`` slots. One warp sums one segment in list order; a second pass
 sums each bin's segments in order. Every run gives the same bits.
+``tile_sweep`` reads a cell-sorted copy of jcam (:func:`sort_jcam`, built
+once per LM step) and writes each slot's scalars at its sorted position
+(``SlotBins.pos``), so its bin pass reads adjacent addresses.
 """
 
 from __future__ import annotations
@@ -83,6 +86,8 @@ class SlotBins(NamedTuple):
     seg_start: torch.Tensor  # (n_seg + 1,) int32 segment bounds in ``order``
     bin_seg: torch.Tensor    # (n_bins + 1,) int32 first segment of each bin
     n_bins: int
+    pos: torch.Tensor        # (W*Nb,) int32 inverse of ``order``: a slot's
+                             # position in the sorted list
 
 
 def slot_bins(cell_t: torch.Tensor, n_chunks: int, n_cells: int) -> SlotBins:
@@ -109,9 +114,53 @@ def slot_bins(cell_t: torch.Tensor, n_chunks: int, n_cells: int) -> SlotBins:
                  - bin_seg[seg_bin]) * SEGMENT)
     seg_start = torch.cat([seg_lo, torch.full((1,), key.numel(),
                                               dtype=torch.long, device=dev)])
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=dev)
     i32 = lambda t: t.to(torch.int32).contiguous()
     return SlotBins(order=i32(order), seg_start=i32(seg_start),
-                    bin_seg=i32(bin_seg), n_bins=n_bins)
+                    bin_seg=i32(bin_seg), n_bins=n_bins, pos=i32(pos))
+
+
+def sort_jcam_plain(j_cam: torch.Tensor, bins: SlotBins,
+                    dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sort_jcam`."""
+    Nb, W = j_cam.shape[:2]
+    f = bins.order.long()
+    rows = j_cam.reshape(Nb * W, 36).index_select(0, (f % Nb) * W + f // Nb)
+    out = torch.empty((36, Nb * W), dtype=dtype or j_cam.dtype,
+                      device=j_cam.device)
+    return out.copy_(rows.T)
+
+
+def sort_jcam(j_cam: torch.Tensor, bins: SlotBins, dtype=None) -> torch.Tensor:
+    """A bucket's camera Jacobians in the bins' slot order, as (36, W*Nb)
+    planes: column i holds the 36 values of slot ``order[i]`` (flat id
+    w * Nb + p), so the slots of one segment are adjacent. ``j_cam`` is the
+    (Nb, W, 2, 18) slot rows (each slot's 36 values contiguous, so the
+    gather reads whole rows); ``dtype`` is the planes' storage dtype
+    (default ``j_cam``'s; bf16 rounds as ``Tensor.to`` does).
+    :func:`tile_sweep` reads it in rhs/matvec on the card; it depends on
+    the Jacobians, so it is built once per LM step. On CUDA tensors a
+    gather kernel builds it (``csrc/tile.cu``, ``sort_rows``)."""
+    if not _dispatch(j_cam, "sort_jcam"):
+        return sort_jcam_plain(j_cam, bins, dtype)
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    Nb, W = j_cam.shape[:2]
+    if j_cam.shape[2:] != (2, 18):
+        raise ValueError(f"j_cam must be (Nb, W, 2, 18), not "
+                         f"{tuple(j_cam.shape)}")
+    j_cam = j_cam.contiguous()
+    dt = _check_inputs(j_cam.dtype, (), (j_cam,))
+    _check_bins(bins, W, Nb, bins.n_bins, j_cam.device)
+    out = torch.empty((36, Nb * W), dtype=dtype or j_cam.dtype,
+                      device=j_cam.device)
+    sort_jcam.launches += 1
+    check(library().tile_sort_jcam(
+        dt, _plane_id(out, j_cam.dtype), j_cam.data_ptr(),
+        bins.order.data_ptr(), Nb, W, out.data_ptr(), _stream(j_cam.device)),
+        "tile_sort_jcam")
+    return out
 
 
 def _check_bins(bins, W, Nb, n_bins, dev):
@@ -356,7 +405,7 @@ def _cuda_linearize(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables, loss,
 
 
 def _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v, mode, block_n, local,
-                n_chunks, n_cells, bins, counter):
+                n_chunks, n_cells, bins, counter, sorted_jcam=None):
     from deeparc_tpu_torch.kernels.build import check, library
 
     lib = library()
@@ -379,6 +428,10 @@ def _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v, mode, block_n, local,
         _check_bins(bins, W, Nb, n_chunks * n_cells, dev)
     threads = _threads(block_n)
     stream = _stream(dev)
+    if mode != "edot" and not local:
+        return _cuda_global_sweep(lib, check, dt, pid, mode, cell_t, jcam_t,
+                                  jx_t, binv_t, gp_t, v, threads, bins,
+                                  sorted_jcam, counter, stream)
     wbuf = torch.empty((3, Nb), dtype=dtype, device=dev)
     ev = torch.empty((Nb, 3) if mode == "edot" else (1, 3), dtype=dtype,
                      device=dev)
@@ -397,6 +450,37 @@ def _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v, mode, block_n, local,
         dt, pid, bins.order.data_ptr(), bins.seg_start.data_ptr(), n_seg,
         jcam_t.data_ptr(), jx_t.data_ptr(), wbuf.data_ptr(), W, Nb,
         partial.data_ptr(), stream), "tile_sweep_bins")
+    _reduce_bins(lib, dt, partial, bins, 18, 18, out, out, stream)
+    return out
+
+
+def _cuda_global_sweep(lib, check, dt, pid, mode, cell_t, jcam_t, jx_t,
+                       binv_t, gp_t, v, threads, bins, sorted_jcam, counter,
+                       stream):
+    """tile_sweep in rhs/matvec: the row pass scatters each slot's jx . w
+    to its sorted position; the bin pass reads them and the cell-sorted
+    jcam copy coalesced."""
+    W, Nb = cell_t.shape
+    dtype, dev = binv_t.dtype, binv_t.device
+    if not isinstance(sorted_jcam, torch.Tensor):
+        raise ValueError("tile_sweep on the card needs the bucket's "
+                         "cell-sorted jcam (sort_jcam) in rhs/matvec")
+    if (sorted_jcam.shape != (36, W * Nb) or sorted_jcam.dtype != jcam_t.dtype
+            or sorted_jcam.device != dev or not sorted_jcam.is_contiguous()):
+        raise ValueError(f"sorted jcam {tuple(sorted_jcam.shape)} "
+                         f"{sorted_jcam.dtype} on {sorted_jcam.device} does "
+                         f"not fit (36, {W * Nb}) {jcam_t.dtype} on {dev}")
+    n_seg = bins.seg_start.numel() - 1
+    t2 = torch.empty((W * Nb, 2), dtype=dtype, device=dev)
+    partial = torch.empty((max(n_seg, 1), 18), dtype=dtype, device=dev)
+    out = torch.empty((1, bins.n_bins, 18), dtype=dtype, device=dev)
+    counter.launches += 1
+    check(lib.tile_gsweep(
+        dt, pid, _MODES[mode], cell_t.data_ptr(), jcam_t.data_ptr(),
+        jx_t.data_ptr(), binv_t.data_ptr(), gp_t.data_ptr(), v.data_ptr(),
+        bins.pos.data_ptr(), sorted_jcam.data_ptr(),
+        bins.seg_start.data_ptr(), n_seg, W, Nb, threads, t2.data_ptr(),
+        partial.data_ptr(), stream), "tile_gsweep")
     _reduce_bins(lib, dt, partial, bins, 18, 18, out, out, stream)
     return out
 
@@ -450,26 +534,28 @@ def tile_sweep_local(cell_t, jcam_t, jx_t, binv_t, gp_t, v_locals,
 
 
 def tile_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode="matvec",
-               block_n=256, bins=None):
+               block_n=256, bins=None, sorted_jcam=None):
     """Fused bucket sweep against the global cell vector ``v_cells`` (V,
     18), for buckets without local tables. Returns (V, 18) for rhs/matvec,
     (Nb, 3) E v rows for edot; ``gp_t`` is read in rhs mode only and
     ``v_cells`` in matvec/edot only. ``bins`` as for
-    :func:`tile_sweep_local`."""
+    :func:`tile_sweep_local`; ``sorted_jcam`` is the bucket's
+    :func:`sort_jcam` copy of ``jcam_t``, which the kernels read in
+    rhs/matvec (the plain version ignores both)."""
     if not _dispatch(binv_t, "tile_sweep"):
         return tile_sweep_plain(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells,
                                 mode, block_n)
     V = v_cells.shape[0]
     out = _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode,
-                      block_n, False, 1, V, bins, tile_sweep)
+                      block_n, False, 1, V, bins, tile_sweep, sorted_jcam)
     return out if mode == "edot" else out[0]
 
 
 KERNEL_WRAPPERS = (tile_linearize_local, tile_sweep_local, tile_sweep)
-for _fn in KERNEL_WRAPPERS:
+for _fn in KERNEL_WRAPPERS + (sort_jcam,):
     _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
+    for fn in KERNEL_WRAPPERS + (sort_jcam,):
         fn.launches = 0

@@ -41,6 +41,7 @@ from deeparc_tpu_torch.kernels.tile import (
     MAX_LIN_WIDTH,
     pack_bucket_planes,
     slot_bins,
+    sort_jcam,
     tile_linearize_local,
     tile_sweep,
     tile_sweep_local,
@@ -842,8 +843,9 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                         sweep_dtype, sweep_block_n: int):
     """Per-bucket sweep planes, once per step; returns (sweep, edot). A
     bucket of width <= MAX_KERNEL_WIDTH sweeps through ``tile_sweep_local``
-    (with ``loc``) or ``tile_sweep`` (without); a wider one through the
-    torch sweeps."""
+    (with ``loc``) or ``tile_sweep`` (without, which also reads the
+    bucket's cell-sorted jcam copy, :func:`kernels.tile.sort_jcam`); a
+    wider one through the torch sweeps."""
     V = sys.hcc_cells.shape[0]
     dtype, dev = sys.g_p.dtype, sys.g_p.device
     planes = []
@@ -855,7 +857,7 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
         cc = b.loc[1].long() if b.loc else None
         if lin_planes[i] is not None:
             cell_t, jcam_t, jx_t = lin_planes[i][:3]
-            planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t, cc))
+            planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t, cc, None))
         elif W > MAX_KERNEL_WIDTH:
             planes.append(None)
         else:
@@ -865,7 +867,9 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                                                       plane)
             if sweep_dtype is not None:
                 jcam_t, jx_t = jcam_t.to(sweep_dtype), jx_t.to(sweep_dtype)
-            planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t, cc))
+            srt = (sort_jcam(blk.j_cam, b.bins, jcam_t.dtype)
+                   if cc is None and b.bins else None)
+            planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t, cc, srt))
         offset += Nb
     zeros_v = torch.zeros((V, 18), dtype=dtype, device=dev)
 
@@ -894,7 +898,7 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                 out += _e_sweep(sub_tiles, sub_sys, binv[off:off + Nb],
                                 v_cells, rhs_mode)
             else:
-                cell_t, jcam_t, jx_t, binv_t, gp_t, cc = planes[i]
+                cell_t, jcam_t, jx_t, binv_t, gp_t, cc, srt = planes[i]
                 bins = b.bins or None
                 if cc is not None:
                     part = tile_sweep_local(
@@ -906,7 +910,7 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                     out += tile_sweep(
                         cell_t, jcam_t, jx_t, binv_t, gp_t,
                         zeros_v if rhs_mode else v_cells, mode=mode,
-                        block_n=sweep_block_n, bins=bins)
+                        block_n=sweep_block_n, bins=bins, sorted_jcam=srt)
             off += Nb
         return out
 
@@ -919,7 +923,7 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                 sub_tiles, sub_sys = sub(i, off, Nb)
                 parts.append(_e_dot_cells(sub_tiles, sub_sys, v_cells)[:Nb])
             else:
-                cell_t, jcam_t, jx_t, binv_t, gp_t, cc = planes[i]
+                cell_t, jcam_t, jx_t, binv_t, gp_t, cc, _ = planes[i]
                 if cc is not None:
                     parts.append(tile_sweep_local(
                         cell_t, jcam_t, jx_t, binv_t, gp_t,

@@ -85,6 +85,78 @@ def test_tile_sweep_plain_matches_jax(sweep_problem, mode):
     close(got_all, want_all, rtol=1e-10, atol=1e-12)
 
 
+def _sorted_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode, j_cam,
+                  bins):
+    """The data flow of tile_sweep's kernels in rhs/matvec, in torch: the
+    cell-sorted jcam copy (``sort_jcam``), the row pass's per-slot
+    t2 = jx . w scattered to each slot's sorted position (``SlotBins.pos``),
+    and the bin pass's per-segment sums in list order, then each bin's
+    segments in order."""
+    W, Nb = cell_t.shape
+    srt = tk.sort_jcam(j_cam, bins)
+    jx = jx_t.reshape(W, 2, 3, Nb)
+    if mode == "rhs":
+        rhs = gp_t
+    else:
+        t = torch.einsum("wkjn,wnj->wkn", jcam_t.reshape(W, 2, 18, Nb),
+                         v_cells[cell_t.long()])
+        rhs = torch.einsum("wkin,wkn->in", jx, t)
+    wv = torch.einsum("ijn,jn->in", binv_t.reshape(3, 3, Nb), rhs)
+    t2 = torch.einsum("wkin,in->wnk", jx, wv).reshape(W * Nb, 2)
+    t2_sorted = torch.empty_like(t2)
+    t2_sorted[bins.pos.long()] = t2
+    u = (srt.reshape(2, 18, -1) * t2_sorted.T[:, None, :]).sum(0)  # 18, S
+    seg = bins.seg_start.long()
+    partial = [u[:, s0:s1].sum(1) for s0, s1 in zip(seg[:-1], seg[1:])]
+    bin_seg = bins.bin_seg.long()
+    out = torch.zeros((bins.n_bins, 18), dtype=u.dtype)
+    for i, (g0, g1) in enumerate(zip(bin_seg[:-1], bin_seg[1:])):
+        for g in range(g0, g1):
+            out[i] += partial[g]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["rhs", "matvec"])
+def test_sorted_sweep_data_flow_matches_plain_and_jax(sweep_problem, mode):
+    """tile_sweep's kernel data flow (sorted jcam copy, t2 scattered to the
+    sorted positions, segment sums in order) against tile_sweep_plain and
+    JAX tile_sweep (interpret), per bucket, f64."""
+    tiles, sys, binv, v_cells = sweep_problem
+    V = v_cells.shape[0]
+    offset = 0
+    for b, blk in zip(tiles.buckets, sys.blocks):
+        args = _bucket_args(b, blk, binv, sys, offset, b.cell)
+        targs = tuple(T(a) for a in args)
+        bins = tk.slot_bins(targs[0], 1, V)
+        got = _sorted_sweep(*targs, T(v_cells), mode, T(blk.j_cam), bins)
+        want = jk.tile_sweep(*args, v_cells, mode=mode, block_n=128,
+                             interpret=True)
+        close(got, want, rtol=1e-12, atol=1e-12)
+        close(got, as_np(tk.tile_sweep_plain(*targs, T(v_cells), mode=mode)),
+              rtol=1e-12, atol=1e-12)
+        offset += b.cell.shape[0]
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_sort_jcam_gathers_the_sweep_planes(sweep_problem, dtype):
+    """Column i of the sorted copy is slot order[i]'s column of the
+    transposed jcam planes the row pass reads, bit for bit, also when both
+    are stored in bf16."""
+    tiles, sys, *_ = sweep_problem
+    V = tiles.cells.cols.shape[0]
+    for b, blk in zip(tiles.buckets, sys.blocks):
+        cell_t, jcam_t, _ = tk.pack_bucket_planes(T(blk.j_x), T(blk.j_cam),
+                                                  T(b.cell))
+        W, Nb = cell_t.shape
+        bins = tk.slot_bins(cell_t, 1, V)
+        srt = tk.sort_jcam(T(blk.j_cam), bins, dtype)
+        f = bins.order.long()
+        planes = jcam_t if dtype is None else jcam_t.to(dtype)
+        want = planes.reshape(W, 36, Nb)[f // Nb, :, f % Nb].T
+        assert srt.dtype == planes.dtype
+        assert torch.equal(srt, want)
+
+
 @pytest.fixture(scope="module")
 def fused_problem():
     # 2 chunks, W=4, V_local=8: multi-chunk binning and the local->global
@@ -205,6 +277,24 @@ def test_slot_bins_reduce_like_index_add(fused_problem, local):
     want = torch.zeros(bins.n_bins, 5, dtype=torch.float64).index_add_(
         0, key, vals)
     close(out, want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("local", [True, False])
+def test_slot_bins_pos_inverts_order(fused_problem, local):
+    """SlotBins.pos is the inverse of order: the sorted position of each
+    flat slot id, where tile_sweep's row pass writes the slot's t2."""
+    tiles_p = fused_problem[5]
+    b = tiles_p.buckets[0]
+    if local:
+        cell_t, (n_chunks, n_cells) = b.loc[0].T, b.loc[1].shape
+    else:
+        cell_t, n_chunks, n_cells = b.cell.T, 1, tiles_p.cells.cols.shape[0]
+    bins = tk.slot_bins(cell_t.contiguous(), n_chunks, n_cells)
+    order, pos = bins.order.long(), bins.pos.long()
+    n = order.numel()
+    assert bins.pos.dtype == torch.int32 and pos.numel() == n
+    assert torch.equal(pos[order], torch.arange(n))
+    assert torch.equal(order[pos], torch.arange(n))
 
 
 def test_layout_bins_fit_and_are_required(fused_problem):
