@@ -12,10 +12,13 @@ Phases (any failure raises and exits non-zero):
   3. each grid kernel against its plain PyTorch version on the card, in
      float64 and float32, at the grid path's shapes: the 8x24-cell
      occlusion rig, band-prepped, for the banded pair, and a uniform-random
-     rig of the same size for the monolithic pair, and ``linearize_grid``
-     on a uniform rig with 42 extrinsic plus intrinsic rows, whose float64
-     E row no longer fits ``linearize_mono``'s shared-memory tile (the
-     route is printed); operations are counted over the live slots;
+     rig of the same size for the monolithic pair; then ``linearize_grid``
+     on a uniform rig with 42 extrinsic plus intrinsic rows, and
+     ``linearize_grid_banded`` with the intrinsics free on an occlusion rig
+     of the same 8x26 cells, whose float64 E rows no longer fit the
+     shared-memory tiles of ``linearize_mono`` / ``linearize_band`` (each
+     linearize's route is printed); operations are counted over the live
+     slots;
   3b. one classic LM step on the uniform-random rig (the ``linearize_grid``
      path), split into linearize / Schur solve / trial cost, with the
      device's idle share;
@@ -27,14 +30,16 @@ Phases (any failure raises and exits non-zero):
      path's shapes: the windowed BAL scene (2000 shuffled cameras, 1M
      points, 8 observations each, 8 hub cameras), laid out with locality
      for ``tile_linearize_local`` / ``tile_sweep_local`` and without it
-     (V = 2000 global cells) for ``tile_sweep`` (with its cell-sorted jcam
-     copy, built from unrounded working-dtype rows as the solver builds
-     it, held bit for bit against its plain version, and its build time);
-     float64, float32 and bf16 planes; each kernel
-     run twice must give the same bits; 6b splits one tile LM step on the
-     locality layout by kernel pass, 6c one on the ``locality=False``
-     layout into linearize / sweep set-up / sweeps / the rest, each with
-     the device's idle share;
+     (V = 2000 global cells) for ``tile_sweep``, each sweep with the
+     sorted jcam copy the solver builds once per LM step (``tile_sweep``:
+     from unrounded working-dtype rows; ``tile_sweep_local``: from the
+     stored planes), held bit for bit against its plain version, with its
+     build time; float64, float32 and bf16 planes; each kernel run twice
+     must give the same bits; 6b splits one tile LM step on the locality
+     layout by kernel pass and checks that two set-ups of its sweeps give
+     the same bits, 6c one on the ``locality=False`` layout into linearize
+     / sweep set-up / sweeps / the rest, each with the device's idle
+     share;
   7. the tile main path: ``run_pipeline`` on that scene, float64,
      ITERATIVE_SCHUR with 30 PCG iterations; the tile kernels must launch
      and the final RMSE must sit under twice the pixel noise;
@@ -82,6 +87,9 @@ OPS_PER_SLOT = {"linearize_grid_banded": 750, "linearize_grid": 750,
                 "edot": 84}
 GRID_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_grid.cu"
 TILE_SOURCE = "deeparc_tpu_torch/kernels/csrc/tile.cu"
+# the main path's route of linearize_grid_banded (rigs whose E tile does not
+# fit take linearize_kernel in GRID_SOURCE)
+BAND_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_band.cu"
 REPLACES = {
     "linearize_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:615",
     "cost_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:777",
@@ -242,6 +250,19 @@ def kernel_inputs(data, dtype, banded):
     return params.points, free.points, sp, grid, tables, prep
 
 
+def band_route(grid, dtype, intr_frozen):
+    """The route linearize_grid_banded takes on this rig and dtype: its
+    shared-memory E kernel (``linearize_band``) when a 32-point tile's E
+    fits, else ``linearize_kernel``."""
+    from deeparc_tpu_torch.kernels import rig_grid as k
+
+    R, K = grid.onehot_outer.shape[1], grid.onehot_intr.shape[1]
+    blocks = k.linearize_band_route(dtype, "trivial", intr_frozen, R, K,
+                                    grid.mask.shape[0])
+    return (f"linearize_band ({blocks} blocks)" if blocks else
+            "linearize_kernel (the E tile does not fit)"), R + K
+
+
 def mono_route(grid, dtype):
     """The route linearize_grid takes on this rig and dtype: its own kernel
     (``linearize_mono``) when a 32-point tile's E fits in shared memory,
@@ -262,9 +283,11 @@ def mono_route(grid, dtype):
 
 def phase_grid_kernels(args, records):
     """Phase 3; returns the rigs {occluded: data}: the occlusion rig of the
-    main path (True) and the uniform-random one (False). A third, uniform
-    rig with 42 extrinsic plus intrinsic rows (one past what linearize_mono's
-    float64 E tile holds) checks linearize_grid's other route."""
+    main path (True) and the uniform-random one (False). Two rigs of 8x26
+    cells, 42 extrinsic plus intrinsic rows (one past what the float64 E
+    tiles hold), check the other routes: a uniform one for linearize_grid,
+    an occlusion one, band-prepped, for linearize_grid_banded with the
+    intrinsics free (18 camera columns)."""
     import torch
 
     from deeparc_tpu_torch.io import make_hemisphere_rig
@@ -273,17 +296,21 @@ def phase_grid_kernels(args, records):
     print("[phase 3] grid kernels vs plain versions on the card")
     rigs = {True: flagship_rig(args.n_points, 6, 0),
             False: flagship_rig(args.n_points, None, 1)}
-    wide = make_hemisphere_rig(
+    wide = {occ: make_hemisphere_rig(
         n_arc=8, n_ring=26, n_points=args.n_points, visibility=10 / 48,
-        pixel_noise=PIXEL_NOISE, point_noise=0.02, seed=4).data
+        occlusion_rings=occ, pixel_noise=PIXEL_NOISE, point_noise=0.02,
+        seed=4).data for occ in (None, 6)}
     cases = ((True, rigs[True], None), (False, rigs[False], None),
-             (False, wide, "wide"))
+             (False, wide[None], "wide"), (True, wide[6], "wide"))
     lin_labels = ("cost", "g_p", "hpp", "g_slots", "hcc_slots", "E")
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for banded, data, tag in cases:
             pts, pf, sp, grid, tables, prep = kernel_inputs(data, dtype,
                                                             banded)
+            if banded and tag:
+                # free intrinsics, so that their Jacobian columns are live
+                tables = (*tables[:2], torch.ones_like(tables[2]))
             N, T = grid.mask.shape
             esz = pts.element_size()
             density = float(grid.mask.mean())
@@ -292,16 +319,24 @@ def phase_grid_kernels(args, records):
             live = int(grid.mask.sum())
             if banded:
                 (bw_lin, bw_cost), (bb_lin, bb_cost) = prep.widths
-                print(f"  banded rig: {N} points, {T} cells, density "
-                      f"{density:.4f} ({live} live slots), lin groups "
-                      f"{prep.lin_groups}, cost groups {prep.cost_groups}")
+                # the main path freezes the intrinsics (12 camera columns);
+                # the 8x26 rig frees them (18)
+                frozen = tag is None
+                route, rows = band_route(grid, dtype, frozen)
+                print(f"  banded rig{' (' + tag + ')' if tag else ''}: {N} "
+                      f"points, {T} cells, {rows} extrinsic plus intrinsic "
+                      f"rows, density {density:.4f} ({live} live slots), "
+                      f"lin groups {prep.lin_groups}, cost groups "
+                      f"{prep.cost_groups}; linearize_grid_banded "
+                      f"(intrinsics {'frozen' if frozen else 'free'}) route: "
+                      f"{route}")
                 lin_in = (nbytes(pts, pf, *grid.band[2]) + T * 78 * esz)
                 cost_in = nbytes(pts, *grid.band[3]) + T * 78 * esz
                 calls = {
                     "linearize_grid_banded": (
                         k.linearize_grid_banded, k.linearize_grid_banded_plain,
                         (pts, pf, sp, grid, *tables, grid.band[0], bw_lin),
-                        dict(block_np=bb_lin, intr_frozen=True,
+                        dict(block_np=bb_lin, intr_frozen=frozen,
                              pxm=grid.band[2]), lin_in, live),
                     "cost_grid_banded": (
                         k.cost_grid_banded, k.cost_grid_banded_plain,
@@ -326,8 +361,9 @@ def phase_grid_kernels(args, records):
                         dict(block_np=1024),
                         nbytes(pts) + planes + T * 78 * esz, live),
                 }
-                if tag:
-                    del calls["cost_grid"]
+            if tag:
+                calls = {n: c for n, c in calls.items()
+                         if n.startswith("linearize")}
             for name, (kern, plain, a, kw, in_bytes, slots) in calls.items():
                 out = kern(*a, **kw)
                 out_bytes = nbytes(*(out if isinstance(out, tuple) else
@@ -338,9 +374,9 @@ def phase_grid_kernels(args, records):
                         lambda: kern(*a, **kw), lambda: plain(*a, **kw),
                         labels, args.reps, in_bytes + out_bytes,
                         slots * OPS_PER_SLOT[name], mode=tag)
-                if tag:
-                    records[name][f"{dname}:{tag}"].update(route=route,
-                                                           rows=rows)
+                if name.startswith("linearize"):
+                    records[name][dname + (f":{tag}" if tag else "")].update(
+                        route=route, rows=rows)
             del pts, pf, sp, grid, tables, prep, calls
             torch.cuda.empty_cache()
     del wide
@@ -507,16 +543,28 @@ def tile_step_breakdown(layout):
     """One classic tile LM step (30 PCG iterations) on the main path's
     layout, float64: host wall time around a synchronised step, then the
     device time of each kernel under torch.profiler, split into the
-    linearize's row and bin passes, the PCG sweeps' row and bin passes,
-    the bins' second pass, and everything else (torch ops)."""
+    linearize's row and bin passes and its bins' second pass, the PCG
+    sweeps' row passes (rhs / matvec; edot) and bin passes (one block per
+    chunk), their chunk-sorted plane copy and their fixed-order sum into
+    the cells, and
+    everything else (torch ops). Then two set-ups of the step's sweeps
+    (each with its own sorted copy) must give the same bits in rhs, matvec
+    and edot. Returns the launches in one step."""
     import torch
 
     from deeparc_tpu_torch.config import SolverOptions
-    from deeparc_tpu_torch.solver.tiles import init_tile_state, make_tile_step
+    from deeparc_tpu_torch.solver.linalg import inv3x3
+    from deeparc_tpu_torch.solver.tiles import (
+        _make_kernel_sweeps,
+        init_tile_state,
+        linearize_tiles_mixed,
+        make_tile_step,
+    )
 
     from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.kernels import tile as kt
 
-    tiles, params_t, free_t, _, cam_free = layout
+    tiles, params_t, free_t, packed, cam_free = layout
     opts = SolverOptions(linear_solver="iterative_schur", cg_max_iterations=30)
     step = make_tile_step(opts, params_t)
     state = init_tile_state(params_t, tiles, opts, cam_free)
@@ -524,12 +572,14 @@ def tile_step_breakdown(layout):
     state, info = step(state, tiles, cam_free, free_t)
     torch.cuda.synchronize()
     per_step = {fn.__name__: fn.launches
-                for fn in (k.tile_linearize_local, k.tile_sweep_local)}
+                for fn in (k.tile_linearize_local, k.tile_sweep_local,
+                           kt.sort_jcam_planes, kt.sum_chunk_bins)}
     run = lambda: step(state, tiles, cam_free, free_t)
     _, info = run()
     wall = wall_ms(run, 3)
-    parts = ("linearize_rows", "linearize_bins", "sweep_rows", "sweep_bins",
-             "reduce_bins")
+    parts = ("linearize_rows", "linearize_bins", "reduce_bins",
+             "gsweep_rows", "lsweep_bins", "edot_rows", "sort_planes",
+             "gather_cells")
     split = dict.fromkeys(parts + ("other",), 0.0)
     for key, ms in device_ms(run).items():
         split[next((p for p in parts if p in key), "other")] += ms
@@ -540,6 +590,29 @@ def tile_step_breakdown(layout):
           + f"; device busy {busy:.3f} ms, idle share "
           + (f"{1 - busy / wall:.3f}" if busy else "not measured (the "
              "profiler saw no device time)"))
+
+    sys_, lin_planes = linearize_tiles_mixed(params_t.points, packed, tiles,
+                                             free_t, cam_free.numel())
+    binv = inv3x3(sys_.hpp + torch.eye(3, dtype=sys_.hpp.dtype,
+                                       device="cuda"))
+    v = torch.randn((tiles.cells.cols.shape[0], 18), dtype=torch.float64,
+                    device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    outs = []
+    for _ in range(2):
+        sweep, edot = _make_kernel_sweeps(tiles, sys_, binv, lin_planes, None,
+                                          256)
+        outs.append((sweep(None, True), sweep(v, False), edot(v)))
+    if not all(torch.equal(x, y) for x, y in zip(*outs)):
+        raise AssertionError("two set-ups of one tile LM step's sweeps gave "
+                             "different bits")
+    a, b = run()[0], run()[0]
+    same = torch.equal(a.points, b.points) and torch.equal(a.cam_vec, b.cam_vec)
+    print("  the step's sweeps (rhs, matvec, edot), set up twice: the same "
+          "bits; the whole step run twice: "
+          + ("the same bits" if same else "different bits (the linearize's "
+             "index_add_ of the chunk bins into the cells is a float-atomic "
+             "scatter)"))
     return per_step
 
 
@@ -676,6 +749,41 @@ def phase_tile_kernels(args, records):
                 v_arg = v_cells[cc].transpose(1, 2).contiguous()
                 cell_t, name = b.loc[0].T.contiguous(), "tile_sweep_local"
                 kern, plain = k.tile_sweep_local, k.tile_sweep_local_plain
+                # the chunk-sorted copy of the stored planes, as the solver
+                # builds it once per LM step; it must equal the plain
+                # version's bits, or the row and bin passes would apply two
+                # different E
+                sort = lambda: k.sort_jcam_planes(jcam_t, bins, cc.shape[0])
+                kw["sorted_jcam"] = sort()
+                equal = torch.equal(kw["sorted_jcam"], k.sort_jcam_planes_plain(
+                    jcam_t, bins, cc.shape[0]))
+                if not equal:
+                    raise AssertionError(f"sort_jcam_planes {key}: the copy "
+                                         f"differs from its plain version's")
+                sort_ms = time_ms(sort, args.reps)
+                gbytes = nbytes(kw["sorted_jcam"]) / 1e9
+                records.setdefault(name, {})[f"{key}:sorted_copy"] = dict(
+                    ms=sort_ms, gbytes=gbytes, equal_to_plain=equal)
+                print(f"  {name:22s} {key:15s} chunk-sorted copy of the "
+                      f"{jcam_t.dtype} planes, {gbytes:.3f} GB, equal to the "
+                      f"plain version's bits, built in {sort_ms:.3f} ms")
+                # the fixed-order sum of the chunk bins into the V cells
+                part = kern(cell_t, jcam_t, jx_t, binv_t, gp_t, v_arg, **kw)
+                cells = lambda: k.sum_chunk_bins(part, cc, V, bins)
+                rel, _ = compare("sum_chunk_bins", dname, cells(),
+                                 k.sum_chunk_bins_plain(part, cc, V),
+                                 ("cells",), tol_name=key)
+                check_repeatable("sum_chunk_bins", cells)
+                cells_ms = time_ms(cells, args.reps)
+                records[name][f"{key}:cell_sum"] = dict(
+                    ms=cells_ms, max_rel_err=rel,
+                    index_add_ms=time_ms(lambda: k.sum_chunk_bins_plain(
+                        part, cc, V), args.reps))
+                print(f"  {name:22s} {key:15s} chunk bins into the cells in "
+                      f"{cells_ms:.3f} ms (index_add_ "
+                      f"{records[name][f'{key}:cell_sum']['index_add_ms']:.3f}"
+                      f" ms), bitwise repeatable")
+                del part
             else:
                 v_arg, cell_t, name = v_cells, b.cell.T.contiguous(), \
                     "tile_sweep"
@@ -802,7 +910,8 @@ def kernel_record(name, rec, launches, per_step):
     r64 = rec["float64:matvec" if "float64:matvec" in rec else "float64"]
     return dict(
         name=name, route="cuda",
-        source=TILE_SOURCE if name.startswith("tile") else GRID_SOURCE,
+        source=(TILE_SOURCE if name.startswith("tile") else BAND_SOURCE
+                if name == "linearize_grid_banded" else GRID_SOURCE),
         replaces=REPLACES[name], launches=launches[name],
         max_abs_err=r64["max_abs_err"], max_rel_err=r64["max_rel_err"],
         ms=r64["ms"], plain_ms=r64["plain_ms"], bound_ms=r64["bound_ms"],
@@ -905,18 +1014,28 @@ def main(argv=None) -> int:
         max_iterations=args.max_iterations))
     launches.update({fn.__name__: fn.launches
                      for fn in (k.tile_linearize_local, k.tile_sweep_local)})
+    # tile_sweep_local's helpers: its chunk-sorted plane copy and the sum of
+    # its chunk bins into the cells
+    helpers = {fn.__name__: fn.launches
+               for fn in (k.sort_jcam_planes, k.sum_chunk_bins)}
+    print(f"  launches of tile_sweep_local's helpers: {helpers}")
     del tile_data
     torch.cuda.empty_cache()
 
     print("[phase 8] solve_ba_tiles(locality=False): the tile_sweep path")
     launches["tile_sweep"] = phase_tile_global(args)
     print(f"  launches on the main paths: {launches}")
-    for kname, n in launches.items():
+    for kname, n in {**launches, **helpers}.items():
         if n <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
 
     kernels = [kernel_record(kname, rec, launches, per_step)
                for kname, rec in records.items()]
+    for rec in kernels:
+        if rec["name"] == "tile_sweep_local":
+            rec["helpers"] = {h: dict(launches=n,
+                                      launches_per_step=per_step.get(h))
+                              for h, n in helpers.items()}
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "deeparc_tpu.")) \
                 or mod == "deeparc_tpu":

@@ -15,10 +15,15 @@ from deeparc_tpu_torch.kernels.rig_grid import (
 from deeparc_tpu_torch.kernels.tile import (
     MAX_KERNEL_WIDTH,
     MAX_LIN_WIDTH,
+    chunk_gather,
     pack_bucket_planes,
     slot_bins,
     sort_jcam,
     sort_jcam_plain,
+    sort_jcam_planes,
+    sort_jcam_planes_plain,
+    sum_chunk_bins,
+    sum_chunk_bins_plain,
     tile_linearize_local,
     tile_linearize_local_plain,
     tile_sweep,
@@ -37,12 +42,14 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "MAX_KERNEL_WIDTH", "MAX_LIN_WIDTH", "cost_grid",
-    "cost_grid_banded", "cost_grid_banded_plain", "cost_grid_plain",
-    "flat_of_native", "linearize_grid", "linearize_grid_banded",
-    "linearize_grid_banded_plain", "linearize_grid_plain", "native_of_flat",
-    "pack_bucket_planes", "reset_launch_counts", "slot_bins", "sort_jcam",
-    "sort_jcam_plain", "tile_linearize_local", "tile_linearize_local_plain",
-    "tile_sweep", "tile_sweep_local", "tile_sweep_local_plain",
-    "tile_sweep_plain",
+    "KERNEL_WRAPPERS", "MAX_KERNEL_WIDTH", "MAX_LIN_WIDTH", "chunk_gather",
+    "cost_grid", "cost_grid_banded", "cost_grid_banded_plain",
+    "cost_grid_plain", "flat_of_native", "linearize_grid",
+    "linearize_grid_banded", "linearize_grid_banded_plain",
+    "linearize_grid_plain", "native_of_flat", "pack_bucket_planes",
+    "reset_launch_counts", "slot_bins", "sort_jcam", "sort_jcam_plain",
+    "sort_jcam_planes", "sort_jcam_planes_plain", "sum_chunk_bins",
+    "sum_chunk_bins_plain", "tile_linearize_local",
+    "tile_linearize_local_plain", "tile_sweep", "tile_sweep_local",
+    "tile_sweep_local_plain", "tile_sweep_plain",
 ]

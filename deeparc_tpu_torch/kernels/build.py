@@ -44,14 +44,18 @@ def _bind(lib):
         "rig_linearize": [i, i, i] + [p] * 5 + [i] * 8 + [d, i] + [p] * 5,
         "rig_linearize_mono_grid": [i] * 4,
         "rig_linearize_mono": [i, i] + [p] * 4 + [i] * 5 + [d, i] + [p] * 5,
+        "rig_linearize_band_grid": [i] * 5,
+        "rig_linearize_band": [i] * 3 + [p] * 5 + [i] * 8 + [d, i] + [p] * 5,
+        "tile_sort_planes": [i, p, p, i, i, i, p, p],
+        "tile_lsweep": [i] * 3 + [p] * 10 + [i] * 4 + [p] * 3,
+        "tile_gather_cells": [i, p, p, p, i, p, p],
         "rig_cost": [i, i] + [p] * 4 + [i] * 5 + [d, i, i, p, p],
         "rig_reduce_slots": [i, p] + [i] * 5 + [p, p, p],
         "rig_reduce_cost": [i, p, i, p, p],
         "tile_linearize_rows": [i, i, i] + [p] * 6 + [i] * 4 + [d, i, i]
                                + [p] * 6,
         "tile_linearize_bins": [i, i] + [p] * 8 + [i] * 5 + [d, p, p],
-        "tile_sweep_rows": [i] * 4 + [p] * 6 + [i] * 5 + [p] * 3,
-        "tile_sweep_bins": [i, i, p, p, i, p, p, p, i, i, p, p],
+        "tile_edot": [i] * 3 + [p] * 4 + [i] * 5 + [p, p],
         "tile_gsweep": [i] * 3 + [p] * 9 + [i] * 4 + [p] * 3,
         "tile_sort_jcam": [i, i, p, p, i, i, p, p],
         "tile_reduce_bins": [i, p, p, i, i, i, p, p, p],

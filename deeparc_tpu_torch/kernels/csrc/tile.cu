@@ -3,7 +3,9 @@
 //
 // Replaces the three Pallas TPU kernels of deeparc_tpu/kernels/tile_pallas.py:
 //   tile_linearize_local (:573, body _linearize_local_kernel :386)
-//   tile_sweep_local     (:207, body _sweep_local_kernel :134)
+//   tile_sweep_local     (:207, body _sweep_local_kernel :134; rhs/matvec
+//                         here in gsweep_rows + lsweep_bins over
+//                         sort_planes's copy)
 //   tile_sweep           (:282, body _sweep_kernel :67; rhs/matvec here in
 //                         gsweep_rows + gsweep_bins over sort_rows's copy)
 // The wrappers and plain versions are in kernels/tile.py.
@@ -16,34 +18,38 @@
 //     jcam planes (neighbouring threads write neighbouring addresses) and of
 //     pout, and sums its cost into a per-thread total. A sweep's row pass
 //     forms E v (matvec/edot) or takes g_p (rhs), applies the row's 3x3
-//     B^-1 and writes the 3-vector w = B^-1 (...) (or E v itself for edot).
+//     B^-1 and writes each slot's t2 = (jx_0 . w, jx_1 . w), w = B^-1 (...)
+//     (edot: E v itself, and no bin pass).
 //   * Bin pass: the per-cell bins (gc / hc of the linearize, E^T w of the
 //     sweeps) are sums over rows into data-dependent cells. The host builds
 //     once per layout a list of the bucket's slots sorted by bin (chunk *
 //     V_local + local id, or the global id), cut into segments of at most
-//     256 slots (kernels/tile.slot_bins). One warp sums one segment in list
-//     order into its own partial row; a third kernel sums each bin's
-//     segments in order. The linearize's bin pass recomputes the slot chain
+//     256 slots (kernels/tile.slot_bins). The linearize: one warp sums one
+//     segment in list order into its own partial row, a third kernel sums
+//     each bin's segments in order; its bin pass recomputes the slot chain
 //     from its inputs in the working type (so bins never see bf16-rounded
-//     planes); tile_sweep_local's bin pass reads the planes and w.
-//   * tile_sweep (rhs / matvec), for buckets without local tables, where a
-//     cell's ~4000 slots lie on rows spread over the whole bucket: once per
-//     LM step sort_rows gathers a cell-sorted copy of jcam (36, W * Nb),
-//     the slots of a segment adjacent. Its row pass (gsweep_rows) writes
-//     each slot's t2 = (jx_0 . w, jx_1 . w) at the slot's sorted position;
-//     its bin pass (gsweep_bins) then reads only sorted data, every load
-//     coalesced. The sums and their order are sweep_bins's.
+//     planes).
+//   * The sweeps (rhs / matvec) read a sorted copy of the jcam planes, built
+//     once per LM step (the planes are fixed within a step, and a sweep runs
+//     2 + one per PCG iteration times): the row pass writes each slot's t2
+//     at its sorted position (SlotBins.pos), and the bin pass reads only
+//     sorted data, every load coalesced. tile_sweep (no local tables; a
+//     cell's ~4000 slots lie on rows spread over the whole bucket): sort_rows
+//     copies the (Nb, W, 36) slot rows, gsweep_rows / gsweep_bins sum per
+//     segment, reduce_bins per cell. tile_sweep_local (bins ~32 slots, all
+//     of a chunk's in one run of positions): sort_planes copies the
+//     transposed planes themselves, bit for bit; the same row pass reads the
+//     chunk's local v table, and lsweep_bins sums one chunk per block, each
+//     bin straight into its final row; gather_cells then sums the chunk bins
+//     into the global cells in one fixed order.
 //   * No float atomics anywhere, so every run gives the same bits.
 //
 // What bounds it on the card. Device-memory bytes. The linearize writes
 // 44 plane values per slot (2 r, 6 jx, 36 jcam) plus its bins; a matvec
-// sweep reads the 42 jx/jcam values of every slot. tile_sweep_local reads
-// the planes twice per sweep (row pass for E v, bin pass for E^T w), the
-// bin pass's lanes on scattered rows of the chunk, so sectors are partly
-// wasted. tile_sweep reads jcam twice too, but both reads coalesced: about
-// 720 bytes a slot in f64 against the bound's ~350, plus the sorted copy
-// (2.3 GB at 1M rows x 8 slots) built once per step. bf16 planes halve
-// (f32) or quarter (f64) the plane bytes.
+// sweep reads the 42 jx/jcam values of every slot, and both sweeps read the
+// sorted copy's 36 once more, coalesced: about 640 bytes a slot in f64
+// against the bound's ~350, plus the copy (2.3 GB at 1M rows x 8 slots)
+// once per step. bf16 planes halve (f32) or quarter (f64) the plane bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -211,88 +217,35 @@ linearize_bins(const S* __restrict__ pts, const int* __restrict__ cell,
 // Sweeps
 // ---------------------------------------------------------------------------
 
-// Row pass. LOCAL: v is the per-chunk (n_chunks, 18, Vl) table and cell
-// holds local ids; otherwise v is the global (V, 18) vector.
-template <typename S, typename P, bool LOCAL, int MODE>
+// The sweeps' edot mode (E v per row, no bins): one thread per row. LOCAL:
+// v is the per-chunk (n_chunks, 18, Vl) table and cell holds local ids;
+// otherwise v is the global (V, 18) vector.
+template <typename S, typename P, bool LOCAL>
 __global__ void __launch_bounds__(256)
-sweep_rows(const int* __restrict__ cell, const P* __restrict__ jcam_t,
-           const P* __restrict__ jx_t, const S* __restrict__ binv,
-           const S* __restrict__ gp, const S* __restrict__ v, int W, int Nb,
-           int B, int n_cells, S* __restrict__ wbuf, S* __restrict__ ev_out) {
+edot_rows(const int* __restrict__ cell, const P* __restrict__ jcam_t,
+          const P* __restrict__ jx_t, const S* __restrict__ v, int W, int Nb,
+          int B, int n_cells, S* __restrict__ ev_out) {
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= Nb) return;
-  S rhs[3];
-  if (MODE == RHS) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) rhs[i] = gp[(long)i * Nb + p];
-  } else {
-    S ev[3] = {S(0), S(0), S(0)};
-    const S* vt = LOCAL ? v + (p / B) * 18L * n_cells : v;
-    for (int w = 0; w < W; ++w) {
-      const long l = cell[(long)w * Nb + p];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        S t = S(0);
-#pragma unroll
-        for (int j = 0; j < 18; ++j) {
-          const S vj = LOCAL ? vt[(long)j * n_cells + l] : vt[l * 18 + j];
-          t += Plane<S, P>::load(jcam_t, (36L * w + 18 * k + j) * Nb + p) * vj;
-        }
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          ev[i] += Plane<S, P>::load(jx_t, (6L * w + 3 * k + i) * Nb + p) * t;
-      }
-    }
-    if (MODE == EDOT) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) ev_out[p * 3 + i] = ev[i];
-      return;
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) rhs[i] = ev[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    S s = S(0);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) s += binv[(long)(3 * i + j) * Nb + p] * rhs[j];
-    wbuf[(long)i * Nb + p] = s;
-  }
-}
-
-// Bin pass: u = sum_k jcam_k (jx_k . w) per slot, summed per segment.
-template <typename S, typename P>
-__global__ void __launch_bounds__(WARPS * 32)
-sweep_bins(const int* __restrict__ order, const int* __restrict__ seg_start,
-           int n_seg, const P* __restrict__ jcam_t, const P* __restrict__ jx_t,
-           const S* __restrict__ wbuf, int Nb, S* __restrict__ partial) {
-  const int lane = threadIdx.x & 31;
-  const long seg = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (seg >= n_seg) return;
-  const int lo = seg_start[seg], hi = seg_start[seg + 1];
-  S acc[18];
-#pragma unroll
-  for (int j = 0; j < 18; ++j) acc[j] = S(0);
-  for (int i = lo + lane; i < hi; i += 32) {
-    const long f = order[i];
-    const long w = f / Nb, p = f - w * Nb;
-    const S wv[3] = {wbuf[p], wbuf[(long)Nb + p], wbuf[2L * Nb + p]};
+  S ev[3] = {S(0), S(0), S(0)};
+  const S* vt = LOCAL ? v + (p / B) * 18L * n_cells : v;
+  for (int w = 0; w < W; ++w) {
+    const long l = cell[(long)w * Nb + p];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      S t2 = S(0);
+      S t = S(0);
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
-        t2 += Plane<S, P>::load(jx_t, (6 * w + 3 * k + a) * Nb + p) * wv[a];
+      for (int j = 0; j < 18; ++j) {
+        const S vj = LOCAL ? vt[(long)j * n_cells + l] : vt[l * 18 + j];
+        t += Plane<S, P>::load(jcam_t, (36L * w + 18 * k + j) * Nb + p) * vj;
+      }
 #pragma unroll
-      for (int j = 0; j < 18; ++j)
-        acc[j] += Plane<S, P>::load(jcam_t, (36 * w + 18 * k + j) * Nb + p) * t2;
+      for (int i = 0; i < 3; ++i)
+        ev[i] += Plane<S, P>::load(jx_t, (6L * w + 3 * k + i) * Nb + p) * t;
     }
   }
 #pragma unroll
-  for (int j = 0; j < 18; ++j) {
-    const S x = warp_sum(acc[j]);
-    if (lane == 0) partial[seg * 18 + j] = x;
-  }
+  for (int i = 0; i < 3; ++i) ev_out[p * 3 + i] = ev[i];
 }
 
 // A slot's two scalars t2_k = jx_k . w, stored together (one 16- or 8-byte
@@ -302,15 +255,18 @@ struct alignas(2 * sizeof(S)) Pair {
   S k0, k1;
 };
 
-// tile_sweep's row pass in rhs/matvec: w = B^-1 (g_p or E v) as in
-// sweep_rows, then each slot's t2 = (jx_0 . w, jx_1 . w) is written at the
-// slot's position in the cell-sorted order (pos = inverse of SlotBins.order).
-template <typename S, typename P, int MODE>
+// The sweeps' row pass in rhs/matvec: w = B^-1 (g_p or E v), then each
+// slot's t2 = (jx_0 . w, jx_1 . w) is written at the slot's position in the
+// sorted order (pos = inverse of SlotBins.order). tile_sweep: v is the
+// global (V, 18) vector; LOCAL (tile_sweep_local): v is the per-chunk
+// (n_chunks, 18, Vl) table of the row's chunk of B rows, cell holds local
+// ids.
+template <typename S, typename P, int MODE, bool LOCAL>
 __global__ void __launch_bounds__(256)
 gsweep_rows(const int* __restrict__ cell, const P* __restrict__ jcam_t,
             const P* __restrict__ jx_t, const S* __restrict__ binv,
             const S* __restrict__ gp, const S* __restrict__ v,
-            const int* __restrict__ pos, int W, int Nb,
+            const int* __restrict__ pos, int W, int Nb, int B, int Vl,
             Pair<S>* __restrict__ t2) {
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= Nb) return;
@@ -320,6 +276,7 @@ gsweep_rows(const int* __restrict__ cell, const P* __restrict__ jcam_t,
     for (int i = 0; i < 3; ++i) rhs[i] = gp[(long)i * Nb + p];
   } else {
     S ev[3] = {S(0), S(0), S(0)};
+    const S* vt = LOCAL ? v + (p / B) * 18L * Vl : v;
     for (int w = 0; w < W; ++w) {
       const long l = cell[(long)w * Nb + p];
 #pragma unroll
@@ -328,7 +285,7 @@ gsweep_rows(const int* __restrict__ cell, const P* __restrict__ jcam_t,
 #pragma unroll
         for (int j = 0; j < 18; ++j)
           t += Plane<S, P>::load(jcam_t, (36L * w + 18 * k + j) * Nb + p) *
-               v[l * 18 + j];
+               (LOCAL ? vt[j * Vl + l] : vt[l * 18 + j]);
 #pragma unroll
         for (int i = 0; i < 3; ++i)
           ev[i] += Plane<S, P>::load(jx_t, (6L * w + 3 * k + i) * Nb + p) * t;
@@ -361,8 +318,7 @@ gsweep_rows(const int* __restrict__ cell, const P* __restrict__ jcam_t,
 
 // tile_sweep's bin pass: one warp per segment of the sorted slot list; lane
 // l takes positions lo + l, lo + l + 32, ..., so each load of the sorted
-// jcam planes (36, n_slots) and of t2 is coalesced. Same sums, in the same
-// order, as sweep_bins.
+// jcam planes (36, n_slots) and of t2 is coalesced.
 template <typename S, typename P>
 __global__ void __launch_bounds__(WARPS * 32)
 gsweep_bins(const int* __restrict__ seg_start, int n_seg,
@@ -422,6 +378,143 @@ sort_rows(const S* __restrict__ rows, const int* __restrict__ order,
     for (int c = 0; c < 36; ++c)
       Plane<S, P>::store(out, c * n_slots + i0 + lane, t[lane][c]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// tile_sweep_local (rhs / matvec): one block per chunk
+// ---------------------------------------------------------------------------
+
+// The chunk-sorted copy of a locality bucket's jcam planes: out[c][i] =
+// jcam_t[36 w + c][p] for the slot order[i] = w * Nb + p, copied bit for bit
+// in the planes' storage type (T is an unsigned integer of its size). The
+// bins are chunk * V_local + local id, so chunk ch's slots fill sorted
+// positions [ch B W, (ch + 1) B W) and its rows [ch B, (ch + 1) B). Block
+// (c, ch) stages the chunk's W x B values of plane column c in shared
+// memory with coalesced reads (the 36 blocks of a chunk run together, so
+// its order list is read from L2), then writes the chunk's sorted row
+// coalesced. A chunk too large for shared memory reads its values directly.
+template <typename T>
+__global__ void __launch_bounds__(256)
+sort_planes(const T* __restrict__ planes, const int* __restrict__ order,
+            int W, int Nb, int B, int staged, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* st = reinterpret_cast<T*>(smem_raw);  // [W][B]
+  const int c = blockIdx.x, ch = blockIdx.y;
+  const int n = W * B;
+  const long p0 = (long)ch * B, i0 = (long)ch * n, n_slots = (long)W * Nb;
+  if (staged) {
+    for (int w = 0; w < W; ++w) {
+      const T* src = planes + (36L * w + c) * Nb + p0;
+#pragma unroll 4
+      for (int pp = threadIdx.x; pp < B; pp += blockDim.x) st[w * B + pp] = src[pp];
+    }
+    __syncthreads();
+  }
+#pragma unroll 4
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int f = order[i0 + k];
+    const int w = f / Nb;
+    const int pp = f - w * Nb - (int)p0;
+    out[c * n_slots + i0 + k] =
+        staged ? st[w * B + pp] : planes[(36L * w + c) * Nb + p0 + pp];
+  }
+}
+
+constexpr int LS_THREADS = 256;         // threads of a chunk's block
+constexpr int LS_LD = LS_THREADS + 1;   // row stride of the staged products
+
+__device__ __forceinline__ int upper_bound(const int* a, int n, int x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// tile_sweep_local's bin pass (rhs / matvec), after gsweep_rows<LOCAL> has
+// written each slot's t2 at its sorted position. Block ch owns chunk ch: its
+// V_local bins and their sorted positions [ch B W, (ch + 1) B W), 256 at a
+// time: thread k forms position k's 18 products jsrt[j] t2_0 + jsrt[18 + j]
+// t2_1 from the chunk-sorted jcam copy (coalesced) into shared memory; then
+// each (bin, value) pair meeting the 256 positions is summed by one thread
+// (four interleaved partial sums, combined in a fixed order) and added to
+// out[ch, bin, value]. The pieces of a bin are added in position order and
+// the block alone writes its chunk's rows, so the per-chunk bins come out
+// final: no partial rows and no second pass, the same bits every run.
+template <typename S, typename P>
+__global__ void __launch_bounds__(LS_THREADS)
+lsweep_bins(const P* __restrict__ jsrt, const Pair<S>* __restrict__ t2,
+            const int* __restrict__ seg_start,
+            const int* __restrict__ bin_seg, int W, int Nb, int B, int Vl,
+            S* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* bstart = reinterpret_cast<int*>(smem_raw);  // [Vl + 1]
+  S* us = reinterpret_cast<S*>(smem_raw + (((Vl + 1) * 4 + 15) & ~15));
+  const int tid = threadIdx.x, ch = blockIdx.x;
+  const int nc = W * B;
+  const long c0 = (long)ch * nc, n_slots = (long)W * Nb;
+  S* o = out + (long)ch * Vl * 18;
+  for (int l = tid; l <= Vl; l += LS_THREADS)
+    bstart[l] = seg_start[bin_seg[(long)ch * Vl + l]] - (int)c0;
+  for (int q = tid; q < Vl * 18; q += LS_THREADS) o[q] = S(0);
+  __syncthreads();
+
+  for (int t0 = 0; t0 < nc; t0 += LS_THREADS) {
+    const int t1 = min(t0 + LS_THREADS, nc);
+    if (t0 + tid < t1) {
+      const long i = c0 + t0 + tid;
+      const Pair<S> tt = t2[i];
+#pragma unroll
+      for (int j = 0; j < 18; ++j)
+        us[j * LS_LD + tid] = Plane<S, P>::load(jsrt, j * n_slots + i) * tt.k0 +
+                              Plane<S, P>::load(jsrt, (18 + j) * n_slots + i) * tt.k1;
+    }
+    __syncthreads();
+    const int fb = upper_bound(bstart, Vl + 1, t0) - 1;
+    const int lb = upper_bound(bstart, Vl + 1, t1 - 1) - 1;
+    for (int q = tid; q < (lb - fb + 1) * 18; q += LS_THREADS) {
+      const int b = fb + q / 18, j = q % 18;
+      const int lo = max(bstart[b], t0) - t0, hi = min(bstart[b + 1], t1) - t0;
+      if (hi <= lo) continue;
+      const S* u = us + j * LS_LD;
+      S s0 = S(0), s1 = S(0), s2 = S(0), s3 = S(0);
+      int x = lo;
+      for (; x + 4 <= hi; x += 4) {
+        s0 += u[x];
+        s1 += u[x + 1];
+        s2 += u[x + 2];
+        s3 += u[x + 3];
+      }
+      for (; x < hi; ++x) s0 += u[x];
+      o[b * 18 + j] += (s0 + s1) + (s2 + s3);
+    }
+    __syncthreads();
+  }
+}
+
+// Dynamic shared memory of lsweep_bins.
+inline size_t lsweep_smem(int Vl, size_t esz) {
+  return (((size_t)(Vl + 1) * 4 + 15) & ~(size_t)15) + 18 * LS_LD * esz;
+}
+
+// out[v, j] = sum of part[src[k], j] for k in [cstart[v], cstart[v + 1]),
+// in k order: the per-chunk bins of a locality bucket summed into the
+// global (V, 18) cell vector, each cell's bins in one fixed order.
+template <typename S>
+__global__ void gather_cells(const S* __restrict__ part,
+                             const int* __restrict__ cstart,
+                             const int* __restrict__ src, int V,
+                             S* __restrict__ out) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)V * 18) return;
+  const int v = (int)(idx / 18), j = (int)(idx % 18);
+  S s = S(0);
+  for (int k = cstart[v]; k < cstart[v + 1]; ++k) s += part[(long)src[k] * 18 + j];
+  out[idx] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -529,58 +622,31 @@ extern "C" int tile_linearize_bins(int dtype, int loss, const void* pts,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int tile_sweep_rows(int dtype, int pdtype, int mode, int local,
-                               const void* cell, const void* jcam_t,
-                               const void* jx_t, const void* binv,
-                               const void* gp, const void* v, int W, int Nb,
-                               int B, int n_cells, int threads, void* wbuf,
-                               void* ev_out, void* stream) {
+// E v per row of a bucket (the sweeps' edot mode); local: v is the
+// per-chunk table and cell holds local ids.
+extern "C" int tile_edot(int dtype, int pdtype, int local, const void* cell,
+                         const void* jcam_t, const void* jx_t, const void* v,
+                         int W, int Nb, int B, int n_cells, int threads,
+                         void* ev_out, void* stream) {
   if (threads % 32 != 0 || threads <= 0 || threads > 256)
     return (int)cudaErrorInvalidValue;
   if (Nb == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = blocks_for(Nb, threads);
-#define TILE_SWEEP(T, PT, LOC, M)                                            \
-  sweep_rows<T, PT, LOC, M><<<grid, threads, 0, s>>>(                        \
-      (const int*)cell, (const PT*)jcam_t, (const PT*)jx_t, (const T*)binv,  \
-      (const T*)gp, (const T*)v, W, Nb, B, n_cells, (T*)wbuf, (T*)ev_out);   \
+#define TILE_EDOT(T, PT, LOC)                                                \
+  edot_rows<T, PT, LOC><<<grid, threads, 0, s>>>(                            \
+      (const int*)cell, (const PT*)jcam_t, (const PT*)jx_t, (const T*)v, W,  \
+      Nb, B, n_cells, (T*)ev_out);                                           \
   return (int)cudaGetLastError()
-#define TILE_SWEEP_MODE(T, PT, LOC)                       \
-  if (mode == RHS) { TILE_SWEEP(T, PT, LOC, RHS); }       \
-  if (mode == MATVEC) { TILE_SWEEP(T, PT, LOC, MATVEC); } \
-  if (mode == EDOT) { TILE_SWEEP(T, PT, LOC, EDOT); }
-  // tile_sweep's rhs / matvec run tile_gsweep; only its edot comes here
-#define TILE_SWEEP_LOC(T, PT)                              \
-  if (local) { TILE_SWEEP_MODE(T, PT, true) }              \
-  else if (mode == EDOT) { TILE_SWEEP(T, PT, false, EDOT); }
-  if (dtype == 1 && pdtype == 0) { TILE_SWEEP_LOC(double, double) }
-  if (dtype == 1 && pdtype == 1) { TILE_SWEEP_LOC(double, __nv_bfloat16) }
-  if (dtype == 0 && pdtype == 0) { TILE_SWEEP_LOC(float, float) }
-  if (dtype == 0 && pdtype == 1) { TILE_SWEEP_LOC(float, __nv_bfloat16) }
-#undef TILE_SWEEP_LOC
-#undef TILE_SWEEP_MODE
-#undef TILE_SWEEP
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int tile_sweep_bins(int dtype, int pdtype, const void* order,
-                               const void* seg_start, int n_seg,
-                               const void* jcam_t, const void* jx_t,
-                               const void* wbuf, int W, int Nb, void* partial,
-                               void* stream) {
-  if (n_seg == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int grid = blocks_for(n_seg, WARPS);
-#define TILE_SBINS(T, PT)                                                    \
-  sweep_bins<T, PT><<<grid, WARPS * 32, 0, s>>>(                             \
-      (const int*)order, (const int*)seg_start, n_seg, (const PT*)jcam_t,    \
-      (const PT*)jx_t, (const T*)wbuf, Nb, (T*)partial);                     \
-  return (int)cudaGetLastError()
-  if (dtype == 1 && pdtype == 0) { TILE_SBINS(double, double); }
-  if (dtype == 1 && pdtype == 1) { TILE_SBINS(double, __nv_bfloat16); }
-  if (dtype == 0 && pdtype == 0) { TILE_SBINS(float, float); }
-  if (dtype == 0 && pdtype == 1) { TILE_SBINS(float, __nv_bfloat16); }
-#undef TILE_SBINS
+#define TILE_EDOT_LOC(T, PT)                               \
+  if (local) { TILE_EDOT(T, PT, true); }                   \
+  else { TILE_EDOT(T, PT, false); }
+  if (dtype == 1 && pdtype == 0) { TILE_EDOT_LOC(double, double) }
+  if (dtype == 1 && pdtype == 1) { TILE_EDOT_LOC(double, __nv_bfloat16) }
+  if (dtype == 0 && pdtype == 0) { TILE_EDOT_LOC(float, float) }
+  if (dtype == 0 && pdtype == 1) { TILE_EDOT_LOC(float, __nv_bfloat16) }
+#undef TILE_EDOT_LOC
+#undef TILE_EDOT
   return (int)cudaErrorInvalidValue;
 }
 
@@ -602,9 +668,9 @@ extern "C" int tile_gsweep(int dtype, int pdtype, int mode, const void* cell,
   const int bgrid = blocks_for(n_seg, WARPS);
   const long n_slots = (long)W * Nb;
 #define TILE_GROWS(T, PT, M)                                                 \
-  gsweep_rows<T, PT, M><<<rgrid, threads, 0, s>>>(                           \
+  gsweep_rows<T, PT, M, false><<<rgrid, threads, 0, s>>>(                    \
       (const int*)cell, (const PT*)jcam_t, (const PT*)jx_t, (const T*)binv,  \
-      (const T*)gp, (const T*)v, (const int*)pos, W, Nb, (Pair<T>*)t2)
+      (const T*)gp, (const T*)v, (const int*)pos, W, Nb, 0, 0, (Pair<T>*)t2)
 #define TILE_GSWEEP(T, PT)                                                   \
   {                                                                          \
     if (mode == RHS)                                                         \
@@ -646,6 +712,108 @@ extern "C" int tile_sort_jcam(int dtype, int pdtype, const void* rows,
   if (dtype == 0 && pdtype == 1) { TILE_SORT(float, __nv_bfloat16); }
 #undef TILE_SORT
   return (int)cudaErrorInvalidValue;
+}
+
+// tile_sweep_local's chunk-sorted (36, W * Nb) copy of its (36 W, Nb) jcam
+// planes, esz bytes a value.
+extern "C" int tile_sort_planes(int esz, const void* planes,
+                                const void* order, int W, int Nb, int B,
+                                void* out, void* stream) {
+  if (W <= 0 || B <= 0 || Nb % B != 0) return (int)cudaErrorInvalidValue;
+  if (Nb == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(36, Nb / B);
+  const size_t smem = (size_t)W * B * esz;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return (int)e;
+  const int staged = smem <= (size_t)optin;
+#define TILE_SORTP(T)                                                         \
+  {                                                                           \
+    if (staged) {                                                             \
+      e = cudaFuncSetAttribute(sort_planes<T>,                                \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                               (int)smem);                                    \
+      if (e != cudaSuccess) return (int)e;                                    \
+    }                                                                         \
+    sort_planes<T><<<grid, 256, staged ? smem : 0, s>>>(                      \
+        (const T*)planes, (const int*)order, W, Nb, B, staged, (T*)out);      \
+    return (int)cudaGetLastError();                                           \
+  }
+  if (esz == 8) TILE_SORTP(unsigned long long)
+  if (esz == 4) TILE_SORTP(unsigned int)
+  if (esz == 2) TILE_SORTP(unsigned short)
+#undef TILE_SORTP
+  return (int)cudaErrorInvalidValue;
+}
+
+// tile_sweep_local in rhs (mode 0) or matvec (mode 1): the row pass writes
+// t2 at sorted positions, then one block per chunk sums the chunk's bins;
+// out (n_chunks, Vl, 18) final.
+extern "C" int tile_lsweep(int dtype, int pdtype, int mode, const void* cell,
+                           const void* jcam_t, const void* jx_t,
+                           const void* binv, const void* gp, const void* v,
+                           const void* pos, const void* jsrt,
+                           const void* seg_start, const void* bin_seg, int W,
+                           int Nb, int B, int Vl, void* t2, void* out,
+                           void* stream) {
+  if ((mode != RHS && mode != MATVEC) || B <= 0 || Nb % B != 0 || Vl <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (Nb == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = lsweep_smem(Vl, dtype == 1 ? 8 : 4);
+  const int rgrid = blocks_for(Nb, 256);
+#define TILE_LROWS(T, PT, M)                                                 \
+  gsweep_rows<T, PT, M, true><<<rgrid, 256, 0, s>>>(                         \
+      (const int*)cell, (const PT*)jcam_t, (const PT*)jx_t, (const T*)binv,  \
+      (const T*)gp, (const T*)v, (const int*)pos, W, Nb, B, Vl, (Pair<T>*)t2)
+#define TILE_LS(T, PT)                                                       \
+  {                                                                          \
+    if (mode == RHS)                                                         \
+      TILE_LROWS(T, PT, RHS);                                                \
+    else                                                                     \
+      TILE_LROWS(T, PT, MATVEC);                                             \
+    cudaError_t e = cudaGetLastError();                                      \
+    if (e == cudaSuccess)                                                    \
+      e = cudaFuncSetAttribute(lsweep_bins<T, PT>,                           \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                               (int)smem);                                   \
+    if (e != cudaSuccess) return (int)e;                                     \
+    lsweep_bins<T, PT><<<Nb / B, LS_THREADS, smem, s>>>(                     \
+        (const PT*)jsrt, (const Pair<T>*)t2, (const int*)seg_start,          \
+        (const int*)bin_seg, W, Nb, B, Vl, (T*)out);                         \
+    return (int)cudaGetLastError();                                          \
+  }
+  if (dtype == 1 && pdtype == 0) TILE_LS(double, double)
+  if (dtype == 1 && pdtype == 1) TILE_LS(double, __nv_bfloat16)
+  if (dtype == 0 && pdtype == 0) TILE_LS(float, float)
+  if (dtype == 0 && pdtype == 1) TILE_LS(float, __nv_bfloat16)
+#undef TILE_LS
+#undef TILE_LROWS
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int tile_gather_cells(int dtype, const void* part,
+                                 const void* cstart, const void* src, int V,
+                                 void* out, void* stream) {
+  const long n = (long)V * 18;
+  if (n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = blocks_for(n, 256);
+  if (dtype == 1)
+    gather_cells<double><<<grid, 256, 0, s>>>(
+        (const double*)part, (const int*)cstart, (const int*)src, V,
+        (double*)out);
+  else if (dtype == 0)
+    gather_cells<float><<<grid, 256, 0, s>>>(
+        (const float*)part, (const int*)cstart, (const int*)src, V,
+        (float*)out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int tile_reduce_bins(int dtype, const void* partial,

@@ -507,7 +507,43 @@ def _cuda_args(pts, loss, tensors):
     return _DTYPE_IDS[pts.dtype], _LOSS_IDS[loss]
 
 
-def _cuda_linearize(prep, loss, loss_scale, counter):
+# points of a linearize_band tile (csrc/rig_band.cu BAND_PTS)
+BAND_PTS = 32
+
+
+def band_subtiles(groups, block_np, tp=BAND_PTS):
+    """The width groups ``(w, tile_lo, tile_hi)`` (in ``block_np``-point
+    tiles) as linearize_band launches them: ``(w, tile_lo, n_sub)`` with
+    ``n_sub`` tiles of ``tp`` points. Sub-tile s of a group holds points
+    ``tile_lo * block_np + s * tp + [0, tp)`` and takes the band of block
+    tile ``tile_lo + s * tp // block_np`` (its ``starts`` entry)."""
+    if block_np % tp:
+        raise ValueError(f"{block_np}-point tiles do not split into "
+                         f"{tp}-point tiles")
+    return tuple((w, lo, (hi - lo) * block_np // tp) for w, lo, hi in groups)
+
+
+def linearize_band_route(dtype, loss, intr_frozen, R, K, n_pad) -> int:
+    """Blocks of linearize_grid_banded's shared-memory E kernel
+    (``linearize_band``, ``csrc/rig_band.cu``) for this rig and dtype, or 0
+    when its 32-point E tile (3 Cn values a point) does not fit an SM: such
+    a rig takes ``linearize_kernel`` (``csrc/rig_grid.cu``). Needs the
+    card."""
+    from deeparc_tpu_torch.kernels.build import library
+
+    Cn = 6 * R if intr_frozen else 6 * (R + K)
+    blocks = library().rig_linearize_band_grid(
+        _DTYPE_IDS[dtype], _LOSS_IDS[loss], 12 if intr_frozen else 18, Cn,
+        max(1, n_pad // BAND_PTS))
+    if blocks < 0:
+        raise RuntimeError(f"rig_linearize_band_grid: cudaError {-blocks}")
+    return blocks
+
+
+def _cuda_linearize(prep, loss, loss_scale, counter, band=False):
+    """The banded linearize kernels over the prep's width groups:
+    ``linearize_band`` (``band=True``, linearize_grid_banded) when a
+    32-point tile's E fits an SM, else ``linearize_kernel``."""
     from deeparc_tpu_torch.kernels.build import check, library
 
     lib = library()
@@ -527,16 +563,32 @@ def _cuda_linearize(prep, loss, loss_scale, counter):
     n_pad, t_ext = pts.shape[1], tbl.shape[0]
     Cn = 6 * R if frozen else 6 * (R + K)
     starts = prep["starts"].to(torch.int32).contiguous()
-    n_blocks = _n_blocks(dev, max(hi - lo for _, lo, hi in prep["groups"]))
+    blocks = (linearize_band_route(dtype, loss, frozen, R, K, n_pad) if band
+              else 0)
+    if blocks:
+        subs = band_subtiles(prep["groups"], bn)
+        n_blocks = max(1, min(blocks, max(n for _, _, n in subs)))
+    else:
+        n_blocks = _n_blocks(dev, max(hi - lo for _, lo, hi in prep["groups"]))
     pout = torch.empty((12, n_pad), dtype=dtype, device=dev)
     E = torch.empty((n_pad, 3 * Cn), dtype=dtype, device=dev)
     partial = torch.zeros((n_blocks, t_ext, nv), dtype=dtype, device=dev)
     partial_cost = torch.zeros((n_blocks,), dtype=dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for (w, lo, hi), pxm in zip(prep["groups"], pxms):
+    for i, ((w, lo, hi), pxm) in enumerate(zip(prep["groups"], pxms)):
         if hi == lo:
             continue
         counter.launches += 1
+        if blocks:
+            n_sub = subs[i][2]
+            check(lib.rig_linearize_band(
+                dt, ls, n_p, tbl.data_ptr(), ids.data_ptr(),
+                starts.data_ptr(), pts.data_ptr(), pxm.data_ptr(), t_ext,
+                n_pad, R, K, lo, bn, n_sub, w, float(loss_scale),
+                min(n_sub, n_blocks), pout.data_ptr(), E.data_ptr(),
+                partial.data_ptr(), partial_cost.data_ptr(), stream),
+                "rig_linearize_band")
+            continue
         check(lib.rig_linearize(
             dt, ls, int(frozen), tbl.data_ptr(), ids.data_ptr(),
             starts.data_ptr(), pts.data_ptr(), pxm.data_ptr(), t_ext, n_pad,
@@ -681,7 +733,8 @@ def linearize_grid_banded(
     prep = _prep_linearize_banded(points, point_free, sp, grid, free_outer,
                                   free_inner, free_intr, starts, w_band,
                                   block_np, intr_frozen, pxm)
-    return _cuda_linearize(prep, loss, loss_scale, linearize_grid_banded)
+    return _cuda_linearize(prep, loss, loss_scale, linearize_grid_banded,
+                           band=True)
 
 
 def cost_grid_banded_plain(points, sp, grid, starts, w_band, loss="trivial",

@@ -31,11 +31,16 @@ Binning a per-slot value into its cell is a reduction across rows into
 data-dependent cells. The kernels do it without float atomics, through
 :class:`SlotBins`: the flat slot ids (w * Nb + p) sorted by bin (chunk *
 V_local + local id, or the global cell id), cut into segments of at most
-``SEGMENT`` slots. One warp sums one segment in list order; a second pass
-sums each bin's segments in order. Every run gives the same bits.
-``tile_sweep`` reads a cell-sorted copy of jcam (:func:`sort_jcam`, built
-once per LM step) and writes each slot's scalars at its sorted position
-(``SlotBins.pos``), so its bin pass reads adjacent addresses.
+``SEGMENT`` slots. The linearize sums one segment per warp in list order
+and each bin's segments in order in a second pass. Every run gives the
+same bits. The sweeps (rhs/matvec) read a sorted copy of jcam, built once
+per LM step, and write each slot's scalars at its sorted position
+(``SlotBins.pos``), so their bin passes read adjacent addresses:
+``tile_sweep`` from the slot rows (:func:`sort_jcam`), summing per segment
+then per cell; ``tile_sweep_local`` from its transposed planes
+(:func:`sort_jcam_planes`), its bin pass one block per chunk summing the
+chunk's bins into their final rows, which :func:`sum_chunk_bins` then
+sums into the global cells in one fixed order.
 """
 
 from __future__ import annotations
@@ -88,6 +93,23 @@ class SlotBins(NamedTuple):
     n_bins: int
     pos: torch.Tensor        # (W*Nb,) int32 inverse of ``order``: a slot's
                              # position in the sorted list
+    gather: tuple = ()       # local bins: (cstart (V+1,), src) int32, the
+                             # non-empty bins of each global cell in bin
+                             # order (chunk_gather); () for global bins
+
+
+def chunk_gather(bins: SlotBins, chunk_cells: torch.Tensor, V: int) -> tuple:
+    """The fixed-order map from a locality bucket's per-chunk bins (chunk *
+    V_local + local id) to the V global cells: for cell v, the non-empty
+    bins ``src[cstart[v]:cstart[v + 1]]`` in increasing bin order, which
+    :func:`sum_chunk_bins` sums in that order. Built once per layout."""
+    dev = chunk_cells.device
+    nonempty = (bins.bin_seg[1:] > bins.bin_seg[:-1]).nonzero()[:, 0]
+    cell = chunk_cells.reshape(-1).long()[nonempty]
+    src = nonempty[torch.argsort(cell, stable=True)]
+    cstart = torch.zeros(V + 1, dtype=torch.long, device=dev)
+    cstart[1:] = torch.cumsum(torch.bincount(cell, minlength=V), 0)
+    return cstart.to(torch.int32), src.to(torch.int32)
 
 
 def slot_bins(cell_t: torch.Tensor, n_chunks: int, n_cells: int) -> SlotBins:
@@ -160,6 +182,81 @@ def sort_jcam(j_cam: torch.Tensor, bins: SlotBins, dtype=None) -> torch.Tensor:
         dt, _plane_id(out, j_cam.dtype), j_cam.data_ptr(),
         bins.order.data_ptr(), Nb, W, out.data_ptr(), _stream(j_cam.device)),
         "tile_sort_jcam")
+    return out
+
+
+def sort_jcam_planes_plain(jcam_t: torch.Tensor, bins: SlotBins,
+                           n_chunks: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sort_jcam_planes`."""
+    W, Nb = jcam_t.shape[0] // 36, jcam_t.shape[1]
+    f = bins.order.long()
+    return jcam_t.reshape(W, 36, Nb)[f // Nb, :, f % Nb].T.contiguous()
+
+
+def sort_jcam_planes(jcam_t: torch.Tensor, bins: SlotBins,
+                     n_chunks: int) -> torch.Tensor:
+    """A locality bucket's transposed jcam planes (36W, Nb) in its bins'
+    slot order, as (36, W*Nb): column i holds the 36 values of slot
+    ``order[i]`` (flat id w * Nb + p), copied bit for bit in the planes'
+    storage dtype, so that :func:`tile_sweep_local`'s row pass and bin
+    pass apply the same E. The bins are per chunk of Nb / n_chunks rows,
+    so a chunk's slots fill one run of the sorted positions.
+    :func:`tile_sweep_local` reads it in rhs/matvec on the card; it depends
+    on the Jacobians, so it is built once per LM step. On CUDA tensors a
+    staged gather kernel builds it (``csrc/tile.cu``, ``sort_planes``)."""
+    if not _dispatch(jcam_t, "sort_jcam_planes"):
+        return sort_jcam_planes_plain(jcam_t, bins, n_chunks)
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    W, Nb = jcam_t.shape[0] // 36, jcam_t.shape[1]
+    if jcam_t.shape[0] != 36 * W or not jcam_t.is_contiguous():
+        raise ValueError(f"jcam_t must be contiguous (36W, Nb), not "
+                         f"{tuple(jcam_t.shape)}")
+    B = _rows_of_chunks(Nb, n_chunks)
+    _check_bins(bins, W, Nb, bins.n_bins, jcam_t.device)
+    out = torch.empty((36, W * Nb), dtype=jcam_t.dtype, device=jcam_t.device)
+    sort_jcam_planes.launches += 1
+    check(library().tile_sort_planes(
+        jcam_t.element_size(), jcam_t.data_ptr(), bins.order.data_ptr(), W,
+        Nb, B, out.data_ptr(), _stream(jcam_t.device)), "tile_sort_planes")
+    return out
+
+
+def sum_chunk_bins_plain(part: torch.Tensor, chunk_cells: torch.Tensor,
+                         V: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sum_chunk_bins`."""
+    out = torch.zeros((V, 18), dtype=part.dtype, device=part.device)
+    return out.index_add_(0, chunk_cells.reshape(-1).long(),
+                          part.reshape(-1, 18))
+
+
+def sum_chunk_bins(part: torch.Tensor, chunk_cells: torch.Tensor, V: int,
+                   bins: SlotBins | None = None) -> torch.Tensor:
+    """A locality bucket's per-chunk bins (n_chunks, V_local, 18) summed
+    into the global (V, 18) cell vector through ``chunk_cells``. On the
+    card a gather kernel sums each cell's bins in one fixed order (the
+    bins' ``gather`` map, :func:`chunk_gather`): no float atomics, the
+    same bits every run."""
+    if not _dispatch(part, "sum_chunk_bins"):
+        return sum_chunk_bins_plain(part, chunk_cells, V)
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    if not isinstance(bins, SlotBins) or len(bins.gather) != 2:
+        raise ValueError("sum_chunk_bins on the card needs the bucket's "
+                         "slot bins with their chunk -> cell map "
+                         "(solver.tiles.with_bins)")
+    cstart, src = bins.gather
+    if cstart.numel() != V + 1 or part.numel() != bins.n_bins * 18:
+        raise ValueError(f"bins of {bins.n_bins} and a map of "
+                         f"{cstart.numel() - 1} cells do not fit "
+                         f"{tuple(part.shape)} into ({V}, 18)")
+    part = part.contiguous()
+    dt = _check_inputs(part.dtype, (cstart, src), (part,))
+    out = torch.empty((V, 18), dtype=part.dtype, device=part.device)
+    sum_chunk_bins.launches += 1
+    check(library().tile_gather_cells(
+        dt, part.data_ptr(), cstart.data_ptr(), src.data_ptr(), V,
+        out.data_ptr(), _stream(part.device)), "tile_gather_cells")
     return out
 
 
@@ -428,29 +525,58 @@ def _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v, mode, block_n, local,
         _check_bins(bins, W, Nb, n_chunks * n_cells, dev)
     threads = _threads(block_n)
     stream = _stream(dev)
-    if mode != "edot" and not local:
+    if mode != "edot":
+        _check_sorted(sorted_jcam, jcam_t, W * Nb, "tile_sweep_local" if local
+                      else "tile_sweep")
+        if local:
+            return _cuda_local_sweep(lib, check, dt, pid, mode, cell_t,
+                                     jcam_t, jx_t, binv_t, gp_t, v, B,
+                                     n_chunks, n_cells, bins, sorted_jcam,
+                                     counter, stream)
         return _cuda_global_sweep(lib, check, dt, pid, mode, cell_t, jcam_t,
                                   jx_t, binv_t, gp_t, v, threads, bins,
                                   sorted_jcam, counter, stream)
-    wbuf = torch.empty((3, Nb), dtype=dtype, device=dev)
-    ev = torch.empty((Nb, 3) if mode == "edot" else (1, 3), dtype=dtype,
-                     device=dev)
+    ev = torch.empty((Nb, 3), dtype=dtype, device=dev)
     counter.launches += 1
-    check(lib.tile_sweep_rows(
-        dt, pid, _MODES[mode], int(local), cell_t.data_ptr(),
-        jcam_t.data_ptr(), jx_t.data_ptr(), binv_t.data_ptr(),
-        gp_t.data_ptr(), v.data_ptr(), W, Nb, B, n_cells, threads,
-        wbuf.data_ptr(), ev.data_ptr(), stream), "tile_sweep_rows")
-    if mode == "edot":
-        return ev
-    n_seg = bins.seg_start.numel() - 1
-    partial = torch.empty((max(n_seg, 1), 18), dtype=dtype, device=dev)
-    out = torch.empty((n_chunks, n_cells, 18), dtype=dtype, device=dev)
-    check(lib.tile_sweep_bins(
-        dt, pid, bins.order.data_ptr(), bins.seg_start.data_ptr(), n_seg,
-        jcam_t.data_ptr(), jx_t.data_ptr(), wbuf.data_ptr(), W, Nb,
-        partial.data_ptr(), stream), "tile_sweep_bins")
-    _reduce_bins(lib, dt, partial, bins, 18, 18, out, out, stream)
+    check(lib.tile_edot(dt, pid, int(local), cell_t.data_ptr(),
+                        jcam_t.data_ptr(), jx_t.data_ptr(), v.data_ptr(), W,
+                        Nb, B, n_cells, threads, ev.data_ptr(), stream),
+          "tile_edot")
+    return ev
+
+
+def _check_sorted(sorted_jcam, jcam_t, n_slots, name):
+    """The sorted jcam copy the rhs/matvec kernels read: (36, W*Nb), the
+    planes' storage dtype, on their device."""
+    if not isinstance(sorted_jcam, torch.Tensor):
+        raise ValueError(f"{name} on the card needs the bucket's sorted jcam "
+                         f"copy in rhs/matvec")
+    if (sorted_jcam.shape != (36, n_slots) or sorted_jcam.dtype != jcam_t.dtype
+            or sorted_jcam.device != jcam_t.device
+            or not sorted_jcam.is_contiguous()):
+        raise ValueError(f"sorted jcam {tuple(sorted_jcam.shape)} "
+                         f"{sorted_jcam.dtype} on {sorted_jcam.device} does "
+                         f"not fit (36, {n_slots}) {jcam_t.dtype} on "
+                         f"{jcam_t.device}")
+
+
+def _cuda_local_sweep(lib, check, dt, pid, mode, cell_t, jcam_t, jx_t, binv_t,
+                      gp_t, v, B, n_chunks, Vl, bins, sorted_jcam, counter,
+                      stream):
+    """tile_sweep_local in rhs/matvec: the row pass writes each slot's
+    jx . w at its sorted position, then one block per chunk sums the
+    chunk's bins from the chunk-sorted jcam copy into their final rows."""
+    W, Nb = cell_t.shape
+    dtype, dev = binv_t.dtype, binv_t.device
+    t2 = torch.empty((W * Nb, 2), dtype=dtype, device=dev)
+    out = torch.empty((n_chunks, Vl, 18), dtype=dtype, device=dev)
+    counter.launches += 1
+    check(lib.tile_lsweep(
+        dt, pid, _MODES[mode], cell_t.data_ptr(), jcam_t.data_ptr(),
+        jx_t.data_ptr(), binv_t.data_ptr(), gp_t.data_ptr(), v.data_ptr(),
+        bins.pos.data_ptr(), sorted_jcam.data_ptr(),
+        bins.seg_start.data_ptr(), bins.bin_seg.data_ptr(), W, Nb, B, Vl,
+        t2.data_ptr(), out.data_ptr(), stream), "tile_lsweep")
     return out
 
 
@@ -462,14 +588,6 @@ def _cuda_global_sweep(lib, check, dt, pid, mode, cell_t, jcam_t, jx_t,
     jcam copy coalesced."""
     W, Nb = cell_t.shape
     dtype, dev = binv_t.dtype, binv_t.device
-    if not isinstance(sorted_jcam, torch.Tensor):
-        raise ValueError("tile_sweep on the card needs the bucket's "
-                         "cell-sorted jcam (sort_jcam) in rhs/matvec")
-    if (sorted_jcam.shape != (36, W * Nb) or sorted_jcam.dtype != jcam_t.dtype
-            or sorted_jcam.device != dev or not sorted_jcam.is_contiguous()):
-        raise ValueError(f"sorted jcam {tuple(sorted_jcam.shape)} "
-                         f"{sorted_jcam.dtype} on {sorted_jcam.device} does "
-                         f"not fit (36, {W * Nb}) {jcam_t.dtype} on {dev}")
     n_seg = bins.seg_start.numel() - 1
     t2 = torch.empty((W * Nb, 2), dtype=dtype, device=dev)
     partial = torch.empty((max(n_seg, 1), 18), dtype=dtype, device=dev)
@@ -514,23 +632,25 @@ def tile_linearize_local(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables,
 
 
 def tile_sweep_local(cell_t, jcam_t, jx_t, binv_t, gp_t, v_locals,
-                     mode="matvec", block_n=256, bins=None):
+                     mode="matvec", block_n=256, bins=None, sorted_jcam=None):
     """Fused sweep over a locality-blocked bucket.
 
     ``cell_t`` carries LOCAL ids (W, Nb); ``v_locals`` the per-chunk local
     v tables (n_chunks, 18, V_local), i.e. ``v_cells[chunk_cells]``
     transposed. Modes: ``rhs`` = E^T B^-1 g_p, ``matvec`` = E^T B^-1 E v
-    (per-chunk local bins (n_chunks, V_local, 18), which the caller
-    scatters into the global (V, 18)), ``edot`` = E v as (Nb, 3) rows.
-    jcam/jx may be stored bf16; every sum is in binv's dtype. ``bins`` is
-    the bucket's :func:`slot_bins`, needed by the kernels in rhs/matvec."""
+    (per-chunk local bins (n_chunks, V_local, 18), which the caller sums
+    into the global (V, 18), :func:`sum_chunk_bins`), ``edot`` = E v as
+    (Nb, 3) rows. jcam/jx may be stored bf16; every sum is in binv's
+    dtype. ``bins`` is the bucket's :func:`slot_bins` and ``sorted_jcam``
+    its :func:`sort_jcam_planes` copy of ``jcam_t``, both read by the
+    kernels in rhs/matvec (the plain version ignores them)."""
     if not _dispatch(binv_t, "tile_sweep_local"):
         return tile_sweep_local_plain(cell_t, jcam_t, jx_t, binv_t, gp_t,
                                       v_locals, mode, block_n)
     n_chunks, _, Vl = v_locals.shape
     v = v_locals.to(binv_t.dtype).contiguous()
     return _cuda_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v, mode, block_n,
-                       True, n_chunks, Vl, bins, tile_sweep_local)
+                       True, n_chunks, Vl, bins, tile_sweep_local, sorted_jcam)
 
 
 def tile_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode="matvec",
@@ -552,10 +672,13 @@ def tile_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode="matvec",
 
 
 KERNEL_WRAPPERS = (tile_linearize_local, tile_sweep_local, tile_sweep)
-for _fn in KERNEL_WRAPPERS + (sort_jcam,):
+# the sweeps' helper kernels: the sorted jcam copies and the fixed-order sum
+# of a locality bucket's chunk bins
+HELPERS = (sort_jcam, sort_jcam_planes, sum_chunk_bins)
+for _fn in KERNEL_WRAPPERS + HELPERS:
     _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS + (sort_jcam,):
+    for fn in KERNEL_WRAPPERS + HELPERS:
         fn.launches = 0

@@ -39,9 +39,12 @@ from deeparc_tpu_torch.config import SolverOptions
 from deeparc_tpu_torch.kernels.tile import (
     MAX_KERNEL_WIDTH,
     MAX_LIN_WIDTH,
+    chunk_gather,
     pack_bucket_planes,
     slot_bins,
     sort_jcam,
+    sort_jcam_planes,
+    sum_chunk_bins,
     tile_linearize_local,
     tile_sweep,
     tile_sweep_local,
@@ -212,14 +215,16 @@ def bucket_with_local(bucket: TileBucket, rows_chunk: int,
 
 def with_bins(bucket: TileBucket, V: int) -> TileBucket:
     """The bucket with the slot bins its sweep kernel reduces through
-    (local ids when it has ``loc``, else global ids); () when it is wider
-    than the kernels take."""
+    (local ids when it has ``loc``, with the fixed-order map of its chunk
+    bins to the V global cells; else global ids); () when it is wider than
+    the kernels take."""
     W = bucket.cell.shape[1]
     if W > MAX_KERNEL_WIDTH:
         return bucket._replace(bins=())
     if bucket.loc:
         local, chunk_cells = bucket.loc
         bins = slot_bins(local.T, chunk_cells.shape[0], chunk_cells.shape[1])
+        bins = bins._replace(gather=chunk_gather(bins, chunk_cells, V))
     else:
         bins = slot_bins(bucket.cell.T, 1, V)
     return bucket._replace(bins=bins)
@@ -843,9 +848,13 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                         sweep_dtype, sweep_block_n: int):
     """Per-bucket sweep planes, once per step; returns (sweep, edot). A
     bucket of width <= MAX_KERNEL_WIDTH sweeps through ``tile_sweep_local``
-    (with ``loc``) or ``tile_sweep`` (without, which also reads the
-    bucket's cell-sorted jcam copy, :func:`kernels.tile.sort_jcam`); a
-    wider one through the torch sweeps."""
+    (with ``loc``, reading the chunk-sorted copy of its jcam planes,
+    :func:`kernels.tile.sort_jcam_planes`, and summing its chunk bins into
+    the cells with :func:`kernels.tile.sum_chunk_bins`) or ``tile_sweep``
+    (without, reading the bucket's cell-sorted jcam copy,
+    :func:`kernels.tile.sort_jcam`); a wider one through the torch
+    sweeps. The copies are built here, once per step, on the card (the
+    plain versions on the CPU do not read them)."""
     V = sys.hcc_cells.shape[0]
     dtype, dev = sys.g_p.dtype, sys.g_p.device
     planes = []
@@ -857,9 +866,10 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
         cc = b.loc[1].long() if b.loc else None
         if lin_planes[i] is not None:
             cell_t, jcam_t, jx_t = lin_planes[i][:3]
-            planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t, cc, None))
         elif W > MAX_KERNEL_WIDTH:
             planes.append(None)
+            offset += Nb
+            continue
         else:
             blk = sys.blocks[i]
             plane = b.loc[0] if b.loc else b.cell
@@ -867,9 +877,12 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                                                       plane)
             if sweep_dtype is not None:
                 jcam_t, jx_t = jcam_t.to(sweep_dtype), jx_t.to(sweep_dtype)
-            srt = (sort_jcam(blk.j_cam, b.bins, jcam_t.dtype)
-                   if cc is None and b.bins else None)
-            planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t, cc, srt))
+        srt = None
+        if b.bins and jcam_t.is_cuda:
+            srt = (sort_jcam_planes(jcam_t, b.bins, cc.shape[0])
+                   if cc is not None else
+                   sort_jcam(sys.blocks[i].j_cam, b.bins, jcam_t.dtype))
+        planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t, cc, srt))
         offset += Nb
     zeros_v = torch.zeros((V, 18), dtype=dtype, device=dev)
 
@@ -904,8 +917,9 @@ def _make_kernel_sweeps(tiles: TileIndex, sys: TileSystem, binv, lin_planes,
                     part = tile_sweep_local(
                         cell_t, jcam_t, jx_t, binv_t, gp_t,
                         local_v(None if rhs_mode else v_cells, cc),
-                        mode=mode, block_n=sweep_block_n, bins=bins)
-                    out.index_add_(0, cc.reshape(-1), part.reshape(-1, 18))
+                        mode=mode, block_n=sweep_block_n, bins=bins,
+                        sorted_jcam=srt)
+                    out += sum_chunk_bins(part, cc, V, bins)
                 else:
                     out += tile_sweep(
                         cell_t, jcam_t, jx_t, binv_t, gp_t,

@@ -132,6 +132,34 @@ def test_linearize_banded_plain_matches_pallas(banded, loss, scale,
         close(g_, w_, rtol, atol)
 
 
+@pytest.mark.parametrize("tp", [32, 16])
+def test_band_subtiles_pin_starts_and_groups(banded, tp):
+    """linearize_band's tiles of tp points: each width group of block_np
+    tiles splits into (hi - lo) * block_np / tp of them, and sub-tile s,
+    taking the band of block tile lo + s * tp // block_np, sees exactly the
+    group's gathered plane columns [s * tp, (s + 1) * tp)."""
+    scene, prep, tg = banded
+    starts, pxms = tg.band[0], tg.band[2]
+    block_np = 64
+    subs = tk.band_subtiles(prep.lin_groups, block_np, tp)
+    assert [(w, lo) for w, lo, _ in subs] == [
+        (w, lo) for w, lo, _ in prep.lin_groups]
+    n_pad = prep.lin_groups[-1][2] * block_np
+    assert sum(n for _, _, n in subs) * tp == n_pad
+    w_max = max(w for w, _, _ in prep.lin_groups)
+    pxm_ext = tk.banded_planes(tg, n_pad, w_max)
+    for (w, lo, n_sub), pxm in zip(subs, pxms):
+        sub_starts = starts[lo + torch.arange(n_sub) * tp // block_np]
+        seen = tk.gather_banded_planes(
+            pxm_ext, torch.cat([torch.zeros(lo * block_np // tp,
+                                            dtype=sub_starts.dtype),
+                                sub_starts]), w, tp, lo * block_np // tp,
+            lo * block_np // tp + n_sub)
+        assert torch.equal(seen, pxm)
+    with pytest.raises(ValueError):
+        tk.band_subtiles(prep.lin_groups, 48, 32)
+
+
 def test_cost_banded_plain_matches_pallas(banded):
     scene, prep, tg = banded
     g = prep.grid

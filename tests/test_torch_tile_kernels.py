@@ -245,6 +245,133 @@ def test_tile_sweep_local_plain_matches_jax(fused_problem, mode):
     close(got, want, rtol=1e-10, atol=1e-12)
 
 
+def _local_problem(fused_problem, mode):
+    """tile_sweep_local's JAX inputs and (W, Nb) local plane of the fused
+    problem's bucket (2 chunks, V_local 8), as in the test above."""
+    params, tiles, packed, cam_free, *_ = fused_problem
+    C = camera_dim(params)
+    sys = jt.linearize_tiles(params.points, packed, tiles,
+                             jnp.ones_like(params.points), C)
+    binv = jinv3x3(sys.hpp + 0.1 * jnp.eye(3, dtype=jnp.float64))
+    v_cells = jt.flat_to_cells(
+        jnp.asarray(np.random.default_rng(1).normal(size=(C,))),
+        tiles.cells.cols)
+    b, blk = tiles.buckets[0], sys.blocks[0]
+    cc = b.loc[1]
+    v_loc = (jnp.zeros((cc.shape[0], 18, cc.shape[1])) if mode == "rhs"
+             else jnp.swapaxes(v_cells[cc], 1, 2))
+    return _bucket_args(b, blk, binv, sys, 0, b.loc[0]), v_loc
+
+
+def _local_sorted_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_loc, mode,
+                        bins, n_chunks):
+    """The data flow of tile_sweep_local's kernels in rhs/matvec, in torch:
+    the chunk-sorted copy of the jcam planes (``sort_jcam_planes``), each
+    slot's t2 = jx . w at its sorted position (``SlotBins.pos``), and each
+    chunk's bins summed over their runs of sorted positions in order."""
+    W, Nb = cell_t.shape
+    Vl = v_loc.shape[2]
+    srt = tk.sort_jcam_planes(jcam_t, bins, n_chunks)
+    jx = jx_t.reshape(W, 2, 3, Nb)
+    if mode == "rhs":
+        rhs = gp_t
+    else:
+        chunk = torch.arange(Nb) // (Nb // n_chunks)
+        vv = v_loc[chunk[None, :], :, cell_t.long()]             # W, Nb, 18
+        t = torch.einsum("wkjn,wnj->wkn", jcam_t.reshape(W, 2, 18, Nb), vv)
+        rhs = torch.einsum("wkin,wkn->in", jx, t)
+    wv = torch.einsum("ijn,jn->in", binv_t.reshape(3, 3, Nb), rhs)
+    t2 = torch.einsum("wkin,in->wnk", jx, wv).reshape(W * Nb, 2)
+    t2_sorted = torch.empty_like(t2)
+    t2_sorted[bins.pos.long()] = t2
+    u = (srt.reshape(2, 18, -1) * t2_sorted.T[:, None, :]).sum(0)  # 18, S
+    bstart = bins.seg_start.long()[bins.bin_seg.long()]
+    out = torch.stack([u[:, s0:s1].sum(1)
+                       for s0, s1 in zip(bstart[:-1], bstart[1:])])
+    return out.reshape(n_chunks, Vl, 18)
+
+
+@pytest.mark.parametrize("mode", ["rhs", "matvec"])
+def test_local_sweep_data_flow_matches_plain_and_jax(fused_problem, mode):
+    """tile_sweep_local's kernel data flow (chunk-sorted plane copy, t2 at
+    the sorted positions, per-chunk bins in position order) against
+    tile_sweep_local_plain and JAX tile_sweep_local (interpret), and its
+    fixed-order sum into the global cells (the bins' ``gather`` map)
+    against index_add_ of JAX's bins, f64."""
+    args, v_loc = _local_problem(fused_problem, mode)
+    tiles_p = fused_problem[5]
+    b = tiles_p.buckets[0]
+    n_chunks, Vl = b.loc[1].shape
+    V = tiles_p.cells.cols.shape[0]
+    targs = tuple(T(a) for a in args)
+    bins = tk.slot_bins(targs[0].contiguous(), n_chunks, Vl)
+    bins = bins._replace(gather=tk.chunk_gather(bins, b.loc[1], V))
+    got = _local_sorted_sweep(*targs, T(v_loc), mode, bins, n_chunks)
+    want = jk.tile_sweep_local(*args, v_loc, mode=mode, block_n=128,
+                               interpret=True)
+    close(got, want, rtol=1e-12, atol=1e-12)
+    close(got, as_np(tk.tile_sweep_local_plain(*targs, T(v_loc), mode=mode)),
+          rtol=1e-12, atol=1e-12)
+    cstart, src = (t.long() for t in bins.gather)
+    flat = got.reshape(-1, 18)
+    cells = torch.stack([flat[src[c0:c1]].sum(0) if c1 > c0 else
+                         torch.zeros(18, dtype=flat.dtype)
+                         for c0, c1 in zip(cstart[:-1], cstart[1:])])
+    want_cells = np.zeros((V, 18))
+    np.add.at(want_cells, np.asarray(b.loc[1]).reshape(-1),
+              np.asarray(want).reshape(-1, 18))
+    close(cells, want_cells, rtol=1e-12, atol=1e-12)
+    close(tk.sum_chunk_bins(got, b.loc[1], V, bins), want_cells, rtol=1e-12,
+          atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_sort_jcam_planes_gathers_the_sweep_planes(fused_problem, dtype):
+    """Column i of the chunk-sorted copy is slot order[i]'s column of the
+    transposed jcam planes the row pass reads, bit for bit, also when they
+    are stored in bf16; a chunk's sorted positions read only its rows."""
+    args, _ = _local_problem(fused_problem, "matvec")
+    cell_t, jcam_t = T(args[0]).contiguous(), T(args[1])
+    if dtype is not None:
+        jcam_t = jcam_t.to(dtype)
+    n_chunks, Vl = fused_problem[5].buckets[0].loc[1].shape
+    W, Nb = cell_t.shape
+    bins = tk.slot_bins(cell_t, n_chunks, Vl)
+    srt = tk.sort_jcam_planes(jcam_t, bins, n_chunks)
+    assert srt.dtype == jcam_t.dtype and srt.shape == (36, W * Nb)
+    for i, f in enumerate(bins.order.tolist()):
+        w, p = divmod(f, Nb)
+        assert torch.equal(srt[:, i], jcam_t[36 * w:36 * w + 36, p])
+        assert p // (Nb // n_chunks) == i // (W * Nb // n_chunks)
+
+
+def test_chunk_gather_sums_like_index_add(fused_problem):
+    """The layout's chunk -> cell map lists each cell's non-empty bins in
+    increasing bin order, and summing through it equals index_add_ over
+    chunk_cells (sum_chunk_bins's plain version)."""
+    tiles_p = fused_problem[5]
+    b = tiles_p.buckets[0]
+    V = tiles_p.cells.cols.shape[0]
+    chunk_cells = b.loc[1]
+    cstart, src = (t.long() for t in b.bins.gather)
+    assert b.bins.gather[0].dtype == torch.int32 and cstart[-1] == src.numel()
+    nonempty = b.bins.bin_seg[1:] > b.bins.bin_seg[:-1]
+    assert torch.equal(torch.sort(src).values, nonempty.nonzero()[:, 0])
+    flat_cells = chunk_cells.reshape(-1).long()
+    for v, (c0, c1) in enumerate(zip(cstart[:-1], cstart[1:])):
+        assert bool((flat_cells[src[c0:c1]] == v).all())
+        assert bool((src[c0 + 1:c1] > src[c0:c1 - 1]).all())
+    part = torch.randn(chunk_cells.shape + (18,), dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(2))
+    part.reshape(-1, 18)[~nonempty] = 0.0
+    want = tk.sum_chunk_bins(part, chunk_cells, V, b.bins)
+    flat = part.reshape(-1, 18)
+    got = torch.stack([flat[src[c0:c1]].sum(0) if c1 > c0 else
+                       torch.zeros(18, dtype=flat.dtype)
+                       for c0, c1 in zip(cstart[:-1], cstart[1:])])
+    close(got, as_np(want), rtol=1e-14, atol=1e-14)
+
+
 @pytest.mark.parametrize("local", [True, False])
 def test_slot_bins_reduce_like_index_add(fused_problem, local):
     """The kernels' bin structure, emulated with torch: every slot in
