@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch + CUDA port (``deeparc_tpu_torch``) on one card.
 
     python3 chip_smoke.py                    # the full run, one card
-    python3 chip_smoke.py --n-points 20000 --tile-points 100000   # smaller
+    python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
+        --dense-points 20000                 # smaller
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -35,11 +36,17 @@ Phases (any failure raises and exits non-zero):
      from unrounded working-dtype rows; ``tile_sweep_local``: from the
      stored planes), held bit for bit against its plain version, with its
      build time; float64, float32 and bf16 planes; each kernel run twice
-     must give the same bits; 6b splits one tile LM step on the locality
+     must give the same bits; the step's fixed-order row sums
+     (``sum_rows``: the chunk bins, F = 18 and 171; the cells into the
+     camera vector, F = 1; the block-Jacobi blocks, F = 36; a row piece of
+     the torch chunk path, F = 18 and 171) against ``index_add_`` through
+     the layouts' own maps, each run twice giving the same bits;
+     6b splits one tile LM step on the locality
      layout by kernel pass and checks that two set-ups of its sweeps give
      the same bits, 6c one on the ``locality=False`` layout into linearize
      / sweep set-up / sweeps / the rest, each with the device's idle
-     share;
+     share; in both, the whole step run twice must give the same bits
+     (every sum of the step is in a fixed order);
   7. the tile main path: ``run_pipeline`` on that scene, float64,
      ITERATIVE_SCHUR with 30 PCG iterations; the tile kernels must launch
      and the final RMSE must sit under twice the pixel noise;
@@ -47,10 +54,20 @@ Phases (any failure raises and exits non-zero):
      generator: ``tile_sweep`` must launch and the cost must go down; then
      a small scene with several bucket widths (every routing of the step)
      solved on the card and on the CPU must end at the same cost;
-then one JSON line with every kernel's record (errors, milliseconds, the
-bound, launches on the main paths and per LM step at the kernel's timing
-scene), the nvidia-smi line, and the result line
-``{"ok": true, "device": {...}}``.
+  9. the measurement probes (``kernels/probes.py``) against their plain
+     versions at the scripts' full shapes: ``fma_pass`` over a (256,
+     262144) plane in float32 and float64, ``sweep_payload`` over 977
+     tiles in float32 in both modes, with one batched ``torch.matmul`` as
+     its library time; then their entry points as a user runs them
+     (``deeparc_tpu_torch.scripts.vpu_roofline``, which places
+     ``linearize_grid`` on the dense 400k-point rig, and
+     ``...microbench_sweep_payload``): the FMA ceiling may not pass 1.05 of
+     the published peak, the linearize's share of it not 1.0;
+then one JSON line with the probes' entry points' results, one with the
+nine kernels' records (errors, milliseconds, the bound, launches on the
+main paths and per LM step at the kernel's timing scene; the probes'
+launches are their entry points'), the nvidia-smi line, and the result
+line ``{"ok": true, "device": {...}}``.
 
 Times are medians of CUDA-event timings. A kernel's bound is the larger of
 its bytes (each input read once, each output written once) over 3.35 TB/s
@@ -63,9 +80,15 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
+
+from deeparc_tpu_torch.scripts import (
+    OPS_PER_SLOT,
+    bound,
+    nvidia_smi,
+    time_ms,
+)
 
 # max relative error (max |kernel - plain| / max |plain|, per output) that a
 # kernel may show against its plain version: float64 sums in another order
@@ -74,22 +97,12 @@ import time
 # straddle a bf16 rounding boundary, and the sweeps sum such planes
 TOLERANCE = {"float64": 1e-9, "float32": 2e-3, "bf16": 1e-2}
 PIXEL_NOISE = 1.0
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
-# operations per (point, cell) slot, counted from the arithmetic of
-# csrc/rig_slot.cuh and the kernels: the slot chain ~60, its Jacobian ~240,
-# the point sums ~36; the grid linearize adds ~144 for the E row and ~270
-# for the slot Gram, the tile linearize ~570 for the 189 bin values; a
-# matvec sweep ~170 (E v, B^-1, E^T w), rhs ~90, edot ~84
-OPS_PER_SLOT = {"linearize_grid_banded": 750, "linearize_grid": 750,
-                "cost_grid_banded": 60, "cost_grid": 60,
-                "tile_linearize_local": 906, "rhs": 90, "matvec": 170,
-                "edot": 84}
 GRID_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_grid.cu"
 TILE_SOURCE = "deeparc_tpu_torch/kernels/csrc/tile.cu"
 # the main path's route of linearize_grid_banded (rigs whose E tile does not
 # fit take linearize_kernel in GRID_SOURCE)
 BAND_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_band.cu"
+PROBES_SOURCE = "deeparc_tpu_torch/kernels/csrc/probes.cu"
 REPLACES = {
     "linearize_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:615",
     "cost_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:777",
@@ -98,20 +111,11 @@ REPLACES = {
     "tile_linearize_local": "deeparc_tpu/kernels/tile_pallas.py:573",
     "tile_sweep_local": "deeparc_tpu/kernels/tile_pallas.py:207",
     "tile_sweep": "deeparc_tpu/kernels/tile_pallas.py:282",
+    "fma_pass": "scripts/vpu_roofline.py:46",
+    "sweep_payload": "scripts/microbench_sweep_payload.py:47",
 }
 TILE_SCENE = dict(n_cameras=2000, track_length=8, window=128, n_hubs=8,
                   hub_frac=0.15, pixel_noise=PIXEL_NOISE, point_noise=0.02)
-
-
-def nvidia_smi() -> str:
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-        return out.stdout.strip().splitlines()[0] if out.stdout else "n/a"
-    except (OSError, subprocess.SubprocessError):
-        return "nvidia-smi: not available"
 
 
 def flagship_rig(n_points, occlusion_rings, seed):
@@ -123,32 +127,8 @@ def flagship_rig(n_points, occlusion_rings, seed):
         point_noise=0.02, seed=seed).data
 
 
-def time_ms(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(nbytes_moved, ops, dtype_name):
-    """(bound_ms, bound_by) of work moving these bytes and doing these ops."""
-    t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(name, dtype_name, kernel_out, plain_out, labels, tol_name=None):
@@ -545,11 +525,13 @@ def tile_step_breakdown(layout):
     device time of each kernel under torch.profiler, split into the
     linearize's row and bin passes and its bins' second pass, the PCG
     sweeps' row passes (rhs / matvec; edot) and bin passes (one block per
-    chunk), their chunk-sorted plane copy and their fixed-order sum into
-    the cells, and
-    everything else (torch ops). Then two set-ups of the step's sweeps
-    (each with its own sorted copy) must give the same bits in rhs, matvec
-    and edot. Returns the launches in one step."""
+    chunk), their chunk-sorted plane copy, the fixed-order sums
+    (``gather_cells``: the chunk bins of the sweeps and of the linearize
+    into the cells, the cells into the camera vector and the block-Jacobi
+    blocks), and everything else (torch ops). Then two set-ups of the
+    step's sweeps (each with its own sorted copy) must give the same bits
+    in rhs, matvec and edot, and the whole step run twice the same bits.
+    Returns the launches in one step."""
     import torch
 
     from deeparc_tpu_torch.config import SolverOptions
@@ -573,7 +555,7 @@ def tile_step_breakdown(layout):
     torch.cuda.synchronize()
     per_step = {fn.__name__: fn.launches
                 for fn in (k.tile_linearize_local, k.tile_sweep_local,
-                           kt.sort_jcam_planes, kt.sum_chunk_bins)}
+                           kt.sort_jcam_planes, kt.sum_rows)}
     run = lambda: step(state, tiles, cam_free, free_t)
     _, info = run()
     wall = wall_ms(run, 3)
@@ -606,14 +588,22 @@ def tile_step_breakdown(layout):
     if not all(torch.equal(x, y) for x, y in zip(*outs)):
         raise AssertionError("two set-ups of one tile LM step's sweeps gave "
                              "different bits")
-    a, b = run()[0], run()[0]
-    same = torch.equal(a.points, b.points) and torch.equal(a.cam_vec, b.cam_vec)
+    check_step_repeats(run, "locality layout")
     print("  the step's sweeps (rhs, matvec, edot), set up twice: the same "
-          "bits; the whole step run twice: "
-          + ("the same bits" if same else "different bits (the linearize's "
-             "index_add_ of the chunk bins into the cells is a float-atomic "
-             "scatter)"))
+          "bits; the whole step run twice: the same bits")
     return per_step
+
+
+def check_step_repeats(run, label):
+    """One tile LM step run twice from one state gives the same bits: every
+    sum of the step on the card is in a fixed order."""
+    import torch
+
+    a, b = run()[0], run()[0]
+    for field in ("points", "cam_vec", "cost"):
+        if not torch.equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"one tile LM step on the {label}, run "
+                                 f"twice: different bits in {field}")
 
 
 def tile_global_step_split(layout):
@@ -624,7 +614,9 @@ def tile_global_step_split(layout):
     the transposed planes and each bucket's cell-sorted jcam copy) and the
     step's sweeps (rhs, one matvec per PCG iteration, edot) timed alone
     with CUDA events; the idle share from the profiler's device time over
-    one step. Returns tile_sweep's launches in one step."""
+    one step; the whole step run twice must give the same bits (its
+    linearize is the torch chunk path, summing each row piece into the
+    cells in fixed order). Returns tile_sweep's launches in one step."""
     import torch
 
     from deeparc_tpu_torch import kernels as k
@@ -669,6 +661,8 @@ def tile_global_step_split(layout):
              f"sweeps (2 + {info.cg_iters})": time_ms(sweeps, 3)}
     print_split(f"one LM step (f64, {info.cg_iters} PCG iterations, peak "
                 f"{peak:.3f} GiB)", wall, parts, sum(device_ms(run).values()))
+    check_step_repeats(run, "locality=False layout")
+    print("  the whole step run twice: the same bits")
     return per_step
 
 
@@ -690,6 +684,81 @@ def lin_args(b, points, free, packed, dtype, local):
             c(tables))
 
 
+def check_sum(sums, label, dname, tol_name, kern, part, dst, n_out, reps):
+    """A fixed-order row sum (``sum_rows``) against its plain version,
+    ``index_add_`` over ``dst``: within tolerance, bitwise repeatable, and
+    both timed; the record goes under ``sums[label]``."""
+    import torch
+
+    from deeparc_tpu_torch.kernels import tile as k
+
+    plain = lambda: k.sum_rows_plain(part, dst, n_out)
+    got = kern()
+    rel, ab = compare("sum_rows", dname, got, plain(), (label.split(":")[1],),
+                      tol_name)
+    check_repeatable(f"sum_rows {label}", kern)
+    ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
+    F = part[0].numel()
+    sums[label] = dict(rows=n_out, F=F, sources=part.shape[0], ms=ms,
+                       index_add_ms=plain_ms, max_rel_err=rel,
+                       max_abs_err=ab)
+    print(f"  sum_rows {label:34s} {part.shape[0]} rows of {F} into "
+          f"{n_out}: {ms:.3f} ms (index_add_ {plain_ms:.3f} ms), bitwise "
+          f"repeatable")
+    del got
+    torch.cuda.synchronize()
+
+
+def step_sums(layouts, key, dtype, sums, reps):
+    """The tile step's other fixed-order sums against ``index_add_`` on the
+    card, through the layouts' own maps, on values made from a seed: the
+    cells into the camera vector (``cells_to_flat``, F = 1) and the
+    block-Jacobi blocks (F = 36) on the locality layout, and the first row
+    piece of the torch chunk path (F = 18, 171) of the locality=False
+    layout's widest bucket, its masked slots zero as the step's are (its
+    map cuts a hub cell's slots into segments: two passes)."""
+    import torch
+
+    from deeparc_tpu_torch.kernels import tile as k
+    from deeparc_tpu_torch.solver.tiles import (
+        _PIECE_SEGMENT,
+        _block_rows,
+        _row_pieces,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rand = lambda *shape: torch.randn(shape, dtype=dtype, device="cuda",
+                                      generator=gen)
+    tiles, cam_free = layouts[True][0], layouts[True][4]
+    cells, C = tiles.cells, cam_free.numel()
+    V = cells.cols.shape[0]
+    dst = cells.cols.reshape(-1)
+    part = rand(V * 18)
+    check_sum(sums, f"{key}:cells -> camera vector", key, None,
+              lambda: k.sum_rows(part, dst, C, cells.maps[0]), part, dst, C,
+              reps)
+    dst = _block_rows(cells.cols)
+    part = rand(3 * V, 6, 6)
+    check_sum(sums, f"{key}:block-Jacobi blocks", key, None,
+              lambda: k.sum_rows(part, dst, C // 6, cells.maps[1]), part,
+              dst, C // 6, reps)
+    tiles = layouts[False][0]
+    b = max(tiles.buckets, key=lambda bb: bb.cell.numel())
+    V = tiles.cells.cols.shape[0]
+    r0, r1 = next(_row_pieces(*b.cell.shape))
+    dst = b.cell[r0:r1].reshape(-1)
+    live = (b.mask[r0:r1].reshape(-1, 1) > 0.5).to(dtype)
+    pmap = b.pieces[0]
+    print(f"  the piece's map: {pmap[1].numel()} live slots, "
+          + (f"{pmap[3].numel()} segments of at most {_PIECE_SEGMENT}"
+             if len(pmap) == 4 else "one pass"))
+    for F in (18, 171):
+        part = rand(dst.numel(), F) * live
+        check_sum(sums, f"{key}:chunk path piece F={F}", key, None,
+                  lambda: k.sum_rows(part, dst, V, pmap), part, dst, V, reps)
+    del part
+
+
 def phase_tile_kernels(args, records):
     """Phase 6; returns the scene for the main path."""
     import torch
@@ -706,6 +775,7 @@ def phase_tile_kernels(args, records):
           f"observations, {data.n_extrinsics} cameras "
           f"({time.time() - t0:.1f} s)")
     layouts = {True: tile_layout(data, True), False: tile_layout(data, False)}
+    sums: dict = {}
     lin_labels = ("cost", "pout", "r_t", "jx_t", "jcam_t", "gc", "hc")
     rng = torch.Generator(device="cuda").manual_seed(0)
     cases = (("float64", torch.float64, None),
@@ -767,23 +837,18 @@ def phase_tile_kernels(args, records):
                 print(f"  {name:22s} {key:15s} chunk-sorted copy of the "
                       f"{jcam_t.dtype} planes, {gbytes:.3f} GB, equal to the "
                       f"plain version's bits, built in {sort_ms:.3f} ms")
-                # the fixed-order sum of the chunk bins into the V cells
+                # the fixed-order sums of the chunk bins into the V cells:
+                # the sweep's (F = 18) and the linearize's (gc, F = 18; hc,
+                # F = 171)
                 part = kern(cell_t, jcam_t, jx_t, binv_t, gp_t, v_arg, **kw)
-                cells = lambda: k.sum_chunk_bins(part, cc, V, bins)
-                rel, _ = compare("sum_chunk_bins", dname, cells(),
-                                 k.sum_chunk_bins_plain(part, cc, V),
-                                 ("cells",), tol_name=key)
-                check_repeatable("sum_chunk_bins", cells)
-                cells_ms = time_ms(cells, args.reps)
-                records[name][f"{key}:cell_sum"] = dict(
-                    ms=cells_ms, max_rel_err=rel,
-                    index_add_ms=time_ms(lambda: k.sum_chunk_bins_plain(
-                        part, cc, V), args.reps))
-                print(f"  {name:22s} {key:15s} chunk bins into the cells in "
-                      f"{cells_ms:.3f} ms (index_add_ "
-                      f"{records[name][f'{key}:cell_sum']['index_add_ms']:.3f}"
-                      f" ms), bitwise repeatable")
-                del part
+                for label, bins_out in (("sweep bins", part),
+                                        ("linearize gc", gc),
+                                        ("linearize hc", hc)):
+                    check_sum(sums, f"{key}:{label}", dname, key,
+                              lambda: k.sum_chunk_bins(bins_out, cc, V, bins),
+                              bins_out.reshape(-1, bins_out.shape[-1]), cc,
+                              V, args.reps)
+                del part, bins_out
             else:
                 v_arg, cell_t, name = v_cells, b.cell.T.contiguous(), \
                     "tile_sweep"
@@ -830,6 +895,9 @@ def phase_tile_kernels(args, records):
                         mode=mode)
             del la, cost, pout, r_t, jx_t, jcam_t, gc, hc, sw, kw
             torch.cuda.empty_cache()
+    for key, dtype in (("float64", torch.float64),
+                       ("float32", torch.float32)):
+        step_sums(layouts, key, dtype, sums, args.reps)
     print("[phase 6b] where one tile LM step's time goes")
     per_step = tile_step_breakdown(layouts[True])
     print("[phase 6c] one tile LM step on the locality=False layout "
@@ -837,7 +905,7 @@ def phase_tile_kernels(args, records):
     per_step.update(tile_global_step_split(layouts[False]))
     del layouts
     torch.cuda.empty_cache()
-    return data, per_step
+    return data, per_step, sums
 
 
 def phase_tile_global(args):
@@ -903,20 +971,101 @@ def phase_tile_global(args):
     return launches
 
 
+def phase_probes(args, records):
+    """Phase 9: the two measurement probes at the scripts' full shapes,
+    each against its plain version (``fma_pass`` in float32 and float64,
+    ``sweep_payload`` in float32 in both modes, with one batched
+    ``torch.matmul`` as its library time), then their entry points'
+    measurements with the counts set to 0 just before. Returns the probes'
+    launches in the entry points' run."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.kernels import probes as kp
+    from deeparc_tpu_torch.scripts import microbench_sweep_payload as msp
+    from deeparc_tpu_torch.scripts import vpu_roofline as vr
+
+    print("[phase 9] the measurement probes vs plain versions on the card")
+    t0 = time.time()
+    dev = torch.device("cuda")
+    for dname, dtype in vr.DTYPES.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.rand((kp.FMA_ROWS, kp.FMA_COLS * kp.FMA_TILES), dtype=dtype,
+                       device=dev, generator=gen) * 2 - 1
+        measure(records, "fma_pass", dname, lambda: kp.fma_pass(x),
+                lambda: kp.fma_pass_plain(x), ("out",), args.reps,
+                2 * nbytes(x), kp.fma_ops(x.numel()))
+        del x
+    # the library call: one batched product of the tile views in full
+    # float32 (no TF32, which keeps about three decimal digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T = kp.PAYLOAD_TILES
+    a, b = msp.payload_inputs(T, dev)
+    at = a.view(kp.VL, T, kp.DEPTH).permute(1, 0, 2)
+    bt = b.view(kp.P, T, kp.DEPTH).permute(1, 2, 0)
+    library_ms = time_ms(lambda: torch.matmul(at, bt), args.reps)
+    for mode in ("many", "one"):
+        moved = nbytes(a, b) + 4 * T * kp.VL * kp.P
+        measure(records, "sweep_payload", "float32",
+                lambda: kp.sweep_payload(a, b, mode),
+                lambda: kp.sweep_payload_plain(a, b, mode), (mode,),
+                args.reps, moved, kp.payload_ops(T), mode=mode)
+        records["sweep_payload"][f"float32:{mode}"]["library_ms"] = library_ms
+    last = kp.sweep_payload(a, b, "many")[-1]
+    want = a[:, -kp.DEPTH:] @ b[:, -kp.DEPTH:].T
+    rel = float((last - want).abs().max() / want.abs().max())
+    print(f"  sweep_payload: batched torch.matmul (TF32 off) {library_ms:.3f} "
+          f"ms; the last tile, the Pallas probe's whole output, within "
+          f"{rel:.3e} of a @ b.T")
+    if not rel < TOLERANCE["float32"]:
+        raise AssertionError("sweep_payload's last tile disagrees")
+    del a, b, at, bt, last, want
+    torch.cuda.empty_cache()
+
+    # the entry points, as a user runs them
+    cut = "" if args.dense_points == vr.DENSE_POINTS else (
+        f" (n_points cut from {vr.DENSE_POINTS} to {args.dense_points})")
+    k.reset_launch_counts()
+    roof = vr.run("cuda", args.dense_points)
+    payload = msp.run("cuda")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in k.PROBE_WRAPPERS}
+    print(f"  vpu_roofline{cut}: {json.dumps(roof)}")
+    print(f"  microbench_sweep_payload: {json.dumps(payload)}")
+    for sfx in ("f32", "f64"):
+        print(f"  FMA ceiling {sfx}: {roof['fma_peak_tflops_' + sfx]:.3f} "
+              f"TFLOP/s, {roof['fma_vs_published_peak_' + sfx]:.3f} of the "
+              f"published peak; dense linearize_grid "
+              f"{roof['dense_lin_ms_' + sfx]:.3f} ms, "
+              f"{roof['dense_lin_tflops_' + sfx]:.3f} TFLOP/s over "
+              f"{roof['dense_live_slots']} live slots, "
+              f"{roof['dense_lin_vs_fma_peak_' + sfx]:.4f} of the ceiling, "
+              f"{roof['dense_lin_vs_published_peak_' + sfx]:.4f} of the "
+              f"published peak")
+    print(f"  launches of the probes in their entry points: {launches}; "
+          f"phase 9 took {time.time() - t0:.1f} s")
+    return launches, {"vpu_roofline": roof, "microbench_sweep_payload": payload}
+
+
 def kernel_record(name, rec, launches, per_step):
     """The JSON record of one kernel: the float64 numbers (a sweep's matvec
-    mode, the one PCG repeats), every other measurement nested;
-    ``launches_per_step`` is at the scene the kernel is timed on."""
-    r64 = rec["float64:matvec" if "float64:matvec" in rec else "float64"]
+    mode, the one PCG repeats; ``sweep_payload``'s float32 many mode),
+    every other measurement nested; ``launches_per_step`` is at the scene
+    the kernel is timed on (0 for the probes, on no LM step)."""
+    main = next(key for key in ("float64:matvec", "float64", "float32:many")
+                if key in rec)
+    r = rec[main]
+    probe = name in ("fma_pass", "sweep_payload")
     return dict(
         name=name, route="cuda",
-        source=(TILE_SOURCE if name.startswith("tile") else BAND_SOURCE
+        source=(PROBES_SOURCE if probe else TILE_SOURCE
+                if name.startswith("tile") else BAND_SOURCE
                 if name == "linearize_grid_banded" else GRID_SOURCE),
         replaces=REPLACES[name], launches=launches[name],
-        max_abs_err=r64["max_abs_err"], max_rel_err=r64["max_rel_err"],
-        ms=r64["ms"], plain_ms=r64["plain_ms"], bound_ms=r64["bound_ms"],
-        bound_by=r64["bound_by"], library_ms=None,
-        launches_per_step=per_step.get(name), measured=rec)
+        max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+        launches_per_step=0 if probe else per_step.get(name), measured=rec)
 
 
 def main(argv=None) -> int:
@@ -927,6 +1076,8 @@ def main(argv=None) -> int:
                     help="points of the windowed BAL scene (cut only this)")
     ap.add_argument("--global-points", type=int, default=100_000,
                     help="points of phase 8's scene")
+    ap.add_argument("--dense-points", type=int, default=400_000,
+                    help="points of phase 9's dense rig (cut only this)")
     ap.add_argument("--max-iterations", type=int, default=100,
                     help="LM iterations per solve")
     ap.add_argument("--reps", type=int, default=5,
@@ -997,7 +1148,7 @@ def main(argv=None) -> int:
                      for fn in (k.linearize_grid, k.cost_grid)})
     print(f"  launches on the grid paths: {launches}")
 
-    tile_data, tile_per_step = phase_tile_kernels(args, records)
+    tile_data, tile_per_step, sums = phase_tile_kernels(args, records)
     per_step.update(tile_per_step)
     print("  launches per LM step at each kernel's timing scene: "
           + ", ".join(f"{kname} {n:.2f}" for kname, n in per_step.items()))
@@ -1014,17 +1165,21 @@ def main(argv=None) -> int:
         max_iterations=args.max_iterations))
     launches.update({fn.__name__: fn.launches
                      for fn in (k.tile_linearize_local, k.tile_sweep_local)})
-    # tile_sweep_local's helpers: its chunk-sorted plane copy and the sum of
-    # its chunk bins into the cells
+    # the tile path's helpers: tile_sweep_local's chunk-sorted plane copy,
+    # and the fixed-order row sums (the chunk bins of the sweeps and the
+    # linearize into the cells, and the step's other sums)
     helpers = {fn.__name__: fn.launches
-               for fn in (k.sort_jcam_planes, k.sum_chunk_bins)}
-    print(f"  launches of tile_sweep_local's helpers: {helpers}")
+               for fn in (k.sort_jcam_planes, k.sum_rows)}
+    print(f"  launches of the tile path's helpers: {helpers}")
     del tile_data
     torch.cuda.empty_cache()
 
     print("[phase 8] solve_ba_tiles(locality=False): the tile_sweep path")
     launches["tile_sweep"] = phase_tile_global(args)
     print(f"  launches on the main paths: {launches}")
+
+    probe_launches, probe_results = phase_probes(args, records)
+    launches.update(probe_launches)
     for kname, n in {**launches, **helpers}.items():
         if n <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
@@ -1036,11 +1191,13 @@ def main(argv=None) -> int:
             rec["helpers"] = {h: dict(launches=n,
                                       launches_per_step=per_step.get(h))
                               for h, n in helpers.items()}
+            rec["helpers"]["sum_rows"]["measured"] = sums
     for mod in list(sys.modules):
-        if mod == "jax" or mod.startswith(("jax.", "deeparc_tpu.")) \
-                or mod == "deeparc_tpu":
+        if mod in ("jax", "deeparc_tpu", "scripts") \
+                or mod.startswith(("jax.", "deeparc_tpu.", "scripts.")):
             raise AssertionError(f"the port imported {mod}")
     print(f"  script {time.time() - t_start:.1f} s after the card check")
+    print(json.dumps({"probes": probe_results}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,9 @@ def _bind(lib):
         "rig_linearize_band": [i] * 3 + [p] * 5 + [i] * 8 + [d, i] + [p] * 5,
         "tile_sort_planes": [i, p, p, i, i, i, p, p],
         "tile_lsweep": [i] * 3 + [p] * 10 + [i] * 4 + [p] * 3,
-        "tile_gather_cells": [i, p, p, p, i, p, p],
+        "tile_gather_cells": [i, p, p, p, i, i, p, p],
+        "probe_fma_pass": [i, p, ctypes.c_long, p, p],
+        "probe_sweep_payload": [i, p, p, i, p, p],
         "rig_cost": [i, i] + [p] * 4 + [i] * 5 + [d, i, i, p, p],
         "rig_reduce_slots": [i, p] + [i] * 5 + [p, p, p],
         "rig_reduce_cost": [i, p, i, p, p],

@@ -502,19 +502,58 @@ inline size_t lsweep_smem(int Vl, size_t esz) {
 }
 
 // out[v, j] = sum of part[src[k], j] for k in [cstart[v], cstart[v + 1]),
-// in k order: the per-chunk bins of a locality bucket summed into the
-// global (V, 18) cell vector, each cell's bins in one fixed order.
+// for rows of F <= GATHER_MAXF values: a locality bucket's per-chunk bins
+// summed into the global cells (F = 18 of a sweep, 18 and 171 of the
+// linearize), a cell vector into the flat camera vector (F = 1), the
+// block-Jacobi's 6x6 blocks (F = 36), the torch chunk path's slot rows into
+// the cells. A row's sources may number thousands (every BAL cell names the
+// shared inner frame; a hub cell owns thousands of a piece's slots), so a
+// row's sources are cut into stripes, each summed in list order by its own
+// thread, and the stripes' sums are added in stripe order: for F > 1 one
+// block takes one output row, its threads 8 stripes x 32 column lanes
+// (columns l, l + 32, ...); for F = 1 each warp takes one row, its lanes
+// 32 stripes. One fixed order, no float atomics.
+constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_COLS = 6;
+constexpr int GATHER_MAXF = 32 * GATHER_COLS;
+
 template <typename S>
-__global__ void gather_cells(const S* __restrict__ part,
-                             const int* __restrict__ cstart,
-                             const int* __restrict__ src, int V,
-                             S* __restrict__ out) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)V * 18) return;
-  const int v = (int)(idx / 18), j = (int)(idx % 18);
-  S s = S(0);
-  for (int k = cstart[v]; k < cstart[v + 1]; ++k) s += part[(long)src[k] * 18 + j];
-  out[idx] = s;
+__global__ void __launch_bounds__(GATHER_THREADS)
+    gather_cells(const S* __restrict__ part, const int* __restrict__ cstart,
+                 const int* __restrict__ src, int V, int F,
+                 S* __restrict__ out) {
+  __shared__ S stripe[GATHER_THREADS / 32 * GATHER_MAXF];
+  const bool one = F == 1;
+  const int rows = one ? GATHER_THREADS / 32 : 1;   // output rows a block
+  const int lanes = one ? 1 : 32;                   // column lanes a row
+  const int gs = one ? 32 : GATHER_THREADS / 32;    // source stripes a row
+  const int r = threadIdx.x / (lanes * gs);
+  const int st = (threadIdx.x / lanes) % gs, l = threadIdx.x % lanes;
+  const int v = blockIdx.x * rows + r;
+  S acc[GATHER_COLS];
+#pragma unroll
+  for (int c = 0; c < GATHER_COLS; ++c) acc[c] = S(0);
+  if (v < V) {
+    const int k1 = cstart[v + 1];
+#pragma unroll 4
+    for (int k = cstart[v] + st; k < k1; k += gs) {
+      const S* row = part + (long)src[k] * F;
+#pragma unroll
+      for (int c = 0; c < GATHER_COLS; ++c)
+        if (l + 32 * c < F) acc[c] += row[l + 32 * c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < GATHER_COLS; ++c)
+    if (l + 32 * c < F) stripe[(r * gs + st) * F + l + 32 * c] = acc[c];
+  __syncthreads();
+  for (int q = threadIdx.x; q < rows * F; q += GATHER_THREADS) {
+    const int rq = q / F, j = q % F;
+    if (blockIdx.x * rows + rq >= V) continue;
+    S t = stripe[rq * gs * F + j];
+    for (int s = 1; s < gs; ++s) t += stripe[(rq * gs + s) * F + j];
+    out[(long)(blockIdx.x * rows + rq) * F + j] = t;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -798,18 +837,18 @@ extern "C" int tile_lsweep(int dtype, int pdtype, int mode, const void* cell,
 
 extern "C" int tile_gather_cells(int dtype, const void* part,
                                  const void* cstart, const void* src, int V,
-                                 void* out, void* stream) {
-  const long n = (long)V * 18;
-  if (n == 0) return 0;
+                                 int F, void* out, void* stream) {
+  if (V == 0 || F == 0) return 0;
+  if (F > GATHER_MAXF) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int grid = blocks_for(n, 256);
+  const int grid = F == 1 ? blocks_for(V, GATHER_THREADS / 32) : V;
   if (dtype == 1)
-    gather_cells<double><<<grid, 256, 0, s>>>(
-        (const double*)part, (const int*)cstart, (const int*)src, V,
+    gather_cells<double><<<grid, GATHER_THREADS, 0, s>>>(
+        (const double*)part, (const int*)cstart, (const int*)src, V, F,
         (double*)out);
   else if (dtype == 0)
-    gather_cells<float><<<grid, 256, 0, s>>>(
-        (const float*)part, (const int*)cstart, (const int*)src, V,
+    gather_cells<float><<<grid, GATHER_THREADS, 0, s>>>(
+        (const float*)part, (const int*)cstart, (const int*)src, V, F,
         (float*)out);
   else
     return (int)cudaErrorInvalidValue;

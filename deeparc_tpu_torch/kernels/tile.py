@@ -40,7 +40,9 @@ per LM step, and write each slot's scalars at its sorted position
 then per cell; ``tile_sweep_local`` from its transposed planes
 (:func:`sort_jcam_planes`), its bin pass one block per chunk summing the
 chunk's bins into their final rows, which :func:`sum_chunk_bins` then
-sums into the global cells in one fixed order.
+sums into the global cells in one fixed order. The same gather kernel
+(:func:`sum_rows`, over a :func:`gather_map` built once per layout) takes
+the tile step's other sums on the card, so one step repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -98,18 +100,59 @@ class SlotBins(NamedTuple):
                              # order (chunk_gather); () for global bins
 
 
+def gather_map(dst: torch.Tensor, n_out: int, max_len: int = 0) -> tuple:
+    """The fixed-order map of a row sum ``out[o] = sum of part[s] over
+    dst[s] == o``: (cstart (n_out + 1,), src) int32, output row o's source
+    rows ``src[cstart[o]:cstart[o + 1]]`` in increasing order. On the card
+    the gather kernel (``csrc/tile.cu``, ``gather_cells``) sums them in
+    one fixed order: stripes of every 8th source (every 32nd when a row
+    is one value), each in list order, then the stripes in order. Sources
+    with ``dst < 0`` are left out. Depends on the ids only, so it is built
+    once per layout.
+
+    With ``max_len``, where a row has more sources, the rows are cut into
+    segments of at most ``max_len`` sources, each summed by its own block,
+    and the map is (cstart, src, seg_start, seg): the segments' map, then
+    the map of each output row to its segments, which a second pass adds
+    in order. One block no longer sums a long row alone."""
+    dst = dst.reshape(-1).long()
+    keep = (dst >= 0).nonzero()[:, 0]
+    d = dst[keep]
+    src = keep[torch.argsort(d, stable=True)].to(torch.int32)
+    count = torch.bincount(d, minlength=n_out)
+    cstart = _starts(count)
+    if not max_len or not count.numel() or int(count.max()) <= max_len:
+        return cstart.to(torch.int32), src
+    n_seg = (count + max_len - 1) // max_len
+    seg_start = _starts(n_seg)
+    n = int(seg_start[-1])
+    row = torch.repeat_interleave(
+        torch.arange(n_out, device=dst.device), n_seg)
+    first = cstart[row] + (torch.arange(n, device=dst.device)
+                           - seg_start[row]) * max_len
+    return (torch.cat([first, cstart[-1:]]).to(torch.int32), src,
+            seg_start.to(torch.int32),
+            torch.arange(n, dtype=torch.int32, device=dst.device))
+
+
+def _starts(count: torch.Tensor) -> torch.Tensor:
+    """(n + 1,) running starts of n counts."""
+    out = torch.zeros(count.numel() + 1, dtype=torch.long,
+                      device=count.device)
+    out[1:] = torch.cumsum(count, 0)
+    return out
+
+
 def chunk_gather(bins: SlotBins, chunk_cells: torch.Tensor, V: int) -> tuple:
     """The fixed-order map from a locality bucket's per-chunk bins (chunk *
     V_local + local id) to the V global cells: for cell v, the non-empty
     bins ``src[cstart[v]:cstart[v + 1]]`` in increasing bin order, which
-    :func:`sum_chunk_bins` sums in that order. Built once per layout."""
-    dev = chunk_cells.device
-    nonempty = (bins.bin_seg[1:] > bins.bin_seg[:-1]).nonzero()[:, 0]
-    cell = chunk_cells.reshape(-1).long()[nonempty]
-    src = nonempty[torch.argsort(cell, stable=True)]
-    cstart = torch.zeros(V + 1, dtype=torch.long, device=dev)
-    cstart[1:] = torch.cumsum(torch.bincount(cell, minlength=V), 0)
-    return cstart.to(torch.int32), src.to(torch.int32)
+    :func:`sum_chunk_bins` sums in one fixed order. An empty bin is zero in
+    the linearize's and the sweeps' bins alike, so one map serves both.
+    Built once per layout."""
+    nonempty = bins.bin_seg[1:] > bins.bin_seg[:-1]
+    return gather_map(torch.where(nonempty, chunk_cells.reshape(-1).long(),
+                                  -1), V)
 
 
 def slot_bins(cell_t: torch.Tensor, n_chunks: int, n_cells: int) -> SlotBins:
@@ -222,42 +265,65 @@ def sort_jcam_planes(jcam_t: torch.Tensor, bins: SlotBins,
     return out
 
 
-def sum_chunk_bins_plain(part: torch.Tensor, chunk_cells: torch.Tensor,
-                         V: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`sum_chunk_bins`."""
-    out = torch.zeros((V, 18), dtype=part.dtype, device=part.device)
-    return out.index_add_(0, chunk_cells.reshape(-1).long(),
-                          part.reshape(-1, 18))
+def sum_rows_plain(part: torch.Tensor, dst: torch.Tensor,
+                   n_out: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sum_rows`."""
+    out = torch.zeros((n_out,) + part.shape[1:], dtype=part.dtype,
+                      device=part.device)
+    return out.index_add_(0, dst.reshape(-1).long(), part)
+
+
+def sum_rows(part: torch.Tensor, dst: torch.Tensor, n_out: int,
+             gather: tuple = ()) -> torch.Tensor:
+    """The rows of ``part`` (n_src, ...) summed into (n_out, ...) by
+    ``dst``: ``out[o] = sum of part[s] over dst[s] == o``, rows of at most
+    192 values. On the card a gather kernel sums each output row's sources
+    in one fixed order through ``gather`` (:func:`gather_map` over all
+    n_out rows, built once per layout; it may leave out sources whose rows
+    are zero), in a second pass over the segments where the map cuts long
+    rows: no float atomics, the same bits every run. The plain version is
+    ``index_add_`` over ``dst``."""
+    if not _dispatch(part, "sum_rows"):
+        return sum_rows_plain(part, dst, n_out)
+    if len(gather) not in (2, 4):
+        raise ValueError("sum_rows on the card needs the layout's "
+                         "fixed-order map (kernels.tile.gather_map)")
+    flat = part.reshape(part.shape[0], -1).contiguous()
+    if len(gather) == 4:
+        flat = _gather_cells(flat, gather[0], gather[1], gather[3].numel())
+        gather = gather[2:]
+    out = _gather_cells(flat, gather[0], gather[1], n_out)
+    return out.reshape((n_out,) + part.shape[1:])
+
+
+def _gather_cells(flat, cstart, src, n_out):
+    """One launch of the gather kernel: (n_src, F) rows into (n_out, F)."""
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    F = flat.shape[1]
+    if cstart.numel() != n_out + 1 or F > 192 or src.numel() > flat.shape[0]:
+        raise ValueError(f"a map of {cstart.numel() - 1} rows from "
+                         f"{src.numel()} sources does not fit "
+                         f"{flat.shape[0]} rows of {F} values into {n_out} "
+                         f"rows (at most 192 values)")
+    dt = _check_inputs(flat.dtype, (cstart, src), (flat,))
+    out = torch.empty((n_out, F), dtype=flat.dtype, device=flat.device)
+    sum_rows.launches += 1
+    check(library().tile_gather_cells(
+        dt, flat.data_ptr(), cstart.data_ptr(), src.data_ptr(), n_out, F,
+        out.data_ptr(), _stream(flat.device)), "tile_gather_cells")
+    return out
 
 
 def sum_chunk_bins(part: torch.Tensor, chunk_cells: torch.Tensor, V: int,
                    bins: SlotBins | None = None) -> torch.Tensor:
-    """A locality bucket's per-chunk bins (n_chunks, V_local, 18) summed
-    into the global (V, 18) cell vector through ``chunk_cells``. On the
-    card a gather kernel sums each cell's bins in one fixed order (the
-    bins' ``gather`` map, :func:`chunk_gather`): no float atomics, the
-    same bits every run."""
-    if not _dispatch(part, "sum_chunk_bins"):
-        return sum_chunk_bins_plain(part, chunk_cells, V)
-    from deeparc_tpu_torch.kernels.build import check, library
-
-    if not isinstance(bins, SlotBins) or len(bins.gather) != 2:
-        raise ValueError("sum_chunk_bins on the card needs the bucket's "
-                         "slot bins with their chunk -> cell map "
-                         "(solver.tiles.with_bins)")
-    cstart, src = bins.gather
-    if cstart.numel() != V + 1 or part.numel() != bins.n_bins * 18:
-        raise ValueError(f"bins of {bins.n_bins} and a map of "
-                         f"{cstart.numel() - 1} cells do not fit "
-                         f"{tuple(part.shape)} into ({V}, 18)")
-    part = part.contiguous()
-    dt = _check_inputs(part.dtype, (cstart, src), (part,))
-    out = torch.empty((V, 18), dtype=part.dtype, device=part.device)
-    sum_chunk_bins.launches += 1
-    check(library().tile_gather_cells(
-        dt, part.data_ptr(), cstart.data_ptr(), src.data_ptr(), V,
-        out.data_ptr(), _stream(part.device)), "tile_gather_cells")
-    return out
+    """A locality bucket's per-chunk bins (n_chunks, V_local, F) summed
+    into the global (V, F) cells through ``chunk_cells``: F = 18 for the
+    sweeps' bins and the linearize's gradient bins, 171 for its Gram
+    bins. :func:`sum_rows` over the bins' ``gather`` map
+    (:func:`chunk_gather`), which the card needs."""
+    gather = bins.gather if isinstance(bins, SlotBins) else ()
+    return sum_rows(part.reshape(-1, part.shape[-1]), chunk_cells, V, gather)
 
 
 def _check_bins(bins, W, Nb, n_bins, dev):
@@ -672,9 +738,9 @@ def tile_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode="matvec",
 
 
 KERNEL_WRAPPERS = (tile_linearize_local, tile_sweep_local, tile_sweep)
-# the sweeps' helper kernels: the sorted jcam copies and the fixed-order sum
-# of a locality bucket's chunk bins
-HELPERS = (sort_jcam, sort_jcam_planes, sum_chunk_bins)
+# the helper kernels: the sweeps' sorted jcam copies, and the fixed-order
+# row sums (a locality bucket's chunk bins and the step's other sums)
+HELPERS = (sort_jcam, sort_jcam_planes, sum_rows)
 for _fn in KERNEL_WRAPPERS + HELPERS:
     _fn.launches = 0
 

@@ -285,18 +285,20 @@ def grid_from_numpy(d: dict, dtype=torch.float64, device="cuda"):
     return GridIndex(**out)
 
 
-def tiles_from_numpy(d: dict, dtype=torch.float64, device="cuda"):
-    """TileIndex from numpy arrays laid out as the reference's ``TileIndex``:
-    ``d["cells"]`` maps the ``CellTable`` field names to arrays,
-    ``d["buckets"]`` is a sequence of dicts with the ``TileBucket`` fields
-    (``cell``, ``xy0``, ``xy1``, ``mask``, ``loc`` = () or (local,
-    chunk_cells)), ``d["row_of_point"]`` an array; so a test can hand a
+def tiles_from_numpy(d: dict, C: int, dtype=torch.float64, device="cuda"):
+    """TileIndex from numpy arrays laid out as the reference's ``TileIndex``,
+    for a camera vector of C values: ``d["cells"]`` maps the ``CellTable``
+    field names to arrays, ``d["buckets"]`` is a sequence of dicts with
+    the ``TileBucket`` fields (``cell``, ``xy0``, ``xy1``, ``mask``,
+    ``loc`` = () or (local, chunk_cells)), ``d["row_of_point"]`` an
+    array; so a test can hand a
     layout the reference built to both packages. The kernels' slot bins
-    are built here."""
+    and the fixed-order maps of the step's sums are built here."""
     from deeparc_tpu_torch.solver.tiles import (
         CellTable,
         TileBucket,
         TileIndex,
+        cell_maps,
         with_bins,
     )
 
@@ -309,7 +311,8 @@ def tiles_from_numpy(d: dict, dtype=torch.float64, device="cuda"):
         return torch.tensor(a.astype(np.float64), dtype=dtype, device=device)
 
     cells = CellTable(**{name: tensor(d["cells"][name])
-                         for name in CellTable._fields})
+                         for name in CellTable._fields if name != "maps"})
+    cells = cells._replace(maps=cell_maps(cells.cols, C))
     V = cells.cols.shape[0]
     buckets = []
     for b in d["buckets"]:

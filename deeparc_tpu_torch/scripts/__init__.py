@@ -1,0 +1,91 @@
+"""Measurement entry points of the port, and what they share with
+``chip_smoke.py``: the card's published peaks, the operations a kernel does
+per slot, the bound of a piece of work, CUDA-event timing and the card's
+``nvidia-smi`` line.
+
+    python -m deeparc_tpu_torch.scripts.vpu_roofline            # the card
+    python -m deeparc_tpu_torch.scripts.microbench_sweep_payload
+    ... --device cpu    # the plain versions, at a small size (tests)
+
+Each prints one JSON line. On the card they time the hand-written probe
+kernels of ``kernels/probes.py``; ``--device cpu`` runs the plain versions
+and times the CPU, which says nothing about the card.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import time
+
+# NVIDIA's data sheet, H100 SXM: device memory rate, and the peak rates
+# outside the tensor cores; they assume the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+# operations per (point, cell) slot, counted from the arithmetic of
+# csrc/rig_slot.cuh and the kernels: the slot chain ~60, its Jacobian ~240,
+# the point sums ~36; the grid linearize adds ~144 for the E row and ~270
+# for the slot Gram, the tile linearize ~570 for the 189 bin values; a
+# matvec sweep ~170 (E v, B^-1, E^T w), rhs ~90, edot ~84
+OPS_PER_SLOT = {"linearize_grid_banded": 750, "linearize_grid": 750,
+                "cost_grid_banded": 60, "cost_grid": 60,
+                "tile_linearize_local": 906, "rhs": 90, "matvec": 170,
+                "edot": 84}
+
+
+def bound(nbytes_moved, ops, dtype_name):
+    """(bound_ms, bound_by) of work moving these bytes and doing these ops:
+    the larger of the bytes over the memory rate and the operations over
+    the peak rate of their type."""
+    t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nvidia_smi() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        return out.stdout.strip().splitlines()[0] if out.stdout else "n/a"
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi: not available"
+
+
+def card_fields(device) -> dict:
+    """The platform, device name and power limit a result was taken on."""
+    import torch
+
+    if device.type != "cuda":
+        return {"platform": "cpu", "device": "cpu", "power_limit": None}
+    smi = nvidia_smi().split(", ")
+    return {"platform": "gpu", "device": torch.cuda.get_device_name(device),
+            "power_limit": smi[1] if len(smi) == 2 else None}
+
+
+def time_ms(fn, reps, device=None):
+    """Median milliseconds of ``fn`` after one warm-up call: CUDA events on
+    the card, the host clock on the CPU."""
+    import torch
+
+    fn()
+    if device is not None and device.type == "cpu":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

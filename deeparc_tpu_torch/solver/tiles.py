@@ -40,11 +40,13 @@ from deeparc_tpu_torch.kernels.tile import (
     MAX_KERNEL_WIDTH,
     MAX_LIN_WIDTH,
     chunk_gather,
+    gather_map,
     pack_bucket_planes,
     slot_bins,
     sort_jcam,
     sort_jcam_planes,
     sum_chunk_bins,
+    sum_rows,
     tile_linearize_local,
     tile_sweep,
     tile_sweep_local,
@@ -65,6 +67,9 @@ from deeparc_tpu_torch.solver.rig_grid import slot_params
 CHUNK_OBS = 8192
 # slots the torch chunk path processes at once (bounds its temporaries)
 _PIECE_SLOTS = 1 << 18
+# most slots of one cell in a piece that one block of the gather kernel
+# sums; a hub cell's thousands are cut into segments (gather_map)
+_PIECE_SEGMENT = 512
 
 
 def rows_per_chunk(width: int, chunk_obs: int = CHUNK_OBS) -> int:
@@ -82,6 +87,25 @@ class CellTable(NamedTuple):
     dist_m1: torch.Tensor       # (V,)
     dist_m2: torch.Tensor       # (V,)
     cols: torch.Tensor          # (V, 18) flat camera-vector column ids
+    maps: tuple = ()            # (flat, block6): the fixed-order maps of
+                                # cells_to_flat and _block_jacobi
+
+
+def cell_maps(cols: torch.Tensor, C: int) -> tuple:
+    """The fixed-order maps (:func:`kernels.tile.gather_map`) of the
+    step's two cell -> camera sums into the (C,) camera vector, built once
+    per layout: ``flat`` takes the (V, 18) cell values (source v * 18 + j)
+    to the C flat camera columns (:func:`cells_to_flat`), ``block6`` the
+    cells' three diagonal 6x6 blocks (source j * V + v for block j) to the
+    C / 6 blocks of 6 rows (:func:`_block_jacobi`)."""
+    return (gather_map(cols.reshape(-1), C),
+            gather_map(_block_rows(cols), C // 6))
+
+
+def _block_rows(cols: torch.Tensor) -> torch.Tensor:
+    """The 6-row block of each cell's three diagonal blocks, block-major
+    (the order of the block-Jacobi's sources)."""
+    return (cols[:, 0::6] // 6).T.reshape(-1)
 
 
 class TileBucket(NamedTuple):
@@ -91,7 +115,12 @@ class TileBucket(NamedTuple):
     [0, V_local), chunk_cells (n_chunks, V_local) int32 global cell id per
     local slot), or (). ``bins`` is the :class:`kernels.tile.SlotBins` of
     the plane the kernels bin through (local ids when ``loc``, else global
-    ids), or () where the bucket is too wide for the kernels."""
+    ids), or () where the bucket is too wide for the kernels. ``pieces``
+    holds, per row piece of the torch chunk path (:func:`_row_pieces`),
+    the fixed-order map (:func:`kernels.tile.gather_map`) of the piece's
+    slots to the global cells, by which that path and the torch sweeps sum
+    their slot rows into the cells on the card; it leaves out the slots
+    masked when it is built, whose rows are zero (masks only fall)."""
 
     cell: torch.Tensor  # (Nb, W) int32 GLOBAL cell id per slot (0 if masked)
     xy0: torch.Tensor   # (Nb, W) observed pixel x
@@ -99,6 +128,7 @@ class TileBucket(NamedTuple):
     mask: torch.Tensor  # (Nb, W) 1.0 = observed
     loc: tuple = ()
     bins: tuple = ()
+    pieces: tuple = ()
 
 
 class TileIndex(NamedTuple):
@@ -200,7 +230,7 @@ def bucket_with_local(bucket: TileBucket, rows_chunk: int,
     if v_local_max is None:
         v_local_max = max(rows_chunk * W // 2, min_v_local)
     if v_local > v_local_max:
-        return bucket._replace(loc=(), bins=())
+        return bucket._replace(loc=(), bins=(), pieces=())
     local = np.zeros((Nb, W), np.int32)
     chunk_cells = np.zeros((n_chunks, v_local), np.int32)
     for c, u in enumerate(uniqs):
@@ -210,15 +240,20 @@ def bucket_with_local(bucket: TileBucket, rows_chunk: int,
     dev = bucket.cell.device
     return bucket._replace(loc=(torch.as_tensor(local, device=dev),
                                 torch.as_tensor(chunk_cells, device=dev)),
-                           bins=())
+                           bins=(), pieces=())
 
 
 def with_bins(bucket: TileBucket, V: int) -> TileBucket:
-    """The bucket with the slot bins its sweep kernel reduces through
-    (local ids when it has ``loc``, with the fixed-order map of its chunk
-    bins to the V global cells; else global ids); () when it is wider than
-    the kernels take."""
-    W = bucket.cell.shape[1]
+    """The bucket with the slot bins its kernels reduce through (local ids
+    when it has ``loc``, with the fixed-order map of its chunk bins to the
+    V global cells; else global ids; () when it is wider than the kernels
+    take) and the fixed-order maps of its row pieces on the torch chunk
+    path, without the masked slots (padding would pile onto cell 0)."""
+    Nb, W = bucket.cell.shape
+    live_cell = torch.where(bucket.mask > 0.5, bucket.cell, -1)
+    bucket = bucket._replace(pieces=tuple(
+        gather_map(live_cell[r0:r1], V, _PIECE_SEGMENT)
+        for r0, r1 in _row_pieces(Nb, W)))
     if W > MAX_KERNEL_WIDTH:
         return bucket._replace(bins=())
     if bucket.loc:
@@ -258,6 +293,7 @@ def tiles_from_scene(scene: Scene, free: BAParams | None = None,
     pts_of_obs = obs_point[obs_alive]
     N = scene.n_points
     R_rows = scene.params.ext_rot.shape[0]
+    C = 6 * R_rows + 6 * scene.params.center.shape[0]
     f = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                   device=dev)
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
@@ -289,7 +325,7 @@ def tiles_from_scene(scene: Scene, free: BAParams | None = None,
         focal_shared=f(_np(idx.focal_shared)[cells_np[:, 2]]),
         dist_m1=f(_np(idx.dist_m1)[cells_np[:, 2]]),
         dist_m2=f(_np(idx.dist_m2)[cells_np[:, 2]]),
-        cols=i32(cols))
+        cols=i32(cols), maps=cell_maps(i32(cols), C))
 
     # --- bucket points by padded track length -----------------------------
     track = np.bincount(pts_of_obs, minlength=N).astype(np.int64)
@@ -570,10 +606,12 @@ def _sym_unpack(v: torch.Tensor) -> torch.Tensor:
     return out + out.transpose(-1, -2) - diag
 
 
-def cells_to_flat(vals: torch.Tensor, cols: torch.Tensor, C: int) -> torch.Tensor:
-    """(V, 18) cell-space values -> flat (C,) camera vector (tiny scatter)."""
-    return torch.zeros(C, dtype=vals.dtype, device=vals.device).index_add_(
-        0, cols.reshape(-1).long(), vals.reshape(-1))
+def cells_to_flat(vals: torch.Tensor, cells: CellTable, C: int) -> torch.Tensor:
+    """(V, 18) cell-space values -> flat (C,) camera vector: a small row
+    sum, on the card in the fixed order of the layout's ``flat`` map
+    (:func:`cell_maps`)."""
+    return sum_rows(vals.reshape(-1), cells.cols.reshape(-1), C,
+                    cells.maps[0] if cells.maps else ())
 
 
 def flat_to_cells(v: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -603,7 +641,7 @@ def _linearize_bucket_torch(pts_b, pf_b, b, packed, loss, loss_scale):
     hpp = torch.empty((Nb, 3, 3), dtype=dtype, device=dev)
     g_cells = torch.zeros((V, 18), dtype=dtype, device=dev)
     h_cells = torch.zeros((V, 171), dtype=dtype, device=dev)
-    for r0, r1 in _row_pieces(Nb, W):
+    for k, (r0, r1) in enumerate(_row_pieces(Nb, W)):
         cell = b.cell[r0:r1].long()
         c = _unpack(packed[cell])
         cst, r_c, jx_c, jcam_c, gp_c, hpp_c = _linearize_chunk(
@@ -614,14 +652,15 @@ def _linearize_bucket_torch(pts_b, pf_b, b, packed, loss, loss_scale):
         g_p[r0:r1], hpp[r0:r1] = gp_c, hpp_c
         g18 = torch.einsum("bwkc,bwk->bwc", jcam_c, r_c).reshape(-1, 18)
         h18 = _sym_pack(torch.einsum("bwki,bwkj->bwij", jcam_c, jcam_c))
-        g_cells.index_add_(0, cell.reshape(-1), g18)
-        h_cells.index_add_(0, cell.reshape(-1), h18.reshape(-1, 171))
+        pmap = b.pieces[k] if b.pieces else ()
+        g_cells += sum_rows(g18, cell, V, pmap)
+        h_cells += sum_rows(h18.reshape(-1, 171), cell, V, pmap)
     return (cost, BucketBlocks(r=r, j_x=j_x, j_cam=j_cam), g_p, hpp, g_cells,
             h_cells)
 
 
 def _finish_system(cost, g_p_parts, hpp_parts, g_cells, hcc_packed, blocks,
-                   points_t, cols, C):
+                   points_t, cells, C):
     dtype, dev = points_t.dtype, points_t.device
     tail = points_t.shape[0] - sum(g.shape[0] for g in g_p_parts)
     if tail > 0:
@@ -630,9 +669,9 @@ def _finish_system(cost, g_p_parts, hpp_parts, g_cells, hcc_packed, blocks,
     hcc_cells = _sym_unpack(hcc_packed)
     return TileSystem(
         cost=cost, g_p=torch.cat(g_p_parts), hpp=torch.cat(hpp_parts),
-        g_c=cells_to_flat(g_cells, cols, C), hcc_cells=hcc_cells,
+        g_c=cells_to_flat(g_cells, cells, C), hcc_cells=hcc_cells,
         hcc_diag=cells_to_flat(
-            torch.diagonal(hcc_cells, dim1=-2, dim2=-1), cols, C),
+            torch.diagonal(hcc_cells, dim1=-2, dim2=-1), cells, C),
         blocks=tuple(blocks))
 
 
@@ -660,7 +699,7 @@ def linearize_tiles(points_t, packed, tiles: TileIndex, point_free_t, C: int,
         hcc_packed += hc
         offset += Nb
     return _finish_system(cost, g_p_parts, hpp_parts, g_cells, hcc_packed,
-                          blocks, points_t, tiles.cells.cols, C)
+                          blocks, points_t, tiles.cells, C)
 
 
 def bucket_fused_ok(b: TileBucket) -> bool:
@@ -698,16 +737,16 @@ def linearize_tiles_mixed(points_t, packed, tiles: TileIndex, point_free_t,
                                   torch.zeros((2, Nb), dtype=dtype,
                                               device=dev)]).contiguous()
             cell_t = local.T.contiguous()
+            bins = b.bins or None
             cst, pout, r_t, jx_t, jcam_t, gc, hc = tile_linearize_local(
                 pts_pack, cell_t, b.xy0.T.contiguous(), b.xy1.T.contiguous(),
                 b.mask.T.contiguous(), tables.contiguous(), loss=loss,
-                loss_scale=loss_scale, plane_dtype=plane_dtype,
-                bins=b.bins or None)
+                loss_scale=loss_scale, plane_dtype=plane_dtype, bins=bins)
             g_p_parts.append(pout[0:3].T)
             hpp_parts.append(pout[3:12].T.reshape(Nb, 3, 3))
-            flat_ids = chunk_cells.reshape(-1).long()
-            g_cells.index_add_(0, flat_ids, gc.reshape(-1, 18))
-            hcc_packed.index_add_(0, flat_ids, hc.reshape(-1, 171))
+            # each cell's chunk bins in one fixed order (no float atomics)
+            g_cells += sum_chunk_bins(gc, chunk_cells, V, bins)
+            hcc_packed += sum_chunk_bins(hc, chunk_cells, V, bins)
             planes.append((cell_t, jcam_t, jx_t, r_t))
             blocks.append(None)
         else:
@@ -722,7 +761,7 @@ def linearize_tiles_mixed(points_t, packed, tiles: TileIndex, point_free_t,
         cost = cost + cst
         offset += Nb
     sys = _finish_system(cost, g_p_parts, hpp_parts, g_cells, hcc_packed,
-                         blocks, points_t, tiles.cells.cols, C)
+                         blocks, points_t, tiles.cells, C)
     return sys, tuple(planes)
 
 
@@ -770,7 +809,7 @@ def _e_sweep(tiles: TileIndex, sys: TileSystem, binv, v_cells,
     offset = 0
     for b, blk in zip(tiles.buckets, sys.blocks):
         Nb, W = b.cell.shape
-        for r0, r1 in _row_pieces(Nb, W):
+        for k, (r0, r1) in enumerate(_row_pieces(Nb, W)):
             cell = b.cell[r0:r1].long()
             j_x, j_cam = blk.j_x[r0:r1], blk.j_cam[r0:r1]
             binv_c = binv[offset + r0:offset + r1]
@@ -783,7 +822,8 @@ def _e_sweep(tiles: TileIndex, sys: TileSystem, binv, v_cells,
                 w = torch.einsum("bij,bj->bi", binv_c, ev)
             t2 = torch.einsum("bwki,bi->bwk", j_x, w)
             u = torch.einsum("bwkc,bwk->bwc", j_cam, t2)
-            out.index_add_(0, cell.reshape(-1), u.reshape(-1, 18))
+            out += sum_rows(u.reshape(-1, 18), cell, V,
+                            b.pieces[k] if b.pieces else ())
         offset += Nb
     return out
 
@@ -827,10 +867,10 @@ def _block_jacobi(sys: TileSystem, cells: CellTable, cam_aug, cam_free,
     SCHUR_JACOBI analogue, camera-count independent)."""
     dtype, dev = sys.hcc_cells.dtype, sys.hcc_cells.device
     n_rows6 = C // 6
-    blocks = torch.zeros((n_rows6, 6, 6), dtype=dtype, device=dev)
-    for j, sl in ((0, slice(0, 6)), (6, slice(6, 12)), (12, slice(12, 18))):
-        blocks.index_add_(0, (cells.cols[:, j] // 6).long(),
-                          sys.hcc_cells[:, sl, sl])
+    diag = torch.cat([sys.hcc_cells[:, sl, sl] for sl in
+                      (slice(0, 6), slice(6, 12), slice(12, 18))])
+    blocks = sum_rows(diag, _block_rows(cells.cols), n_rows6,
+                      cells.maps[1] if cells.maps else ())
     aug = cam_aug.reshape(n_rows6, 6)
     frozen = 1.0 - cam_free.reshape(n_rows6, 6)
     blocks = blocks + torch.eye(6, dtype=dtype, device=dev) * (
@@ -974,7 +1014,7 @@ def make_tile_step(options: SolverOptions, template: BAParams,
     C = 6 * template.ext_rot.shape[0] + 6 * template.center.shape[0]
 
     def step(state: TileState, tiles: TileIndex, cam_free, point_free_t):
-        cols = tiles.cells.cols
+        cells, cols = tiles.cells, tiles.cells.cols
         dtype, dev = state.points.dtype, state.points.device
         params = _params_from(state.cam_vec, state.points, template)
         packed = pack_cells(slot_params(params, tiles.cells), tiles.cells,
@@ -997,18 +1037,18 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
         sweep_fn, edot_fn = _make_kernel_sweeps(
             tiles, sys, binv, lin_planes, sweep_dtype, sweep_block_n)
-        rhs = (-sys.g_c + cells_to_flat(sweep_fn(None, True), cols, C)) \
+        rhs = (-sys.g_c + cells_to_flat(sweep_fn(None, True), cells, C)) \
             * cam_free
 
         def hcc_matvec(v):
             out = torch.einsum("vij,vj->vi", sys.hcc_cells,
                                flat_to_cells(v, cols))
-            return cells_to_flat(out, cols, C)
+            return cells_to_flat(out, cells, C)
 
         def matvec(v):
             vm = v * cam_free
             corr = cells_to_flat(sweep_fn(flat_to_cells(vm, cols), False),
-                                 cols, C)
+                                 cells, C)
             s = hcc_matvec(vm) + cam_aug * v - corr
             return torch.where(cam_free > 0.5, s, v)
 

@@ -78,9 +78,11 @@ def test_unported_engines_name_their_roadmap_item(engine):
 
 
 def test_cli_runs_without_jax(tmp_path):
-    """The port imports neither JAX nor ``deeparc_tpu``: in a fresh
-    interpreter, import every module of the port, run the CLI's --help and
-    a small synthetic run on the CPU, then inspect ``sys.modules``."""
+    """The port imports neither JAX nor ``deeparc_tpu`` nor the repo's
+    top-level ``scripts`` (its own entry points are
+    ``deeparc_tpu_torch.scripts``): in a fresh interpreter, import every
+    module of the port, run the CLI's --help and a small synthetic run on
+    the CPU, then inspect ``sys.modules``."""
     code = (
         "import pkgutil, sys\n"
         "import deeparc_tpu_torch\n"
@@ -96,8 +98,10 @@ def test_cli_runs_without_jax(tmp_path):
         f" '--n-points', '40', '--device', 'cpu', '--quiet',"
         f" '--max-iterations', '5', '-o', {str(tmp_path)!r}]) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'deeparc_tpu' or m.startswith('deeparc_tpu.')]\n"
+        "       or m == 'deeparc_tpu' or m.startswith('deeparc_tpu.')\n"
+        "       or m == 'scripts' or m.startswith('scripts.')]\n"
         "assert not bad, f'the port imported {bad[:5]}'\n"
+        "assert 'deeparc_tpu_torch.scripts.vpu_roofline' in sys.modules\n"
         "print('NO_JAX_OK', len([m for m in sys.modules\n"
         "                        if m.startswith('deeparc_tpu_torch.')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)

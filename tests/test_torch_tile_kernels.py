@@ -167,7 +167,7 @@ def fused_problem():
     packed = jt.pack_cells(jslot_params(params, tiles.cells), tiles.cells,
                            cam_free)
     params_p = params_to_torch(params)
-    tiles_p = tiles_to_torch(tiles)
+    tiles_p = tiles_to_torch(tiles, cam_free.shape[0])
     packed_p = tt.pack_cells(slot_params(params_p, tiles_p.cells),
                              tiles_p.cells, T(cam_free))
     return params, tiles, packed, cam_free, params_p, tiles_p, packed_p
@@ -345,10 +345,13 @@ def test_sort_jcam_planes_gathers_the_sweep_planes(fused_problem, dtype):
         assert p // (Nb // n_chunks) == i // (W * Nb // n_chunks)
 
 
-def test_chunk_gather_sums_like_index_add(fused_problem):
+@pytest.mark.parametrize("F", [18, 171])
+def test_chunk_gather_sums_like_index_add(fused_problem, F):
     """The layout's chunk -> cell map lists each cell's non-empty bins in
     increasing bin order, and summing through it equals index_add_ over
-    chunk_cells (sum_chunk_bins's plain version)."""
+    chunk_cells (sum_chunk_bins's plain version), for the sweeps' and the
+    linearize's gradient bins (F = 18) and the linearize's Gram bins
+    (F = 171)."""
     tiles_p = fused_problem[5]
     b = tiles_p.buckets[0]
     V = tiles_p.cells.cols.shape[0]
@@ -361,15 +364,168 @@ def test_chunk_gather_sums_like_index_add(fused_problem):
     for v, (c0, c1) in enumerate(zip(cstart[:-1], cstart[1:])):
         assert bool((flat_cells[src[c0:c1]] == v).all())
         assert bool((src[c0 + 1:c1] > src[c0:c1 - 1]).all())
-    part = torch.randn(chunk_cells.shape + (18,), dtype=torch.float64,
+    part = torch.randn(chunk_cells.shape + (F,), dtype=torch.float64,
                        generator=torch.Generator().manual_seed(2))
-    part.reshape(-1, 18)[~nonempty] = 0.0
+    part.reshape(-1, F)[~nonempty] = 0.0
     want = tk.sum_chunk_bins(part, chunk_cells, V, b.bins)
-    flat = part.reshape(-1, 18)
-    got = torch.stack([flat[src[c0:c1]].sum(0) if c1 > c0 else
-                       torch.zeros(18, dtype=flat.dtype)
-                       for c0, c1 in zip(cstart[:-1], cstart[1:])])
+    assert want.shape == (V, F)
+    got = _gather_like_kernel(part.reshape(-1, F), b.bins.gather)
     close(got, as_np(want), rtol=1e-14, atol=1e-14)
+
+
+def _gather_like_kernel(part, gather):
+    """A torch mirror of the card's gather kernel (csrc/tile.cu,
+    ``gather_cells``): per output row, stripes of every 8th source (every
+    32nd for rows of one value), each summed in list order, then the
+    stripes added in order; a map that cuts long rows into segments sums
+    the segments first, then each row's segments by a second pass."""
+    if len(gather) == 4:
+        part = _gather_like_kernel(part, gather[:2])
+        gather = gather[2:]
+    cstart, src = (t.long() for t in gather)
+    F = part.shape[1]
+    gs = 32 if F == 1 else 8
+    rows = []
+    for c0, c1 in zip(cstart[:-1].tolist(), cstart[1:].tolist()):
+        stripes = []
+        for st in range(gs):
+            acc = torch.zeros(F, dtype=part.dtype)
+            for k in range(c0 + st, c1, gs):
+                acc = acc + part[src[k]]
+            stripes.append(acc)
+        total = stripes[0]
+        for t in stripes[1:]:
+            total = total + t
+        rows.append(total)
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("which", ["flat", "block6"])
+def test_cell_maps_sum_like_index_add(fused_problem, which):
+    """The step's two cell -> camera sums: ``cells_to_flat`` and the
+    block-Jacobi's 6x6 blocks. Their fixed-order maps (built once per
+    layout, ``CellTable.maps``) list each output's sources in increasing
+    order; summed in the card's order they equal the index_add_ results,
+    and repeated calls give identical bits. On the CPU the solver's own
+    functions equal the former index_add_ code bit for bit."""
+    params_p, tiles_p = fused_problem[4], fused_problem[5]
+    cells = tiles_p.cells
+    V = cells.cols.shape[0]
+    C = 6 * params_p.ext_rot.shape[0] + 6 * params_p.center.shape[0]
+    gen = torch.Generator().manual_seed(5)
+    if which == "flat":
+        dst = cells.cols.reshape(-1).long()
+        part = torch.randn((V * 18, 1), dtype=torch.float64, generator=gen)
+        n_out = C
+        gather = cells.maps[0]
+    else:
+        dst = torch.cat([cells.cols[:, j] // 6 for j in (0, 6, 12)]).long()
+        part = torch.randn((3 * V, 36), dtype=torch.float64, generator=gen)
+        n_out = C // 6
+        gather = cells.maps[1]
+    cstart, src = (t.long() for t in gather)
+    assert gather[0].dtype == torch.int32 and cstart[-1] == dst.numel()
+    assert cstart.numel() == n_out + 1
+    for o, (c0, c1) in enumerate(zip(cstart[:-1], cstart[1:])):
+        assert bool((dst[src[c0:c1]] == o).all())
+        assert bool((src[c0 + 1:c1] > src[c0:c1 - 1]).all())
+    want = torch.zeros((n_out, part.shape[1]), dtype=torch.float64)
+    want.index_add_(0, dst, part)
+    got = _gather_like_kernel(part, gather)
+    assert torch.equal(got, _gather_like_kernel(part, gather))
+    close(got, as_np(want), rtol=1e-14, atol=1e-14)
+    if which == "flat":
+        vals = part.reshape(V, 18)
+        old = torch.zeros(C, dtype=vals.dtype).index_add_(
+            0, cells.cols.reshape(-1).long(), vals.reshape(-1))
+        assert torch.equal(tt.cells_to_flat(vals, cells, C), old)
+        return
+    h = torch.randn((V, 18, 18), dtype=torch.float64, generator=gen)
+    hcc = h @ h.transpose(1, 2)
+    sys_ = tt.TileSystem(cost=None, g_p=None, hpp=None, g_c=None,
+                         hcc_cells=hcc, hcc_diag=None, blocks=())
+    cam_aug = torch.rand(C, dtype=torch.float64, generator=gen) + 1.0
+    cam_free = torch.ones(C, dtype=torch.float64)
+    old = torch.zeros((C // 6, 6, 6), dtype=torch.float64)
+    for j, sl in ((0, slice(0, 6)), (6, slice(6, 12)), (12, slice(12, 18))):
+        old.index_add_(0, (cells.cols[:, j] // 6).long(), hcc[:, sl, sl])
+    old = old + torch.eye(6, dtype=torch.float64) * cam_aug.reshape(-1, 6)[
+        :, :, None]
+    v = torch.randn(C, dtype=torch.float64, generator=gen)
+    want_v = torch.einsum("bij,bj->bi", torch.linalg.inv(old),
+                          v.reshape(-1, 6)).reshape(-1)
+    precond = tt._block_jacobi(sys_, cells, cam_aug, cam_free, C)
+    assert torch.equal(precond(v), want_v)
+    assert torch.equal(precond(v), precond(v))
+
+
+def test_piece_maps_sum_the_chunk_path_like_index_add(fused_problem,
+                                                     monkeypatch):
+    """Every bucket carries one fixed-order map per row piece of the torch
+    chunk path (which the step takes for buckets without local tables or
+    too wide for the fused linearize), which leaves out the masked slots;
+    its slot rows (zero where masked, as the step's are) summed through
+    them in the card's order equal index_add_ over the piece's global
+    cells."""
+    tiles_p = fused_problem[5]
+    V = tiles_p.cells.cols.shape[0]
+    b = tiles_p.buckets[0]
+    assert len(b.pieces) == len(list(tt._row_pieces(*b.cell.shape)))
+    monkeypatch.setattr(tt, "_PIECE_SLOTS", 64)
+    b = tt.with_bins(b._replace(loc=(), bins=()), V)
+    Nb, W = b.cell.shape
+    pieces = list(tt._row_pieces(Nb, W))
+    assert len(pieces) > 1 and len(b.pieces) == len(pieces)
+    gen = torch.Generator().manual_seed(7)
+    masked = 0
+    for (r0, r1), gather in zip(pieces, b.pieces):
+        cell = b.cell[r0:r1].reshape(-1).long()
+        live = b.mask[r0:r1].reshape(-1) > 0.5
+        masked += int((~live).sum())
+        assert torch.equal(torch.sort(gather[1].long()).values,
+                           live.nonzero()[:, 0])
+        part = torch.randn((cell.numel(), 171), dtype=torch.float64,
+                           generator=gen) * live[:, None]
+        want = torch.zeros((V, 171), dtype=torch.float64)
+        want.index_add_(0, cell, part)
+        close(_gather_like_kernel(part, gather), as_np(want), rtol=1e-14,
+              atol=1e-14)
+        assert torch.equal(tk.sum_rows(part, cell, V, gather), want)
+    assert masked > 0
+
+
+@pytest.mark.parametrize("max_len", [1, 3, 40])
+def test_split_gather_map_sums_like_index_add(max_len):
+    """A map that cuts rows of more than ``max_len`` sources into segments
+    (a hub cell's slots in a piece of the torch chunk path): every segment
+    holds at most max_len of its row's sources, in list order, each row's
+    segments are consecutive, and the two passes in the card's order equal
+    index_add_; a map whose rows all fit keeps one pass."""
+    gen = torch.Generator().manual_seed(11)
+    n_out = 9
+    dst = torch.randint(-1, n_out, (300,), generator=gen)
+    dst[:120] = 4                                     # one long row
+    dst[dst == 7] = 6                                 # row 7 empty
+    part = torch.randn((dst.numel(), 18), dtype=torch.float64, generator=gen)
+    whole = tk.gather_map(dst, n_out)
+    gather = tk.gather_map(dst, n_out, max_len)
+    assert len(whole) == 2 and len(gather) == 4
+    assert torch.equal(gather[1], whole[1])
+    seg_cs, seg_start = gather[0].long(), gather[2].long()
+    assert torch.equal(gather[3].long(), torch.arange(seg_cs.numel() - 1))
+    for o in range(n_out):
+        s0, s1 = int(seg_start[o]), int(seg_start[o + 1])
+        assert int(seg_cs[s0]) == int(whole[0][o])
+        assert int(seg_cs[s1]) == int(whole[0][o + 1])
+        lens = seg_cs[s0 + 1:s1 + 1] - seg_cs[s0:s1]
+        assert bool((lens > 0).all()) and bool((lens <= max_len).all())
+    want = torch.zeros((n_out, 18), dtype=torch.float64)
+    keep = dst >= 0
+    want.index_add_(0, dst[keep], part[keep])
+    close(_gather_like_kernel(part, gather), as_np(want), rtol=1e-14,
+          atol=1e-14)
+    longest = int(torch.bincount(dst[keep]).max())
+    assert len(tk.gather_map(dst, n_out, longest)) == 2
 
 
 @pytest.mark.parametrize("local", [True, False])

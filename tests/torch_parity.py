@@ -31,8 +31,9 @@ def close(got, want, rtol, atol=0.0):
                                atol=atol)
 
 
-def tiles_to_torch(tiles_jax, dtype=torch.float64):
-    """JAX TileIndex -> port TileIndex (with its slot bins) through numpy."""
+def tiles_to_torch(tiles_jax, C, dtype=torch.float64):
+    """JAX TileIndex -> port TileIndex (with its slot bins and the maps of
+    its sums into a camera vector of C values) through numpy."""
     d = {
         "cells": {k: np.asarray(v) for k, v in tiles_jax.cells._asdict().items()},
         "buckets": [dict(cell=np.asarray(b.cell), xy0=np.asarray(b.xy0),
@@ -41,4 +42,4 @@ def tiles_to_torch(tiles_jax, dtype=torch.float64):
                     for b in tiles_jax.buckets],
         "row_of_point": np.asarray(tiles_jax.row_of_point),
     }
-    return tscene.tiles_from_numpy(d, dtype=dtype, device="cpu")
+    return tscene.tiles_from_numpy(d, C, dtype=dtype, device="cpu")
