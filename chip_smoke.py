@@ -19,13 +19,18 @@ Phases (any failure raises and exits non-zero):
      of the same 8x26 cells, whose float64 E rows no longer fit the
      shared-memory tiles of ``linearize_mono`` / ``linearize_band`` (each
      linearize's route is printed); operations are counted over the live
-     slots;
+     slots; the monolithic pair takes the plane stack a solve builds once
+     (``mono_stack``), whose build time is printed on its own line, and
+     ``cost_grid`` called without it is split into its stack build and
+     its kernels; ``cost_grid``'s bound counts the bytes ``cost_mono``
+     must read (the mask plane, the xy sectors holding a live slot);
   3b. one classic LM step on the uniform-random rig (the ``linearize_grid``
      path), split into linearize / Schur solve / trial cost, with the
-     device's idle share;
-  4. the grid main path: ``run_pipeline`` on the 8x24-cell occlusion rig
-     (400k points), float64; the banded kernels must launch and the final
-     RMSE must sit under twice the pixel noise;
+     device's idle share; the step run twice must give the same bits;
+  4. one banded LM step on the band-prepped occlusion flagship run twice
+     must give the same bits; then the grid main path: ``run_pipeline`` on
+     the 8x24-cell occlusion rig (400k points), float64; the banded kernels
+     must launch and the final RMSE must sit under twice the pixel noise;
   5. a small uniform-random rig through ``run_pipeline`` (monolithic);
   6. each tile kernel against its plain version on the card at the tile
      path's shapes: the windowed BAL scene (2000 shuffled cameras, 1M
@@ -35,8 +40,10 @@ Phases (any failure raises and exits non-zero):
      sorted jcam copy the solver builds once per LM step (``tile_sweep``:
      from unrounded working-dtype rows; ``tile_sweep_local``: from the
      stored planes), held bit for bit against its plain version, with its
-     build time; float64, float32 and bf16 planes; each kernel run twice
-     must give the same bits; the step's fixed-order row sums
+     build time; float64, float32 and bf16 planes
+     (``tile_linearize_local`` split into its row pass and its bin pass by
+     device time); each kernel run twice must give the same bits; the
+     step's fixed-order row sums
      (``sum_rows``: the chunk bins, F = 18 and 171; the cells into the
      camera vector, F = 1; the block-Jacobi blocks, F = 36; a row piece of
      the torch chunk path, F = 18 and 171) against ``index_add_`` through
@@ -272,6 +279,7 @@ def phase_grid_kernels(args, records):
 
     from deeparc_tpu_torch.io import make_hemisphere_rig
     from deeparc_tpu_torch.kernels import rig_grid as k
+    from deeparc_tpu_torch.solver.rig_grid import mono_stack
 
     print("[phase 3] grid kernels vs plain versions on the card")
     rigs = {True: flagship_rig(args.n_points, 6, 0),
@@ -331,15 +339,23 @@ def phase_grid_kernels(args, records):
                       f"rows, density {density:.4f} ({live} live slots); "
                       f"linearize_grid route: {route}")
                 planes = nbytes(grid.xy0, grid.xy1, grid.mask)
+                # the stack a monolithic solve builds once and hands to both
+                # kernels
+                pxm = mono_stack(grid, (256, 1024))
+                if not tag:
+                    records.setdefault("cost_grid", {})[
+                        dname + ":split"] = cost_split(
+                            args, dname, pts, sp, grid, pxm)
                 calls = {
                     "linearize_grid": (
                         k.linearize_grid, k.linearize_grid_plain,
-                        (pts, pf, sp, grid, *tables), dict(block_np=256),
+                        (pts, pf, sp, grid, *tables),
+                        dict(block_np=256, pxm=pxm),
                         nbytes(pts, pf) + planes + T * 78 * esz, live),
                     "cost_grid": (
                         k.cost_grid, k.cost_grid_plain, (pts, sp, grid),
-                        dict(block_np=1024),
-                        nbytes(pts) + planes + T * 78 * esz, live),
+                        dict(block_np=1024, pxm=pxm),
+                        cost_mono_bytes(pts, pxm, T), live),
                 }
             if tag:
                 calls = {n: c for n, c in calls.items()
@@ -357,10 +373,66 @@ def phase_grid_kernels(args, records):
                 if name.startswith("linearize"):
                     records[name][dname + (f":{tag}" if tag else "")].update(
                         route=route, rows=rows)
+                if name == "cost_grid":
+                    rec = records[name][dname]
+                    rec["bound_counts"] = ("the mask plane, the xy planes' "
+                                           "32-byte sectors holding a live "
+                                           "slot, the points, 30 table "
+                                           "columns")
+                    print(f"  cost_grid {dname}: the bound "
+                          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}) "
+                          f"counts {in_bytes / 1e9:.3f} GB read: "
+                          f"{rec['bound_counts']} (the whole stack is "
+                          f"{nbytes(pxm) / 1e9:.3f} GB)")
             del pts, pf, sp, grid, tables, prep, calls
+            pxm = None
             torch.cuda.empty_cache()
     del wide
     return rigs
+
+
+def cost_mono_bytes(pts, pxm, T):
+    """The bytes ``cost_mono`` must read: the mask plane whole, the xy
+    planes' 32-byte sectors that hold a live slot (it loads xy only for a
+    live slot), counted from the mask on the card, the points and the 30
+    table columns of its chain."""
+    esz = pxm.element_size()
+    t_pad, n_pad = pxm.shape[1:]
+    per = 32 // esz
+    live = pxm[2].reshape(t_pad, n_pad // per, per).ne(0).any(-1)
+    return (pxm[2].numel() * esz + 2 * 32 * int(live.sum())
+            + 3 * pts.shape[0] * esz + T * 30 * esz)
+
+
+def cost_wrapper_split(pts, sp, grid):
+    """(stack build ms, cost kernels ms) of one ``cost_grid`` call that
+    builds its own stack, by profiler device time: everything but the cost
+    kernels (the stack, and the small table and point packs) against the
+    kernels whose names hold "cost"."""
+    from deeparc_tpu_torch.kernels import rig_grid as k
+
+    times = device_ms(lambda: k.cost_grid(pts, sp, grid, block_np=1024))
+    kern = sum(v for n, v in times.items() if "cost" in n)
+    return sum(times.values()) - kern, kern
+
+
+def cost_split(args, dname, pts, sp, grid, pxm):
+    """cost_grid on the uniform rig, split on the card: the wrapper without
+    a stack (:func:`cost_wrapper_split`), and the stack build a solve pays
+    once, timed alone with CUDA events."""
+    from deeparc_tpu_torch.solver.rig_grid import mono_stack
+
+    build, kern = cost_wrapper_split(pts, sp, grid)
+    split = dict(
+        wrapper_build_ms=build, wrapper_kernel_ms=kern,
+        stack_build_ms=time_ms(lambda: mono_stack(grid, (256, 1024)),
+                               args.reps),
+        stack_gbytes=nbytes(pxm) / 1e9)
+    print(f"  cost_grid {dname:15s} without a stack, by device time: stack "
+          f"build {build:.3f} ms, cost kernels {kern:.3f} ms; the solve's "
+          f"stack ({split['stack_gbytes']:.3f} GB, built once per solve): "
+          f"{split['stack_build_ms']:.3f} ms")
+    return split
 
 
 def wall_ms(fn, reps):
@@ -411,12 +483,13 @@ def print_split(label, wall, parts, busy):
 
 def grid_step_split(data):
     """Phase 3b: one classic LM step of the monolithic grid path (float64,
-    the pipeline's full-BA free mask) on the uniform-random rig of phase 3:
-    host wall time around the synchronised step; the linearize
+    the pipeline's full-BA free mask) on the uniform-random rig of phase 3,
+    with the plane stack its solve builds once (timed alone): host wall
+    time around the synchronised step; the linearize
     (``assemble_grid_system``) and the trial cost (``grid_cost``) timed
     alone with CUDA events; the Schur solve is the rest; the idle share
-    from the profiler's device time over one step. Returns the kernels'
-    launches in one step."""
+    from the profiler's device time over one step; the step run twice
+    must give the same bits. Returns the kernels' launches in one step."""
     import torch
 
     from deeparc_tpu_torch import kernels as k
@@ -429,6 +502,7 @@ def grid_step_split(data):
         grid_from_scene,
         init_grid_state,
         make_grid_step,
+        mono_stack,
         slot_params,
     )
 
@@ -438,8 +512,10 @@ def grid_step_split(data):
     cam_free = flatten_camera(free)
     params = scene.params
     opts = SolverOptions()
-    step = make_grid_step(opts, params)
-    state = init_grid_state(params, grid, opts)
+    stack = lambda: mono_stack(grid, (256, 1024))
+    pxm = stack()
+    step = make_grid_step(opts, params, pxm=pxm)
+    state = init_grid_state(params, grid, opts, pxm=pxm)
     run = lambda: step(state, grid, cam_free, free.points)
     k.reset_launch_counts()
     run()
@@ -450,12 +526,60 @@ def grid_step_split(data):
     sp = slot_params(params, grid)
     parts = {
         "linearize": time_ms(lambda: assemble_grid_system(
-            params.points, sp, grid, cam_free, free.points), 3),
-        "trial cost": time_ms(lambda: grid_cost(params.points, sp, grid), 3),
+            params.points, sp, grid, cam_free, free.points, pxm=pxm), 3),
+        "trial cost": time_ms(lambda: grid_cost(params.points, sp, grid,
+                                                pxm=pxm), 3),
     }
+    print(f"  the solve's plane stack, built once per solve: "
+          f"{time_ms(stack, 3):.3f} ms")
     print_split("one LM step (f64), Schur solve = the rest", wall, parts,
                 sum(device_ms(run).values()))
+    check_step_repeats(run, "monolithic grid step on the uniform rig")
+    print("  the step run twice: the same bits")
     return per_step
+
+
+def banded_step_repeats(data):
+    """Phase 4: one classic LM step of the banded grid path (float64, the
+    pipeline's full-BA free mask, intrinsics frozen) on the band-prepped
+    occlusion flagship, run twice from one state, must give the same
+    bits."""
+    import dataclasses
+
+    import torch
+
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.rig_band import band_grid
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_from_scene,
+        init_grid_state,
+        make_grid_step,
+    )
+
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    prep = band_grid(grid_from_scene(scene))
+    if prep is None:
+        raise AssertionError("band_grid declined the occlusion rig")
+    grid, perm = prep.grid, prep.perm.long()
+    free = freeze_masks(scene)
+    params = dataclasses.replace(scene.params,
+                                 points=scene.params.points[perm])
+    pf = free.points[perm]
+    cam_free = flatten_camera(free)
+    R = params.ext_rot.shape[0]
+    frozen = not bool(torch.any(cam_free[6 * R:] != 0))
+    bws, bbs = prep.widths
+    opts = SolverOptions()
+    step = make_grid_step(opts, params, band_widths=bws, band_blocks=bbs,
+                          band_intr_frozen=frozen)
+    state = init_grid_state(params, grid, opts, band_widths=bws,
+                            band_blocks=bbs)
+    check_step_repeats(lambda: step(state, grid, cam_free, pf),
+                       "banded grid step on the occlusion flagship")
+    print(f"  one banded LM step (f64, intrinsics "
+          f"{'frozen' if frozen else 'free'}) run twice: the same bits")
 
 
 def run_main_path(data, args, label, solver=None):
@@ -523,7 +647,7 @@ def tile_step_breakdown(layout):
     """One classic tile LM step (30 PCG iterations) on the main path's
     layout, float64: host wall time around a synchronised step, then the
     device time of each kernel under torch.profiler, split into the
-    linearize's row and bin passes and its bins' second pass, the PCG
+    linearize's row and bin passes (one block per run of bins), the PCG
     sweeps' row passes (rhs / matvec; edot) and bin passes (one block per
     chunk), their chunk-sorted plane copy, the fixed-order sums
     (``gather_cells``: the chunk bins of the sweeps and of the linearize
@@ -559,9 +683,8 @@ def tile_step_breakdown(layout):
     run = lambda: step(state, tiles, cam_free, free_t)
     _, info = run()
     wall = wall_ms(run, 3)
-    parts = ("linearize_rows", "linearize_bins", "reduce_bins",
-             "gsweep_rows", "lsweep_bins", "edot_rows", "sort_planes",
-             "gather_cells")
+    parts = ("linearize_rows", "linearize_bins", "gsweep_rows",
+             "lsweep_bins", "edot_rows", "sort_planes", "gather_cells")
     split = dict.fromkeys(parts + ("other",), 0.0)
     for key, ms in device_ms(run).items():
         split[next((p for p in parts if p in key), "other")] += ms
@@ -588,22 +711,23 @@ def tile_step_breakdown(layout):
     if not all(torch.equal(x, y) for x, y in zip(*outs)):
         raise AssertionError("two set-ups of one tile LM step's sweeps gave "
                              "different bits")
-    check_step_repeats(run, "locality layout")
+    check_step_repeats(run, "tile step on the locality layout")
     print("  the step's sweeps (rhs, matvec, edot), set up twice: the same "
           "bits; the whole step run twice: the same bits")
     return per_step
 
 
 def check_step_repeats(run, label):
-    """One tile LM step run twice from one state gives the same bits: every
-    sum of the step on the card is in a fixed order."""
+    """One LM step (grid or tile) run twice from one state gives the same
+    bits in the next state's points, camera vector and cost: every sum of
+    the step on the card is in a fixed order."""
     import torch
 
     a, b = run()[0], run()[0]
     for field in ("points", "cam_vec", "cost"):
         if not torch.equal(getattr(a, field), getattr(b, field)):
-            raise AssertionError(f"one tile LM step on the {label}, run "
-                                 f"twice: different bits in {field}")
+            raise AssertionError(f"one LM step, the {label}, run twice: "
+                                 f"different bits in {field}")
 
 
 def tile_global_step_split(layout):
@@ -661,7 +785,7 @@ def tile_global_step_split(layout):
              f"sweeps (2 + {info.cg_iters})": time_ms(sweeps, 3)}
     print_split(f"one LM step (f64, {info.cg_iters} PCG iterations, peak "
                 f"{peak:.3f} GiB)", wall, parts, sum(device_ms(run).values()))
-    check_step_repeats(run, "locality=False layout")
+    check_step_repeats(run, "tile step on the locality=False layout")
     print("  the whole step run twice: the same bits")
     return per_step
 
@@ -799,12 +923,30 @@ def phase_tile_kernels(args, records):
                 *la, plane_dtype=pdt)
             cost, pout, r_t, jx_t, jcam_t, gc, hc = lin()
             if local:
+                # the split first: in full runs the profiler has come back
+                # empty, or without one of the passes, after the plain
+                # version's long runs; a profile counts only with both
+                split = dict.fromkeys(("linearize_rows", "linearize_bins",
+                                       "other"), 0.0)
+                times = next((t for t in (device_ms(lin) for _ in range(3))
+                              if all(any(p in n for n in t)
+                                     for p in list(split)[:2])), {})
+                for kname, ms in times.items():
+                    split[next((p for p in split if p in kname),
+                               "other")] += ms
                 in_bytes = nbytes(*la)
                 measure(records, "tile_linearize_local", dname, lin, lin_plain,
                         lin_labels, args.reps,
                         in_bytes + nbytes(pout, r_t, jx_t, jcam_t, gc, hc),
                         W * Nb * OPS_PER_SLOT["tile_linearize_local"],
                         tol_name=key)
+                records["tile_linearize_local"][key]["split_ms"] = split
+                print(f"  tile_linearize_local {key:15s} by device time: "
+                      + (f"row pass {split['linearize_rows']:.3f} ms, bin "
+                         f"pass {split['linearize_bins']:.3f} ms "
+                         f"({b.bins.runs.numel() - 1} blocks), the rest "
+                         f"{split['other']:.3f} ms" if times else
+                         "not measured (the profiler saw no device time)"))
             hpp = pout[3:12].T.reshape(Nb, 3, 3)
             binv_t = inv3x3(hpp + 0.1 * torch.eye(3, dtype=dtype,
                                                   device="cuda"))
@@ -1126,6 +1268,7 @@ def main(argv=None) -> int:
           f"{data.n_obs} observations"
           + ("" if args.n_points == 400_000 else
              f" (n_points cut from 400000 to {args.n_points})"))
+    banded_step_repeats(data)
     # each path's counts are set to 0 just before it runs and read just after
     k.reset_launch_counts()
     res = run_main_path(data, args, "occlusion rig")
@@ -1187,6 +1330,11 @@ def main(argv=None) -> int:
     kernels = [kernel_record(kname, rec, launches, per_step)
                for kname, rec in records.items()]
     for rec in kernels:
+        if rec["name"] == "cost_grid":
+            # the stack a monolithic solve builds once, which the kernel's
+            # time leaves out
+            rec["stack_build_ms"] = rec["measured"]["float64:split"][
+                "stack_build_ms"]
         if rec["name"] == "tile_sweep_local":
             rec["helpers"] = {h: dict(launches=n,
                                       launches_per_step=per_step.get(h))

@@ -52,15 +52,16 @@ def _bind(lib):
         "probe_fma_pass": [i, p, ctypes.c_long, p, p],
         "probe_sweep_payload": [i, p, p, i, p, p],
         "rig_cost": [i, i] + [p] * 4 + [i] * 5 + [d, i, i, p, p],
+        "rig_cost_mono": [i, i, p, p, p, i, i, d, p, p, p],
         "rig_reduce_slots": [i, p] + [i] * 5 + [p, p, p],
         "rig_reduce_cost": [i, p, i, p, p],
         "tile_linearize_rows": [i, i, i] + [p] * 6 + [i] * 4 + [d, i, i]
                                + [p] * 6,
-        "tile_linearize_bins": [i, i] + [p] * 8 + [i] * 5 + [d, p, p],
+        "tile_linearize_bins": [i, i] + [p] * 10 + [i] * 4 + [d, p, p, p],
         "tile_edot": [i] * 3 + [p] * 4 + [i] * 5 + [p, p],
         "tile_gsweep": [i] * 3 + [p] * 9 + [i] * 4 + [p] * 3,
         "tile_sort_jcam": [i, i, p, p, i, i, p, p],
-        "tile_reduce_bins": [i, p, p, i, i, i, p, p, p],
+        "tile_reduce_bins": [i, p, p, i, i, p, p],
         "tile_reduce_cost": [i, p, i, p, p],
     }
     for name, argtypes in sigs.items():

@@ -8,10 +8,11 @@
 //   cost_grid             (:859, body _cost_kernel :159)
 // The monolithic pair takes the banded pair's tables with every tile's band
 // starting at cell 0, one group of width t_pad and no cyclic extension (the
-// wrappers in kernels/rig_grid.py build those tables). cost_grid runs the
-// banded cost kernel on them; linearize_grid has a kernel of its own,
-// linearize_mono (below), and falls back to linearize_kernel only for a rig
-// whose E row does not fit its shared-memory tile.
+// wrappers in kernels/rig_grid.py build those tables). Each monolithic
+// wrapper has a kernel of its own: cost_grid runs cost_mono (below);
+// linearize_grid runs linearize_mono (below) and falls back to
+// linearize_kernel only for a rig whose E row does not fit its
+// shared-memory tile.
 //
 // Design of linearize_kernel (linearize_grid_banded). One thread owns one
 // point of a tile of blockDim.x points and walks the tile's band of w cells;
@@ -477,6 +478,108 @@ cost_kernel(const S* __restrict__ tbl, const int* __restrict__ starts,
   }
 }
 
+// ---------------------------------------------------------------------------
+// cost_grid: the monolithic trial cost (every point against all t_pad cells)
+// ---------------------------------------------------------------------------
+//
+// Replaces cost_grid (rig_pallas.py:859, body _cost_kernel :159). One thread
+// owns one point and walks the t_pad cells in order; a block of COST_THREADS
+// points stages the 30 table columns the residual chain reads (R_i, R_o,
+// t_i, t_o, c, f, d: CostCols) for COST_CELLS cells at a time in shared
+// memory, where every lane of a warp reads the same value (a broadcast).
+// Per cell the thread reads its slot's mask first (one coalesced plane
+// row per warp) and loads xy0 / xy1 and runs the chain only for a live
+// slot: a dead slot adds exactly zero to the cost, and on the uniform rig
+// 79% of the slots are dead. Per-thread sums go through a warp sum and the
+// block's warps in order into one partial per block, summed by one warp in
+// a fixed order (reduce_cost_lanes): no float atomics.
+//
+// What bounds it on the card. Device-memory bytes: the mask plane (t_pad x
+// n_pad values) is read whole, the xy planes only in the 32-byte sectors
+// that hold a live slot; ~1,560 blocks of 256 threads at 400k points fill
+// the 132 SMs. The f64 divide of the perspective chain is the longest
+// dependent step; several warps per scheduler hide it. cost_kernel (the
+// banded wrapper's) reads all three planes at every slot and a 78-value
+// table row from device memory per slot.
+constexpr int COST_THREADS = 256;
+constexpr int COST_CELLS = 64;   // cells of the table staged at a time
+constexpr int COST_COLS = 30;    // table columns of the residual chain
+constexpr int COST_GROUP = 4;    // cells whose loads a thread issues at once
+
+// The staged table's columns: grid columns 0..17 (R_i, R_o), then 45..56
+// (t_i, t_o, c, f, d).
+struct CostCols {
+  static constexpr int RI = 0, RO = 9, TI = 18, TO = 21, CX = 24, CY = 25;
+  static constexpr int FX = 26, FY = 27, D0 = 28, D1 = 29;
+  static constexpr bool ZGUARD = false;
+};
+static_assert(RO == 9 && TI == 45 && D1 == 56, "CostCols maps the grid table");
+
+template <typename S, int LOSS>
+__global__ void __launch_bounds__(COST_THREADS)
+cost_mono(const S* __restrict__ tbl, const S* __restrict__ pts,
+          const S* __restrict__ pxm, int t_pad, int n_pad, S scale,
+          S* __restrict__ partial_cost) {
+  __shared__ S ct[COST_CELLS * COST_COLS];
+  __shared__ S cost_stage[COST_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long p = (long)blockIdx.x * COST_THREADS + tid;
+  const bool in = p < n_pad;
+  const long plane = (long)t_pad * n_pad;
+  S X[3] = {S(0), S(0), S(0)};
+  if (in) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) X[a] = pts[(long)a * n_pad + p];
+  }
+  S acc = S(0);
+  for (int c0 = 0; c0 < t_pad; c0 += COST_CELLS) {
+    const int nc = min(COST_CELLS, t_pad - c0);
+    __syncthreads();
+    for (int q = tid; q < nc * COST_COLS; q += COST_THREADS) {
+      const int j = q % COST_COLS;
+      ct[q] = tbl[(long)(c0 + q / COST_COLS) * SP_COLS + (j < 18 ? j : 27 + j)];
+    }
+    __syncthreads();
+    if (!in) continue;
+    // cells in groups of COST_GROUP: a group's live xy loads go out
+    // together with the next group's masks, then its chains run
+    const S* mrow = pxm + 2 * plane + p;
+    S m[COST_GROUP];
+#pragma unroll
+    for (int u = 0; u < COST_GROUP; ++u)
+      m[u] = u < nc ? mrow[(long)(c0 + u) * n_pad] : S(0);
+    for (int c = 0; c < nc; c += COST_GROUP) {
+      S x0[COST_GROUP], x1[COST_GROUP], mn[COST_GROUP];
+#pragma unroll
+      for (int u = 0; u < COST_GROUP; ++u) {
+        const long off = (long)(c0 + c + u) * n_pad + p;
+        x0[u] = m[u] != S(0) ? pxm[off] : S(0);
+        x1[u] = m[u] != S(0) ? pxm[plane + off] : S(0);
+      }
+#pragma unroll
+      for (int u = 0; u < COST_GROUP; ++u) {
+        const int cn = c + COST_GROUP + u;
+        mn[u] = cn < nc ? mrow[(long)(c0 + cn) * n_pad] : S(0);
+      }
+#pragma unroll
+      for (int u = 0; u < COST_GROUP; ++u)
+        if (m[u] != S(0))
+          acc += slot_cost<S, LOSS, CostCols>(ct + (c + u) * COST_COLS, X,
+                                              x0[u], x1[u], m[u], scale);
+#pragma unroll
+      for (int u = 0; u < COST_GROUP; ++u) m[u] = mn[u];
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) cost_stage[warp] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    S s = S(0);
+    for (int w = 0; w < COST_THREADS / 32; ++w) s += cost_stage[w];
+    partial_cost[blockIdx.x] = s;
+  }
+}
+
 // Second pass of the slot reduction: sum the per-block partials in block
 // order, fold the cyclic extension rows [t_pad, t_ext) onto cells
 // [0, t_ext - t_pad), and expand the triangle into g_slots (T, 18) and the
@@ -680,6 +783,39 @@ extern "C" int rig_cost(int dtype, int loss, const void* tbl,
     if (loss == CAUCHY) { RIG_COST(float, CAUCHY); }
   }
 #undef RIG_COST
+  return (int)cudaErrorInvalidValue;
+}
+
+// cost_grid: cost_mono over n_pad points (one partial per block of
+// COST_THREADS), then one warp sums the partials in order into out.
+extern "C" int rig_cost_mono(int dtype, int loss, const void* tbl,
+                             const void* pts, const void* pxm, int t_pad,
+                             int n_pad, double scale, void* partial_cost,
+                             void* out, void* stream) {
+  if (t_pad <= 0 || n_pad <= 0) return (int)cudaErrorInvalidValue;
+  const int grid = (n_pad + COST_THREADS - 1) / COST_THREADS;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RIG_COST_MONO(T, L)                                                  \
+  {                                                                          \
+    cost_mono<T, L><<<grid, COST_THREADS, 0, s>>>(                           \
+        (const T*)tbl, (const T*)pts, (const T*)pxm, t_pad, n_pad, (T)scale, \
+        (T*)partial_cost);                                                   \
+    const cudaError_t e = cudaGetLastError();                                \
+    if (e != cudaSuccess) return (int)e;                                     \
+    reduce_cost_lanes<T><<<1, 32, 0, s>>>((const T*)partial_cost, grid,      \
+                                          (T*)out);                          \
+    return (int)cudaGetLastError();                                          \
+  }
+  if (dtype == 1) {
+    if (loss == TRIVIAL) RIG_COST_MONO(double, TRIVIAL)
+    if (loss == HUBER) RIG_COST_MONO(double, HUBER)
+    if (loss == CAUCHY) RIG_COST_MONO(double, CAUCHY)
+  } else if (dtype == 0) {
+    if (loss == TRIVIAL) RIG_COST_MONO(float, TRIVIAL)
+    if (loss == HUBER) RIG_COST_MONO(float, HUBER)
+    if (loss == CAUCHY) RIG_COST_MONO(float, CAUCHY)
+  }
+#undef RIG_COST_MONO
   return (int)cudaErrorInvalidValue;
 }
 

@@ -220,4 +220,15 @@ __device__ __forceinline__ S warp_sum(S x) {
   return x;
 }
 
+// A fixed-order sum of n per-block partials, launched as one warp: lane l
+// sums partials l, l + 32, ... in order, then a warp sum.
+template <typename S>
+__global__ void reduce_cost_lanes(const S* __restrict__ partial, int n,
+                                  S* __restrict__ out) {
+  S s = S(0);
+  for (int i = threadIdx.x; i < n; i += 32) s += partial[i];
+  s = warp_sum(s);
+  if (threadIdx.x == 0) out[0] = s;
+}
+
 }  // namespace rig

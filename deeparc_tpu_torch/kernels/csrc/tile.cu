@@ -24,11 +24,12 @@
 //     sweeps) are sums over rows into data-dependent cells. The host builds
 //     once per layout a list of the bucket's slots sorted by bin (chunk *
 //     V_local + local id, or the global id), cut into segments of at most
-//     256 slots (kernels/tile.slot_bins). The linearize: one warp sums one
-//     segment in list order into its own partial row, a third kernel sums
-//     each bin's segments in order; its bin pass recomputes the slot chain
-//     from its inputs in the working type (so bins never see bf16-rounded
-//     planes).
+//     256 slots and into runs of bins (kernels/tile.slot_bins). The
+//     linearize: one block per run (a chunk's bins) recomputes 256 slots
+//     at a time from the inputs in the working type (so bins never see
+//     bf16-rounded planes), stages their 38 values in shared memory, and
+//     its lanes sum 3x3 blocks of each bin's Gram and gradient in slot
+//     order straight into the bin's row of gc / hc.
 //   * The sweeps (rhs / matvec) read a sorted copy of the jcam planes, built
 //     once per LM step (the planes are fixed within a step, and a sweep runs
 //     2 + one per PCG iteration times): the row pass writes each slot's t2
@@ -45,7 +46,10 @@
 //   * No float atomics anywhere, so every run gives the same bits.
 //
 // What bounds it on the card. Device-memory bytes. The linearize writes
-// 44 plane values per slot (2 r, 6 jx, 36 jcam) plus its bins; a matvec
+// 44 plane values per slot (2 r, 6 jx, 36 jcam) plus its bins (189 values
+// a bin, ~32 slots a bin on a locality bucket), and its bin pass reads the
+// row pass's inputs once more through the sorted list (L2-resident within
+// a chunk) and does 2 x 189 FMAs a slot from shared memory; a matvec
 // sweep reads the 42 jx/jcam values of every slot, and both sweeps read the
 // sorted copy's 36 once more, coalesced: about 640 bytes a slot in f64
 // against the bound's ~350, plus the copy (2.3 GB at 1M rows x 8 slots)
@@ -152,65 +156,193 @@ linearize_rows(const S* __restrict__ pts, const int* __restrict__ cell,
   }
 }
 
-// One warp per segment of a bin: lane l takes the segment's slots l, l+32,
-// ...; per round of 32 slots each of the 189 values is warp-summed, and the
-// total is kept by lane (v % 32) in its accumulator v / 32.
+// tile_linearize_local's bin pass: the per-bin gradient gc (18) and upper
+// Gram hc (171) of every bin, in the working type. Block r owns run r of
+// bins (SlotBins.runs: the bins of one chunk, or of at most LB_RUN sorted
+// slots of a chunk), whose slots fill one run of sorted positions, and
+// walks them LB_THREADS at a time:
+//   * stage: thread k recomputes the slot at position t0 + k (order[] ->
+//     flat id) from the inputs, so the bins never see bf16-rounded planes,
+//     and stages its 38 values (P_0 18, r_0, P_1 18, r_1) in shared memory;
+//   * sum: warp w takes the slice's bins w, w + 8, ...; its lane l < 21
+//     owns one 3x3 block of the upper Gram, lanes 21..26 one 3-value block
+//     of P^T r, and sums it over the bin's staged slots in slot order with
+//     FMAs; the lane then writes its values straight into the bin's row of
+//     gc / hc, or adds them there when the bin began in an earlier slice.
+// The block alone writes its bins' rows, each bin's pieces in slice order:
+// no partial rows, no second pass, no shuffles, the same bits every run.
+constexpr int LB_THREADS = 256;         // slots of a slice, one per thread
+constexpr int LB_WARPS = LB_THREADS / 32;
+constexpr int LB_LD = LB_THREADS + 1;   // row stride of the staged values
+constexpr int LB_ROWS = 38;             // staged values a slot: P_0 r_0 P_1 r_1
+constexpr int LB_BINS = 1024;           // most bins of a run (slot_bins)
+
+// A slot's inputs, gathered through the sorted list; m = 0 past its end.
+template <typename S>
+struct Gathered {
+  S X[3], pf[3], x0, x1, m;
+  int p, cell;
+};
+
+template <typename S>
+__device__ __forceinline__ Gathered<S> gather_slot(
+    const int* __restrict__ order, const S* __restrict__ mask,
+    const S* __restrict__ xy0, const S* __restrict__ xy1,
+    const int* __restrict__ cell, const S* __restrict__ pts, int i, int end,
+    int Nb) {
+  Gathered<S> g;
+  g.m = S(0);
+  g.p = 0;
+  g.cell = 0;
+  if (i < end) {
+    const int f = order[i];
+    g.p = f % Nb;
+    g.m = mask[f];
+    g.x0 = xy0[f];
+    g.x1 = xy1[f];
+    g.cell = cell[f];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      g.X[a] = pts[(long)a * Nb + g.p];
+      g.pf[a] = pts[(long)(3 + a) * Nb + g.p];
+    }
+  }
+  return g;
+}
+
 template <typename S, int LOSS>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(LB_THREADS, 2)
 linearize_bins(const S* __restrict__ pts, const int* __restrict__ cell,
                const S* __restrict__ xy0, const S* __restrict__ xy1,
                const S* __restrict__ mask, const S* __restrict__ tables,
                const int* __restrict__ order,
-               const int* __restrict__ seg_start, int n_seg, int Nb, int B,
-               int Vl, S scale, S* __restrict__ partial) {
-  constexpr int NACC = (NV_LIN + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  const long seg = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (seg >= n_seg) return;
-  const int lo = seg_start[seg], hi = seg_start[seg + 1];
-  S acc[NACC];
+               const int* __restrict__ seg_start,
+               const int* __restrict__ bin_seg, const int* __restrict__ runs,
+               int Nb, int B, int Vl, S scale, S* __restrict__ gc,
+               S* __restrict__ hc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* st = reinterpret_cast<S*>(smem_raw);                     // [38][LB_LD]
+  int* bstart = reinterpret_cast<int*>(st + LB_ROWS * LB_LD);  // [nb + 1]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b_lo = runs[blockIdx.x], nb = runs[blockIdx.x + 1] - b_lo;
+  if (nb > LB_BINS) __trap();  // slot_bins cuts runs at LB_BINS bins
+  for (int l = tid; l <= nb; l += LB_THREADS)
+    bstart[l] = seg_start[bin_seg[b_lo + l]];
+  __syncthreads();
+  // a bin with no slots is a zero row
+  for (int l = warp; l < nb; l += LB_WARPS) {
+    if (bstart[l] != bstart[l + 1]) continue;
+    for (int v = lane; v < NV_LIN; v += 32) {
+      if (v < 18)
+        gc[(long)(b_lo + l) * 18 + v] = S(0);
+      else
+        hc[(long)(b_lo + l) * 171 + v - 18] = S(0);
+    }
+  }
+
+  // the lane's 3x3 block: staged rows ca (block rows) x cb (block columns)
+  // of one residual row; lanes 21..26 take P^T r (cb = r), 27..31 idle
+  int ca = 0, cb = 0, blkI = 0;
+  if (lane < 21) {
+    int l = lane;
+    while (l >= 6 - blkI) {
+      l -= 6 - blkI;
+      ++blkI;
+    }
+    ca = 3 * blkI;
+    cb = 3 * (blkI + l);
+  } else {
+    ca = lane < 27 ? 3 * (lane - 21) : 0;
+    cb = 18;
+  }
+  const int cb_step = lane < 21 ? 1 : 0;
+  // where each of the lane's nine sums goes in a bin's 189 values (-1:
+  // below the diagonal, or an idle lane)
+  int vidx[3][3];
 #pragma unroll
-  for (int q = 0; q < NACC; ++q) acc[q] = S(0);
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + lane;
-    S r0 = S(0), r1 = S(0), Pj[2][18];
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int k = 0; k < 2; ++k)
+    for (int j = 0; j < 3; ++j) {
+      const int a = ca + i, b = cb + j;
+      vidx[i][j] = lane < 21 ? (a <= b ? 18 + a * 18 - a * (a - 1) / 2 + (b - a)
+                                       : -1)
+                             : (lane < 27 && j == 0 ? a : -1);
+    }
+
+  const int s_lo = bstart[0], s_hi = bstart[nb];
+  // the thread's slot of the next slice: its gathered inputs are loaded
+  // while the current slice is summed
+  Gathered<S> g = gather_slot<S>(order, mask, xy0, xy1, cell, pts, s_lo + tid,
+                                 s_hi, Nb);
+  int fb = 0;  // the first bin of the current slice
+  for (int t0 = s_lo; t0 < s_hi; t0 += LB_THREADS) {
+    const int t1 = min(t0 + LB_THREADS, s_hi);
+    {
+      S r0 = S(0), r1 = S(0), Pj[2][18];
 #pragma unroll
-      for (int j = 0; j < 18; ++j) Pj[k][j] = S(0);
-    if (i < hi) {
-      const long f = order[i];
-      const long p = f % Nb;
-      const S m = mask[f];
-      if (m != S(0)) {
-        const S X[3] = {pts[p], pts[(long)Nb + p], pts[2L * Nb + p]};
-        const S pf[3] = {pts[3L * Nb + p], pts[4L * Nb + p],
-                         pts[5L * Nb + p]};
-        const S* c = tables + ((p / B) * (long)Vl + cell[f]) * rig::SP_COLS;
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int j = 0; j < 18; ++j) Pj[k][j] = S(0);
+      if (g.m != S(0)) {
+        const S* c = tables + ((g.p / B) * (long)Vl + g.cell) * rig::SP_COLS;
         S jx[2][3];
-        rig::slot_products<S, LOSS, 18, TileCols>(c, X, pf, xy0[f], xy1[f], m,
-                                                  scale, r0, r1, jx, Pj);
+        rig::slot_products<S, LOSS, 18, TileCols>(c, g.X, g.pf, g.x0, g.x1,
+                                                  g.m, scale, r0, r1, jx, Pj);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int j = 0; j < 18; ++j) st[(19 * k + j) * LB_LD + tid] = Pj[k][j];
+        st[(19 * k + 18) * LB_LD + tid] = k == 0 ? r0 : r1;
       }
     }
-    int v = 0;
+    __syncthreads();
+    g = gather_slot<S>(order, mask, xy0, xy1, cell, pts, t1 + tid, s_hi, Nb);
+    while (bstart[fb + 1] <= t0) ++fb;
+    for (int l = fb + warp; l < nb && bstart[l] < t1; l += LB_WARPS) {
+      const int lo = max(bstart[l], t0) - t0, hi = min(bstart[l + 1], t1) - t0;
+      if (hi <= lo) continue;
+      S acc[3][3];
 #pragma unroll
-    for (int a = 0; a < 18; ++a, ++v) {
-      const S x = warp_sum(Pj[0][a] * r0 + Pj[1][a] * r1);
-      if (lane == (v & 31)) acc[v >> 5] += x;
-    }
+      for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int a = 0; a < 18; ++a)
+        for (int j = 0; j < 3; ++j) acc[i][j] = S(0);
+#pragma unroll 4
+      for (int x = lo; x < hi; ++x) {
 #pragma unroll
-      for (int b = a; b < 18; ++b, ++v) {
-        const S x = warp_sum(Pj[0][a] * Pj[0][b] + Pj[1][a] * Pj[1][b]);
-        if (lane == (v & 31)) acc[v >> 5] += x;
+        for (int k = 0; k < 2; ++k) {
+          S a[3], b[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            a[i] = st[(19 * k + ca + i) * LB_LD + x];
+            b[i] = st[(19 * k + cb + i * cb_step) * LB_LD + x];
+          }
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) acc[i][j] += a[i] * b[j];
+        }
       }
-  }
+      // the bin's first piece is written, a later one added
+      const bool first = bstart[l] >= t0;
+      const long b = b_lo + l;
 #pragma unroll
-  for (int q = 0; q < NACC; ++q) {
-    const int v = q * 32 + lane;
-    if (v < NV_LIN) partial[seg * NV_LIN + v] = acc[q];
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int v = vidx[i][j];
+          if (v < 0) continue;
+          S* o = v < 18 ? gc + b * 18 + v : hc + b * 171 + (v - 18);
+          *o = first ? acc[i][j] : *o + acc[i][j];
+        }
+    }
+    __syncthreads();
   }
+}
+
+// Dynamic shared memory of linearize_bins.
+inline size_t lbins_smem(size_t esz) {
+  return (size_t)LB_ROWS * LB_LD * esz + (LB_BINS + 1) * sizeof(int);
 }
 
 // ---------------------------------------------------------------------------
@@ -560,33 +692,19 @@ __global__ void __launch_bounds__(GATHER_THREADS)
 // Fixed-order second passes
 // ---------------------------------------------------------------------------
 
-// out[bin] = sum over the bin's segments, in order, of their partial rows;
-// values q < na go to out_a (n_bins, na), the rest to out_b (n_bins, nv-na).
+// out[bin] (n_bins, nv) = sum over the bin's segments, in order, of their
+// partial rows (tile_sweep's second pass).
 template <typename S>
 __global__ void reduce_bins(const S* __restrict__ partial,
                             const int* __restrict__ bin_seg, int n_bins,
-                            int nv, int na, S* __restrict__ out_a,
-                            S* __restrict__ out_b) {
+                            int nv, S* __restrict__ out) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)n_bins * nv) return;
   const long b = idx / nv;
   const int q = (int)(idx - b * nv);
   S s = S(0);
   for (int g = bin_seg[b]; g < bin_seg[b + 1]; ++g) s += partial[(long)g * nv + q];
-  if (q < na)
-    out_a[b * na + q] = s;
-  else
-    out_b[b * (nv - na) + (q - na)] = s;
-}
-
-// One warp: lane l sums partials l, l+32, ... in order, then a warp sum.
-template <typename S>
-__global__ void reduce_cost(const S* __restrict__ partial, int n,
-                            S* __restrict__ out) {
-  S s = S(0);
-  for (int i = threadIdx.x; i < n; i += 32) s += partial[i];
-  s = warp_sum(s);
-  if (threadIdx.x == 0) out[0] = s;
+  out[idx] = s;
 }
 
 inline int blocks_for(long n, int threads) {
@@ -632,30 +750,40 @@ extern "C" int tile_linearize_rows(int dtype, int pdtype, int loss,
   return (int)cudaErrorInvalidValue;
 }
 
+// tile_linearize_local's bin pass: one block per run of bins, gc (n_bins,
+// 18) and hc (n_bins, 171) final.
 extern "C" int tile_linearize_bins(int dtype, int loss, const void* pts,
                                    const void* cell, const void* xy0,
                                    const void* xy1, const void* mask,
                                    const void* tables, const void* order,
-                                   const void* seg_start, int n_seg, int W,
-                                   int Nb, int B, int Vl, double scale,
-                                   void* partial, void* stream) {
-  if (n_seg == 0) return 0;
+                                   const void* seg_start, const void* bin_seg,
+                                   const void* runs, int n_runs, int Nb, int B,
+                                   int Vl, double scale, void* gc, void* hc,
+                                   void* stream) {
+  if (n_runs == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int grid = blocks_for(n_seg, WARPS);
+  const size_t smem = lbins_smem(dtype == 1 ? 8 : 4);
 #define TILE_BINS(T, L)                                                      \
-  linearize_bins<T, L><<<grid, WARPS * 32, 0, s>>>(                          \
-      (const T*)pts, (const int*)cell, (const T*)xy0, (const T*)xy1,         \
-      (const T*)mask, (const T*)tables, (const int*)order,                   \
-      (const int*)seg_start, n_seg, Nb, B, Vl, (T)scale, (T*)partial);       \
-  return (int)cudaGetLastError()
+  {                                                                          \
+    const cudaError_t e = cudaFuncSetAttribute(                              \
+        linearize_bins<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+        (int)smem);                                                          \
+    if (e != cudaSuccess) return (int)e;                                     \
+    linearize_bins<T, L><<<n_runs, LB_THREADS, smem, s>>>(                   \
+        (const T*)pts, (const int*)cell, (const T*)xy0, (const T*)xy1,       \
+        (const T*)mask, (const T*)tables, (const int*)order,                 \
+        (const int*)seg_start, (const int*)bin_seg, (const int*)runs, Nb, B, \
+        Vl, (T)scale, (T*)gc, (T*)hc);                                       \
+    return (int)cudaGetLastError();                                          \
+  }
   if (dtype == 1) {
-    if (loss == rig::TRIVIAL) { TILE_BINS(double, rig::TRIVIAL); }
-    if (loss == rig::HUBER) { TILE_BINS(double, rig::HUBER); }
-    if (loss == rig::CAUCHY) { TILE_BINS(double, rig::CAUCHY); }
+    if (loss == rig::TRIVIAL) TILE_BINS(double, rig::TRIVIAL)
+    if (loss == rig::HUBER) TILE_BINS(double, rig::HUBER)
+    if (loss == rig::CAUCHY) TILE_BINS(double, rig::CAUCHY)
   } else if (dtype == 0) {
-    if (loss == rig::TRIVIAL) { TILE_BINS(float, rig::TRIVIAL); }
-    if (loss == rig::HUBER) { TILE_BINS(float, rig::HUBER); }
-    if (loss == rig::CAUCHY) { TILE_BINS(float, rig::CAUCHY); }
+    if (loss == rig::TRIVIAL) TILE_BINS(float, rig::TRIVIAL)
+    if (loss == rig::HUBER) TILE_BINS(float, rig::HUBER)
+    if (loss == rig::CAUCHY) TILE_BINS(float, rig::CAUCHY)
   }
 #undef TILE_BINS
   return (int)cudaErrorInvalidValue;
@@ -857,20 +985,19 @@ extern "C" int tile_gather_cells(int dtype, const void* part,
 
 extern "C" int tile_reduce_bins(int dtype, const void* partial,
                                 const void* bin_seg, int n_bins, int nv,
-                                int na, void* out_a, void* out_b,
-                                void* stream) {
+                                void* out, void* stream) {
   const long n = (long)n_bins * nv;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = blocks_for(n, 256);
   if (dtype == 1)
     reduce_bins<double><<<grid, 256, 0, s>>>(
-        (const double*)partial, (const int*)bin_seg, n_bins, nv, na,
-        (double*)out_a, (double*)out_b);
+        (const double*)partial, (const int*)bin_seg, n_bins, nv,
+        (double*)out);
   else if (dtype == 0)
     reduce_bins<float><<<grid, 256, 0, s>>>(
-        (const float*)partial, (const int*)bin_seg, n_bins, nv, na,
-        (float*)out_a, (float*)out_b);
+        (const float*)partial, (const int*)bin_seg, n_bins, nv,
+        (float*)out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -880,11 +1007,11 @@ extern "C" int tile_reduce_cost(int dtype, const void* partial, int n,
                                 void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    reduce_cost<double><<<1, 32, 0, s>>>((const double*)partial, n,
-                                         (double*)out);
+    rig::reduce_cost_lanes<double><<<1, 32, 0, s>>>((const double*)partial,
+                                                    n, (double*)out);
   else if (dtype == 0)
-    reduce_cost<float><<<1, 32, 0, s>>>((const float*)partial, n,
-                                        (float*)out);
+    rig::reduce_cost_lanes<float><<<1, 32, 0, s>>>((const float*)partial, n,
+                                                   (float*)out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -15,13 +15,15 @@ the plain PyTorch version (``*_plain``), which the tests hold against the
 JAX reference. Each wrapper counts its kernel launches in a plain ``int``
 attribute, ``launches``.
 
-The monolithic pair is the banded pair with every tile's band starting at
-cell 0, one group of width t_pad and no cyclic extension, so one linearize
-kernel and one cost kernel serve all four.
+The monolithic pair takes the banded pair's tables with every tile's band
+starting at cell 0, one group of width t_pad and no cyclic extension; each
+has a kernel of its own (``linearize_mono``, ``cost_mono``).
 
 Inputs are laid out as in the reference: cells of a tile's band in rows,
 points in columns. ``pxm`` stacks [xy0; xy1; mask] per width group as
-(3, w, g_tiles * block_np); the (t_ext, 78) slot table holds per-cell
+(3, w, g_tiles * block_np), or for the monolithic pair as the whole
+(3, t_pad, n_pad) :func:`mono_planes` stack, which a solve builds once and
+hands to both; the (t_ext, 78) slot table holds per-cell
 camera values (``pack_slot_tables``). E comes back in the kernel's NATIVE
 column order (per point coordinate: six R-wide extrinsic groups, then six
 K-wide intrinsic groups unless the intrinsics are frozen);
@@ -94,22 +96,26 @@ def _extend_cyclic(x, w_band, dim=0):
     return torch.cat([x, x.narrow(dim, 0, w_band)], dim=dim)
 
 
-def _pad_planes_t(x, t_pad, n_pad):
-    """(N, T) -> transposed, zero-padded (t_pad, n_pad)."""
-    N, T = x.shape
-    out = torch.zeros((t_pad, n_pad), dtype=x.dtype, device=x.device)
-    out[:T, :N] = x.T
+def mono_planes(grid, n_pad):
+    """The observation stack (3, t_pad, n_pad): [xy0; xy1; mask] transposed,
+    zero-padded to t_pad = T rounded up to 8 cells and n_pad points. The
+    monolithic kernels take it as ``pxm``; a solve builds it once (it
+    depends on the mask only), at a width both kernels' tiles divide."""
+    N, T = grid.xy0.shape
+    t_pad = _round_up(T, 8)
+    out = torch.empty((3, t_pad, n_pad), dtype=grid.xy0.dtype,
+                      device=grid.xy0.device)
+    out[:, T:] = 0.0
+    out[:, :T, N:] = 0.0
+    for i, x in enumerate((grid.xy0, grid.xy1, grid.mask)):
+        out[i, :T, :N] = x.T
     return out
 
 
 def banded_planes(grid, n_pad, ext_len):
     """Stacked + cyclically-extended observation planes
     (3, t_pad + ext_len, n_pad): [xy0; xy1; mask] transposed."""
-    t_pad = _round_up(grid.xy0.shape[1], 8)
-    stack = torch.stack([_pad_planes_t(grid.xy0, t_pad, n_pad),
-                         _pad_planes_t(grid.xy1, t_pad, n_pad),
-                         _pad_planes_t(grid.mask, t_pad, n_pad)])
-    return _extend_cyclic(stack, ext_len, dim=1)
+    return _extend_cyclic(mono_planes(grid, n_pad), ext_len, dim=1)
 
 
 def gather_banded_planes(pxm_ext, starts, w_band, block_np, t_lo=0, t_hi=None):
@@ -224,13 +230,27 @@ def _prep_linearize_banded(points, point_free, sp, grid, free_outer,
                 block_np=block_np, intr_frozen=intr_frozen)
 
 
+def _mono_stack(grid, N, t_pad, block_np, pxm, dtype):
+    """The monolithic kernels' plane stack and padded point count: ``pxm``
+    checked against the shape the kernels index with, or built."""
+    if pxm is None:
+        n_pad = _round_up(N, block_np)
+        return mono_planes(grid, n_pad), n_pad
+    n_pad = pxm.shape[-1]
+    if (pxm.shape != (3, t_pad, n_pad) or n_pad < N or n_pad % block_np
+            or pxm.dtype != dtype):
+        raise ValueError(f"plane stack {tuple(pxm.shape)} {pxm.dtype} does "
+                         f"not fit (3, {t_pad}, n_pad >= {N}) {dtype} with "
+                         f"n_pad a multiple of {block_np} (mono_planes)")
+    return pxm, n_pad
+
+
 def _prep_linearize_mono(points, point_free, sp, grid, free_outer, free_inner,
-                         free_intr, block_np):
+                         free_intr, block_np, pxm):
     N, T = grid.xy0.shape
     t_pad = _round_up(T, 8)
-    n_pad = _round_up(N, block_np)
+    pxm, n_pad = _mono_stack(grid, N, t_pad, block_np, pxm, points.dtype)
     n_tiles = n_pad // block_np
-    pxm = banded_planes(grid, n_pad, 0)
     tables = _banded_tables(sp, grid, free_outer, free_inner, free_intr,
                             t_pad, 0, points.dtype)
     starts = torch.zeros(n_tiles, dtype=torch.int32, device=points.device)
@@ -253,14 +273,13 @@ def _prep_cost_banded(points, sp, grid, starts, w_band, block_np, pxm):
                 pts=_pts_pack(points, None, n_pad), block_np=block_np)
 
 
-def _prep_cost_mono(points, sp, grid, block_np):
+def _prep_cost_mono(points, sp, grid, block_np, pxm):
     N, T = grid.xy0.shape
     t_pad = _round_up(T, 8)
-    n_pad = _round_up(N, block_np)
+    pxm, n_pad = _mono_stack(grid, N, t_pad, block_np, pxm, points.dtype)
     n_tiles = n_pad // block_np
     zeros6 = torch.zeros((T, 6), dtype=points.dtype, device=points.device)
-    return dict(groups=((t_pad, 0, n_tiles),),
-                pxms=(banded_planes(grid, n_pad, 0),),
+    return dict(groups=((t_pad, 0, n_tiles),), pxms=(pxm,),
                 tbl=pack_slot_tables(sp, grid, zeros6, zeros6, zeros6, t_pad),
                 starts=torch.zeros(n_tiles, dtype=torch.int32,
                                    device=points.device),
@@ -655,7 +674,8 @@ def _cuda_linearize_mono(prep, loss, loss_scale):
     return _finish_linearize(prep["N"], cost, pout, g_slots, hcc_slots, E)
 
 
-def _cuda_cost(prep, loss, loss_scale, counter):
+def _cuda_cost(prep, loss, loss_scale):
+    """cost_grid_banded's kernel (``cost_kernel``) over the width groups."""
     from deeparc_tpu_torch.kernels.build import check, library
 
     lib = library()
@@ -673,7 +693,7 @@ def _cuda_cost(prep, loss, loss_scale, counter):
     for (w, lo, hi), pxm in zip(prep["groups"], pxms):
         if hi == lo:
             continue
-        counter.launches += 1
+        cost_grid_banded.launches += 1
         check(lib.rig_cost(dt, ls, tbl.data_ptr(), starts.data_ptr(),
                            pts.data_ptr(), pxm.data_ptr(), pts.shape[1], lo,
                            hi - lo, bn, w, float(loss_scale),
@@ -681,6 +701,30 @@ def _cuda_cost(prep, loss, loss_scale, counter):
                            partial_cost.data_ptr(), stream), "rig_cost")
     check(lib.rig_reduce_cost(dt, partial_cost.data_ptr(), n_blocks,
                               cost.data_ptr(), stream), "rig_reduce_cost")
+    return cost
+
+
+# threads (points) of a cost_mono block (csrc/rig_grid.cu COST_THREADS)
+COST_THREADS = 256
+
+
+def _cuda_cost_mono(prep, loss, loss_scale):
+    """cost_grid's own kernel (``cost_mono``): one thread per point over
+    the whole stack, then one warp sums the blocks' partials in order."""
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    pts, tbl, (pxm,) = prep["pts"], prep["tbl"].contiguous(), prep["pxms"]
+    pxm = pxm.contiguous()
+    dt, ls = _cuda_args(pts, loss, (tbl, pxm))
+    t_pad, n_pad = pxm.shape[1], pxm.shape[2]
+    partial = torch.empty((-(-n_pad // COST_THREADS),), dtype=pts.dtype,
+                          device=pts.device)
+    cost = torch.empty((), dtype=pts.dtype, device=pts.device)
+    cost_grid.launches += 1
+    check(library().rig_cost_mono(
+        dt, ls, tbl.data_ptr(), pts.data_ptr(), pxm.data_ptr(), t_pad, n_pad,
+        float(loss_scale), partial.data_ptr(), cost.data_ptr(),
+        torch.cuda.current_stream(pts.device).cuda_stream), "rig_cost_mono")
     return cost
 
 
@@ -753,46 +797,51 @@ def cost_grid_banded(points, sp, grid, starts, w_band, loss="trivial",
         return cost_grid_banded_plain(points, sp, grid, starts, w_band, loss,
                                       loss_scale, block_np, pxm)
     prep = _prep_cost_banded(points, sp, grid, starts, w_band, block_np, pxm)
-    return _cuda_cost(prep, loss, loss_scale, cost_grid_banded)
+    return _cuda_cost(prep, loss, loss_scale)
 
 
 def linearize_grid_plain(points, point_free, sp, grid, free_outer, free_inner,
                          free_intr, loss="trivial", loss_scale=0.5,
-                         block_np=256):
+                         block_np=256, pxm=None):
     """Plain PyTorch version of :func:`linearize_grid`."""
     prep = _prep_linearize_mono(points, point_free, sp, grid, free_outer,
-                                free_inner, free_intr, block_np)
+                                free_inner, free_intr, block_np, pxm)
     return _plain_linearize(prep, loss, loss_scale)
 
 
 def linearize_grid(points, point_free, sp, grid, free_outer, free_inner,
-                   free_intr, loss="trivial", loss_scale=0.5, block_np=256):
+                   free_intr, loss="trivial", loss_scale=0.5, block_np=256,
+                   pxm=None):
     """Fused full-problem linearization over all t_pad cells. Returns the
     same tuple as :func:`linearize_grid_banded`; E always holds the
-    intrinsic columns."""
+    intrinsic columns. ``pxm`` is the grid's :func:`mono_planes` stack,
+    built here when not given (a solve builds it once)."""
     if not _dispatch(points, "linearize_grid"):
         return linearize_grid_plain(points, point_free, sp, grid, free_outer,
                                     free_inner, free_intr, loss, loss_scale,
-                                    block_np)
+                                    block_np, pxm)
     prep = _prep_linearize_mono(points, point_free, sp, grid, free_outer,
-                                free_inner, free_intr, block_np)
+                                free_inner, free_intr, block_np, pxm)
     return _cuda_linearize_mono(prep, loss, loss_scale)
 
 
 def cost_grid_plain(points, sp, grid, loss="trivial", loss_scale=0.5,
-                    block_np=1024):
+                    block_np=1024, pxm=None):
     """Plain PyTorch version of :func:`cost_grid`."""
-    return _plain_cost(_prep_cost_mono(points, sp, grid, block_np), loss,
+    return _plain_cost(_prep_cost_mono(points, sp, grid, block_np, pxm), loss,
                        loss_scale)
 
 
 def cost_grid(points, sp, grid, loss="trivial", loss_scale=0.5,
-              block_np=1024):
-    """Fused robustified half-SSE over the whole grid (trial-cost pass)."""
+              block_np=1024, pxm=None):
+    """Fused robustified half-SSE over the whole grid (trial-cost pass).
+    ``pxm`` as for :func:`linearize_grid`; the kernel runs one thread per
+    point, so ``block_np`` only pads the stack it builds."""
     if not _dispatch(points, "cost_grid"):
-        return cost_grid_plain(points, sp, grid, loss, loss_scale, block_np)
-    return _cuda_cost(_prep_cost_mono(points, sp, grid, block_np), loss,
-                      loss_scale, cost_grid)
+        return cost_grid_plain(points, sp, grid, loss, loss_scale, block_np,
+                               pxm)
+    return _cuda_cost_mono(_prep_cost_mono(points, sp, grid, block_np, pxm),
+                           loss, loss_scale)
 
 
 KERNEL_WRAPPERS = (linearize_grid_banded, cost_grid_banded, linearize_grid,

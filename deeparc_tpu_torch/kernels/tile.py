@@ -31,9 +31,11 @@ Binning a per-slot value into its cell is a reduction across rows into
 data-dependent cells. The kernels do it without float atomics, through
 :class:`SlotBins`: the flat slot ids (w * Nb + p) sorted by bin (chunk *
 V_local + local id, or the global cell id), cut into segments of at most
-``SEGMENT`` slots. The linearize sums one segment per warp in list order
-and each bin's segments in order in a second pass. Every run gives the
-same bits. The sweeps (rhs/matvec) read a sorted copy of jcam, built once
+``SEGMENT`` slots, and cut into runs of bins (``SlotBins.runs``: a chunk's
+bins, or those of at most ``RUN_SLOTS`` of its sorted slots). The
+linearize's bin pass sums one run per block, each bin over its slots in
+list order straight into its row. Every run gives the same bits. The
+sweeps (rhs/matvec) read a sorted copy of jcam, built once
 per LM step, and write each slot's scalars at its sorted position
 (``SlotBins.pos``), so their bin passes read adjacent addresses:
 ``tile_sweep`` from the slot rows (:func:`sort_jcam`), summing per segment
@@ -67,6 +69,11 @@ MAX_LIN_WIDTH = 32
 PACKED_DIM = 78
 # most slots one warp sums before its bin spills into a further segment
 SEGMENT = 256
+# a run of bins (one block of the linearize's bin pass) holds the bins of
+# one chunk that start within RUN_SLOTS sorted slots, at most RUN_BINS of
+# them (csrc/tile.cu LB_BINS)
+RUN_SLOTS = 8192
+RUN_BINS = 1024
 # slots the plain versions process at once (bounds their temporaries)
 _PLAIN_SLOTS = 1 << 19
 _MODES = {"rhs": 0, "matvec": 1, "edot": 2}
@@ -95,6 +102,7 @@ class SlotBins(NamedTuple):
     n_bins: int
     pos: torch.Tensor        # (W*Nb,) int32 inverse of ``order``: a slot's
                              # position in the sorted list
+    runs: torch.Tensor       # (n_runs + 1,) int32 first bin of each run
     gather: tuple = ()       # local bins: (cstart (V+1,), src) int32, the
                              # non-empty bins of each global cell in bin
                              # order (chunk_gather); () for global bins
@@ -183,7 +191,29 @@ def slot_bins(cell_t: torch.Tensor, n_chunks: int, n_cells: int) -> SlotBins:
     pos[order] = torch.arange(order.numel(), device=dev)
     i32 = lambda t: t.to(torch.int32).contiguous()
     return SlotBins(order=i32(order), seg_start=i32(seg_start),
-                    bin_seg=i32(bin_seg), n_bins=n_bins, pos=i32(pos))
+                    bin_seg=i32(bin_seg), n_bins=n_bins, pos=i32(pos),
+                    runs=i32(bin_runs(bin_lo, counts, n_cells)))
+
+
+def bin_runs(bin_lo: torch.Tensor, counts: torch.Tensor,
+             n_cells: int) -> torch.Tensor:
+    """(n_runs + 1,) first bin of each run: the bins of one chunk (bins
+    chunk * n_cells ...) whose first sorted slot ``bin_lo`` lies in one
+    window of ``RUN_SLOTS`` slots from the chunk's first (an empty bin at
+    a chunk's end stays in its last window), cut again every ``RUN_BINS``
+    bins. A run's bins fill one range of sorted positions."""
+    n_bins = bin_lo.numel()
+    b = torch.arange(n_bins, device=bin_lo.device)
+    chunk = b // n_cells
+    first_slot = bin_lo[chunk * n_cells]
+    chunk_slots = counts.reshape(-1, n_cells).sum(1)[chunk]
+    window = (torch.minimum(bin_lo - first_slot, chunk_slots - 1).clamp(min=0)
+              // RUN_SLOTS)
+    key = chunk * (int(window.max()) + 1 if n_bins else 1) + window
+    first = torch.searchsorted(key, key)
+    starts = b[(b - first) % RUN_BINS == 0]
+    return torch.cat([starts, torch.full((1,), n_bins, dtype=b.dtype,
+                                         device=b.device)])
 
 
 def sort_jcam_plain(j_cam: torch.Tensor, bins: SlotBins,
@@ -505,14 +535,6 @@ def _threads(block_n):
     return max(32, min(256, (int(block_n) // 32) * 32))
 
 
-def _reduce_bins(lib, dt, partial, bins, nv, na, out_a, out_b, stream):
-    from deeparc_tpu_torch.kernels.build import check
-
-    check(lib.tile_reduce_bins(dt, partial.data_ptr(), bins.bin_seg.data_ptr(),
-                               bins.n_bins, nv, na, out_a.data_ptr(),
-                               out_b.data_ptr(), stream), "tile_reduce_bins")
-
-
 def _cuda_linearize(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables, loss,
                     loss_scale, block_n, plane_dtype, bins):
     from deeparc_tpu_torch.kernels.build import check, library
@@ -543,8 +565,6 @@ def _cuda_linearize(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables, loss,
     jx_t = torch.empty((6 * W, Nb), dtype=pdt, device=dev)
     jcam_t = torch.empty((36 * W, Nb), dtype=pdt, device=dev)
     partial_cost = torch.empty((grid,), dtype=dtype, device=dev)
-    n_seg = bins.seg_start.numel() - 1
-    partial = torch.empty((max(n_seg, 1), 189), dtype=dtype, device=dev)
     gc = torch.empty((n_chunks, Vl, 18), dtype=dtype, device=dev)
     hc = torch.empty((n_chunks, Vl, 171), dtype=dtype, device=dev)
     cost = torch.empty((), dtype=dtype, device=dev)
@@ -559,9 +579,9 @@ def _cuda_linearize(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables, loss,
         partial_cost.data_ptr(), stream), "tile_linearize_rows")
     check(lib.tile_linearize_bins(
         dt, ls, *common, bins.order.data_ptr(), bins.seg_start.data_ptr(),
-        n_seg, W, Nb, B, Vl, float(loss_scale), partial.data_ptr(), stream),
+        bins.bin_seg.data_ptr(), bins.runs.data_ptr(), bins.runs.numel() - 1,
+        Nb, B, Vl, float(loss_scale), gc.data_ptr(), hc.data_ptr(), stream),
         "tile_linearize_bins")
-    _reduce_bins(lib, dt, partial, bins, 189, 18, gc, hc, stream)
     check(lib.tile_reduce_cost(dt, partial_cost.data_ptr(), grid,
                                cost.data_ptr(), stream), "tile_reduce_cost")
     return cost, pout, r_t, jx_t, jcam_t, gc, hc
@@ -665,7 +685,9 @@ def _cuda_global_sweep(lib, check, dt, pid, mode, cell_t, jcam_t, jx_t,
         bins.pos.data_ptr(), sorted_jcam.data_ptr(),
         bins.seg_start.data_ptr(), n_seg, W, Nb, threads, t2.data_ptr(),
         partial.data_ptr(), stream), "tile_gsweep")
-    _reduce_bins(lib, dt, partial, bins, 18, 18, out, out, stream)
+    check(lib.tile_reduce_bins(dt, partial.data_ptr(), bins.bin_seg.data_ptr(),
+                               bins.n_bins, 18, out.data_ptr(), stream),
+          "tile_reduce_bins")
     return out
 
 

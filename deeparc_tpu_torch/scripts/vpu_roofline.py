@@ -84,13 +84,16 @@ def measure_fma(n: int, dtype, device, seed: int = 0) -> dict:
 
 
 def place_linearize(data, dtype, device) -> dict:
-    """``linearize_grid``'s time on a rig and its rate over the live
-    slots."""
+    """``linearize_grid``'s time on a rig, given the plane stack a solve
+    builds once (``mono_stack``), and its rate over the live slots."""
     from deeparc_tpu_torch.kernels import linearize_grid
+    from deeparc_tpu_torch.solver.rig_grid import mono_stack
 
     args = linearize_inputs(data, dtype, device)
     live = int(args[3].mask.sum())
-    ms = time_ms(lambda: linearize_grid(*args, block_np=256), REPS, device)
+    pxm = mono_stack(args[3], (256, 1024))
+    ms = time_ms(lambda: linearize_grid(*args, block_np=256, pxm=pxm), REPS,
+                 device)
     ops = live * OPS_PER_SLOT["linearize_grid"]
     return {"ms": ms, "live_slots": live, "tflops": ops / ms / 1e9}
 

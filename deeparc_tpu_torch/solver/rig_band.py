@@ -43,7 +43,6 @@ class BandPrep(NamedTuple):
     lin_groups: tuple = ()    # ((w, tile_lo, tile_hi), ...)
     cost_groups: tuple = ()
     cell_perm: torch.Tensor | None = None   # new cell rank -> old cell id
-    n_live: float = 0.0       # live observations the covers were built for
 
     @property
     def widths(self):
@@ -316,8 +315,7 @@ def band_grid(grid: GridIndex, block_np: int = 256, cost_block_np: int = 1024,
     return BandPrep(grid=new_grid, w_band=int(w_band), w_band_cost=int(w_cost),
                     perm=order, inv=torch.argsort(order), block_np=block_np,
                     cost_block_np=cost_block_np, lin_groups=lin_groups,
-                    cost_groups=cost_groups, cell_perm=cell_perm,
-                    n_live=float(grid.mask.sum()))
+                    cost_groups=cost_groups, cell_perm=cell_perm)
 
 
 def band_grid_update(prep: BandPrep, grid: GridIndex) -> BandPrep:
@@ -326,22 +324,24 @@ def band_grid_update(prep: BandPrep, grid: GridIndex) -> BandPrep:
     The pipeline's filter rounds only REMOVE observations, so the stored
     covers stay valid and orderings, widths, groups and start tables are
     reused; only the band planes are gathered again. The update refuses a
-    mask with more live observations than the prep was built for."""
-    n_live = float(grid.mask.sum())
-    if n_live > prep.n_live:
-        raise ValueError(
-            f"band_grid_update: the mask gained observations ({n_live} live "
-            f"> {prep.n_live} at prep time); the stored band covers are only "
-            f"valid for masks that remove observations — run band_grid")
+    mask with any live observation that was dead in the prep's mask: the
+    banded kernels would skip it wherever it lies outside the stored
+    bands."""
     order, cp = prep.perm, prep.cell_perm
+    mask = grid.mask[order][:, cp]
+    moved = int(torch.count_nonzero((mask != 0) & (prep.grid.mask == 0)))
+    if moved:
+        raise ValueError(
+            f"band_grid_update: {moved} live observations were dead at prep "
+            f"time; the stored band covers are only valid for masks that "
+            f"remove observations — run band_grid")
     g = dataclasses.replace(
         prep.grid, xy0=grid.xy0[order][:, cp], xy1=grid.xy1[order][:, cp],
-        mask=grid.mask[order][:, cp], point_mask=grid.point_mask[order],
-        band=())
+        mask=mask, point_mask=grid.point_mask[order], band=())
     starts_d, starts_cost_d = prep.grid.band[0], prep.grid.band[1]
     pxm_lin, pxm_cost = _gather_stacks(
         g, starts_d, starts_cost_d, prep.lin_groups, prep.cost_groups,
         prep.block_np, prep.cost_block_np, max(prep.w_band, prep.w_band_cost))
     g = dataclasses.replace(g, band=(starts_d, starts_cost_d, pxm_lin,
                                      pxm_cost))
-    return prep._replace(grid=g, n_live=n_live)
+    return prep._replace(grid=g)

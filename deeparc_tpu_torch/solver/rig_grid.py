@@ -194,10 +194,13 @@ def assemble_grid_system(points, sp, grid, cam_free, point_free,
                          chunk_size: int = 8192, loss: str = "trivial",
                          loss_scale: float = 0.5, band_width=0,
                          band_block: int = 0,
-                         band_intr_frozen: bool = False) -> GridSystem:
+                         band_intr_frozen: bool = False,
+                         pxm=None) -> GridSystem:
     """Linearize with the fused grid kernels and bin the slot pieces into
     the flat camera system. ``E`` stays in the kernel's native column
-    order; ``g_c``/``hcc`` are in flat order."""
+    order; ``g_c``/``hcc`` are in flat order. ``pxm`` is the monolithic
+    kernels' plane stack (``kernels.rig_grid.mono_planes``), built by the
+    kernel wrapper when not given."""
     from deeparc_tpu_torch.kernels.rig_grid import (
         linearize_grid,
         linearize_grid_banded,
@@ -221,7 +224,8 @@ def assemble_grid_system(points, sp, grid, cam_free, point_free,
     else:
         out = linearize_grid(
             points, point_free, sp, grid, free_outer, free_inner, free_intr,
-            loss=loss, loss_scale=loss_scale, block_np=min(chunk_size, 256))
+            loss=loss, loss_scale=loss_scale, block_np=min(chunk_size, 256),
+            pxm=pxm)
     cost, g_p, hpp, g_slots, hcc_slots, E_nat = out
     g_c, hcc = _bin_slot_system(g_slots, hcc_slots, grid, C, points.dtype)
     return GridSystem(cost=cost, g_p=g_p, hpp=hpp, g_c=g_c, hcc=hcc, E=E_nat)
@@ -229,8 +233,9 @@ def assemble_grid_system(points, sp, grid, cam_free, point_free,
 
 def grid_cost(points, sp, grid, chunk_size: int = 16384,
               loss: str = "trivial", loss_scale: float = 0.5,
-              band_width=0, band_block: int = 0) -> torch.Tensor:
-    """Residual-only (robustified) cost pass with the fused cost kernels."""
+              band_width=0, band_block: int = 0, pxm=None) -> torch.Tensor:
+    """Residual-only (robustified) cost pass with the fused cost kernels;
+    ``pxm`` as for :func:`assemble_grid_system`."""
     from deeparc_tpu_torch.kernels.rig_grid import cost_grid, cost_grid_banded
 
     if band_width and grid.band:
@@ -239,7 +244,7 @@ def grid_cost(points, sp, grid, chunk_size: int = 16384,
             loss_scale=loss_scale, block_np=band_block or min(chunk_size, 1024),
             pxm=grid.band[3] if len(grid.band) > 3 else None)
     return cost_grid(points, sp, grid, loss=loss, loss_scale=loss_scale,
-                     block_np=min(chunk_size, 1024))
+                     block_np=min(chunk_size, 1024), pxm=pxm)
 
 
 class GridState(NamedTuple):
@@ -259,14 +264,17 @@ def _params_from(cam_vec, points, template: BAParams) -> BAParams:
 def make_grid_step(options: SolverOptions, template: BAParams,
                    chunk_size: int = 8192, band_widths: tuple = (0, 0),
                    band_blocks: tuple = (0, 0),
-                   band_intr_frozen: bool = False):
+                   band_intr_frozen: bool = False, pxm=None):
     """LM step over the grid layout:
     step(state, grid, cam_free, point_free) -> (state, info).
 
     ``band_widths`` = (linearize, cost) live-band widths or width groups
     from ``rig_band.band_grid`` ((0, 0) = monolithic kernels) and
     ``band_blocks`` the point-tile widths their start tables were built
-    for; the grid must then carry the matching ``band`` tables."""
+    for; the grid must then carry the matching ``band`` tables. ``pxm`` is
+    the monolithic kernels' plane stack of the grid the step is given
+    (:func:`mono_stack`), handed to both kernels; without it each kernel
+    call builds its own."""
     from deeparc_tpu_torch.kernels.rig_grid import (
         flat_of_native,
         native_of_flat,
@@ -303,7 +311,7 @@ def make_grid_step(options: SolverOptions, template: BAParams,
             state.points, slot_params(params, grid), grid, cam_free,
             point_free, chunk_size, options.loss, options.loss_scale,
             band_width=band_widths[0], band_block=band_blocks[0],
-            band_intr_frozen=band_intr_frozen)
+            band_intr_frozen=band_intr_frozen, pxm=pxm)
         dtype = state.points.dtype
 
         # augmented per-point blocks, eliminated in closed form
@@ -343,7 +351,7 @@ def make_grid_step(options: SolverOptions, template: BAParams,
         new_cost = grid_cost(new_points, slot_params(trial, grid), grid,
                              loss=options.loss, loss_scale=options.loss_scale,
                              band_width=band_widths[1],
-                             band_block=band_blocks[1])
+                             band_block=band_blocks[1], pxm=pxm)
 
         rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
         accept = (mcc > 0) & (rho > options.min_relative_decrease)
@@ -380,18 +388,30 @@ def make_grid_step(options: SolverOptions, template: BAParams,
 
 def init_grid_state(params: BAParams, grid: GridIndex, options: SolverOptions,
                     band_widths: tuple = (0, 0),
-                    band_blocks: tuple = (0, 0)) -> GridState:
+                    band_blocks: tuple = (0, 0), pxm=None) -> GridState:
     """The start state. Its cost comes from the same cost kernel as every
     trial cost, so a borderline first-step rho cannot flip on rounding."""
     dtype, dev = params.points.dtype, params.points.device
     cost0 = grid_cost(params.points, slot_params(params, grid), grid,
                       loss=options.loss, loss_scale=options.loss_scale,
-                      band_width=band_widths[1], band_block=band_blocks[1])
+                      band_width=band_widths[1], band_block=band_blocks[1],
+                      pxm=pxm)
     return GridState(points=params.points, cam_vec=flatten_camera(params),
                      cost=cost0,
                      tr=tr_mod.init_tr(options.initial_radius, dtype, dev),
                      k=0, status=torch.zeros((), dtype=torch.int64,
                                              device=dev))
+
+
+def mono_stack(grid: GridIndex, block_nps: tuple) -> torch.Tensor:
+    """The monolithic kernels' plane stack of ``grid``
+    (``kernels.rig_grid.mono_planes``), padded to a point count that both
+    kernels' tiles divide, so the linearize and the cost pass share it.
+    It depends on the mask: a solve builds it once and drops it."""
+    from deeparc_tpu_torch.kernels.rig_grid import mono_planes
+
+    step = int(np.lcm.reduce(block_nps))
+    return mono_planes(grid, -(-grid.xy0.shape[0] // step) * step)
 
 
 def _strip_planes(prep):
@@ -431,6 +451,10 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
     band_widths = band_blocks = (0, 0)
     intr_frozen = False
     unperm = lambda pts: pts
+    # the monolithic kernels' stack of THIS solve's mask (a filter round's
+    # next solve builds its own)
+    pxm = (mono_stack(grid, (min(chunk_size, 256), min(chunk_size, 1024)))
+           if prep is None else None)
     if prep is not None:
         if options.progress_to_stdout:
             print(f"[grid] live-band solve: w_band<={prep.w_band} of "
@@ -454,9 +478,9 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
     point_free = free.points
     step = make_grid_step(options, params, chunk_size,
                           band_widths=band_widths, band_blocks=band_blocks,
-                          band_intr_frozen=intr_frozen)
+                          band_intr_frozen=intr_frozen, pxm=pxm)
     state = init_grid_state(params, grid, options, band_widths=band_widths,
-                            band_blocks=band_blocks)
+                            band_blocks=band_blocks, pxm=pxm)
     t0 = time.time()
     k = 0
     if options.progress_to_stdout:

@@ -157,5 +157,27 @@ def test_band_grid_update_refuses_a_grown_mask(occlusion):
     assert float(upd.grid.mask.sum()) == float(shrunk.mask.sum())
     # a mask with more live observations than the prep saw is refused
     grown = dataclasses.replace(tgrid, mask=torch.ones_like(tgrid.mask))
-    with pytest.raises(ValueError, match="gained observations"):
+    with pytest.raises(ValueError, match="run band_grid"):
         band_grid_update(prep, grown)
+
+
+def test_band_grid_update_refuses_a_moved_observation(occlusion):
+    """A mask that drops one observation and adds one that was dead at
+    prep time keeps the live count; the update refuses it all the same
+    (the new cell may lie outside its tile's stored band), and still takes
+    a mask that only removes observations."""
+    _, jgrid = occlusion
+    tgrid = grid_to_torch(jgrid)
+    prep = band_grid(tgrid, block_np=64, cost_block_np=128)
+    live = tgrid.mask.nonzero()
+    dead = (tgrid.mask == 0).nonzero()
+    moved = dataclasses.replace(tgrid, mask=tgrid.mask.clone())
+    moved.mask[tuple(live[0])] = 0.0
+    moved.mask[tuple(dead[len(dead) // 2])] = 1.0
+    assert float(moved.mask.sum()) == float(tgrid.mask.sum())
+    with pytest.raises(ValueError, match="1 live observations were dead"):
+        band_grid_update(prep, moved)
+    removed = dataclasses.replace(tgrid, mask=tgrid.mask.clone())
+    removed.mask[tuple(live[0])] = 0.0
+    upd = band_grid_update(prep, removed)
+    assert float(upd.grid.mask.sum()) == float(tgrid.mask.sum()) - 1

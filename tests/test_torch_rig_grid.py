@@ -162,3 +162,33 @@ def test_band_reuse_keeps_no_planes_and_matches_fresh_prep():
     fresh = trg.solve_ba_grid(scene.params, grid2, free, options)
     close(reuse.cost, fresh.cost, 1e-8)
     close(reuse.params.points, fresh.params.points, 1e-6, 1e-9)
+
+
+def test_monolithic_solves_across_a_filter_round_match_jax():
+    """Two monolithic solves (the band prep declines a 3x5-cell rig) with a
+    filtered mask in between, as the pipeline's rounds run them: each solve
+    builds the plane stack of its own mask, so the second lands where the
+    reference's does; a stack kept from the first solve would not."""
+    rig = make_hemisphere_rig(n_arc=3, n_ring=5, n_points=50, pixel_noise=0.5,
+                              point_noise=0.04, visibility=0.8, seed=31)
+    options = dataclasses.replace(OPTIONS, max_iterations=2)
+    jscene = jfrom_deeparc(rig.data)
+    jgrid, jfree = jrg.grid_from_scene(jscene), jfreeze(jscene)
+    scene = from_deeparc(rig.data, device="cpu")
+    tgrid, tfree = trg.grid_from_scene(scene), freeze_masks(scene)
+    keep = np.random.default_rng(5).random(tuple(tgrid.mask.shape)) >= 0.3
+    state: dict = {}
+    res_j = jrg.solve_ba_grid(jscene.params, jgrid, jfree, options,
+                              impl="planes", chunk_size=128)
+    res_t = trg.solve_ba_grid(scene.params, tgrid, tfree, options,
+                              band_reuse=state)
+    assert state["prep"] is None          # the monolithic path
+    jgrid2 = jgrid._replace(mask=jgrid.mask * jnp.asarray(keep))
+    tgrid2 = dataclasses.replace(tgrid, mask=tgrid.mask * torch.as_tensor(keep))
+    res_j = jrg.solve_ba_grid(res_j.params, jgrid2, jfree, options,
+                              impl="planes", chunk_size=128)
+    res_t = trg.solve_ba_grid(res_t.params, tgrid2, tfree, options,
+                              band_reuse=state)
+    close(res_t.cost, res_j.cost, 1e-6)
+    close(res_t.params.points, res_j.params.points, 1e-5, 1e-8)
+    close(flatten_camera(res_t.params), jflatten(res_j.params), 1e-5, 1e-8)

@@ -23,7 +23,7 @@ from deeparc_tpu.solver.rig_grid import slot_params as jslot_params
 from deeparc_tpu_torch.kernels import rig_grid as tk
 from deeparc_tpu_torch.residuals.reprojection import flatten_camera
 from deeparc_tpu_torch.solver.rig_grid import slot_params
-from torch_parity import close, grid_to_torch, params_to_torch
+from torch_parity import as_np, close, grid_to_torch, params_to_torch
 
 
 def _free_tables(cam_free, grid, R, K):
@@ -58,25 +58,86 @@ def _mono_inputs(mono):
     return j_in, t_in
 
 
+@pytest.fixture(scope="module")
+def jax_mono(mono):
+    """The JAX monolithic kernels (interpret) on the rig, once per kernel
+    and loss: the tests below hold two things against them."""
+    j_in, _ = _mono_inputs(mono)
+    memo = {}
+
+    def run(kernel, loss, scale):
+        if (kernel, loss, scale) not in memo:
+            args = j_in if kernel == "linearize_grid" else (j_in[0], j_in[2],
+                                                            j_in[3])
+            memo[kernel, loss, scale] = getattr(jk, kernel)(
+                *args, loss=loss, loss_scale=scale, block_np=16,
+                interpret=True)
+        return memo[kernel, loss, scale]
+
+    return run
+
+
 @pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("cauchy", 2.0),
                                         ("huber", 3.0)])
-def test_linearize_grid_plain_matches_pallas(mono, loss, scale):
+def test_linearize_grid_plain_matches_pallas(mono, jax_mono, loss, scale):
     j_in, t_in = _mono_inputs(mono)
-    want = jk.linearize_grid(*j_in, loss=loss, loss_scale=scale, block_np=16,
-                             interpret=True)
+    want = jax_mono("linearize_grid", loss, scale)
     got = tk.linearize_grid(*t_in, loss=loss, loss_scale=scale, block_np=16)
     for g, w, rtol, atol in zip(got, want, (1e-9, 1e-8, 1e-8, 1e-8, 1e-8, 1e-8),
                                 (0, 1e-10, 1e-10, 1e-9, 1e-9, 1e-10)):
         close(g, w, rtol, atol)
 
 
-def test_cost_grid_plain_matches_pallas(mono):
+def test_cost_grid_plain_matches_pallas(mono, jax_mono):
     j_in, t_in = _mono_inputs(mono)
-    want = jk.cost_grid(j_in[0], j_in[2], j_in[3], loss="huber",
-                        loss_scale=3.0, block_np=16, interpret=True)
+    want = jax_mono("cost_grid", "huber", 3.0)
     got = tk.cost_grid(t_in[0], t_in[2], t_in[3], loss="huber",
                        loss_scale=3.0, block_np=16)
     close(got, want, 1e-10)
+
+
+@pytest.mark.parametrize("kernel", ["linearize_grid", "cost_grid"])
+def test_mono_kernels_take_a_given_stack(mono, jax_mono, kernel):
+    """The monolithic pair given the solve's plane stack (``mono_planes``,
+    here wider than the wrapper would pad) equals the pair building its
+    own, and both match the JAX kernel in interpret mode."""
+    _, t_in = _mono_inputs(mono)
+    grid = t_in[3]
+    pxm = tk.mono_planes(grid, 96)
+    assert tuple(pxm.shape) == (3, 16, 96)
+    assert torch.equal(pxm[:, :15, :50], torch.stack(
+        [grid.xy0.T, grid.xy1.T, grid.mask.T]))
+    assert not pxm[:, 15:].any() and not pxm[:, :, 50:].any()
+    if kernel == "cost_grid":
+        args = (t_in[0], t_in[2], t_in[3])
+        tols = ((1e-10, 0),)
+    else:
+        args = t_in
+        tols = tuple(zip((1e-9, 1e-8, 1e-8, 1e-8, 1e-8, 1e-8),
+                         (0, 1e-10, 1e-10, 1e-9, 1e-9, 1e-10)))
+    fn = getattr(tk, kernel)
+    kw = dict(loss="huber", loss_scale=3.0, block_np=16)
+    given, built = fn(*args, pxm=pxm, **kw), fn(*args, **kw)
+    want = jax_mono(kernel, "huber", 3.0)
+    given, built, want = ((x if isinstance(x, tuple) else (x,))
+                          for x in (given, built, want))
+    for g, b, w, (rtol, atol) in zip(given, built, want, tols):
+        close(g, as_np(b), 1e-12, 1e-14)
+        close(g, w, rtol, atol)
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 48), (3, 24, 64), (3, 16, 72),
+                                   (2, 16, 64)])
+def test_mono_kernels_refuse_a_stack_of_the_wrong_shape(mono, shape):
+    """A stack with fewer points than the grid, another cell count, a
+    width the point tiles do not divide or a missing plane is refused
+    before any kernel runs."""
+    _, t_in = _mono_inputs(mono)
+    pxm = torch.zeros(shape, dtype=torch.float64)
+    with pytest.raises(ValueError, match="mono_planes"):
+        tk.cost_grid(t_in[0], t_in[2], t_in[3], block_np=16, pxm=pxm)
+    with pytest.raises(ValueError, match="mono_planes"):
+        tk.linearize_grid(*t_in, block_np=16, pxm=pxm)
 
 
 @pytest.fixture(scope="module")

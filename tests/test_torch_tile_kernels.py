@@ -23,6 +23,7 @@ from deeparc_tpu.solver import tiles as jt
 from deeparc_tpu.solver.linalg import inv3x3 as jinv3x3
 from deeparc_tpu.solver.rig_grid import slot_params as jslot_params
 from deeparc_tpu_torch.kernels import tile as tk
+from deeparc_tpu_torch.kernels.rig_grid import _slot_products
 from deeparc_tpu_torch.solver import tiles as tt
 from deeparc_tpu_torch.solver.rig_grid import slot_params
 from torch_parity import as_np, close, params_to_torch, tiles_to_torch
@@ -188,14 +189,30 @@ def _lin_inputs(points, b, packed, np_mod):
     return (pts, local.T, b.xy0.T, b.xy1.T, b.mask.T, packed[chunk_cells])
 
 
+@pytest.fixture(scope="module")
+def jax_linearize(fused_problem):
+    """JAX tile_linearize_local (interpret) of the fused problem's bucket,
+    once per loss: the tests below hold two things against it."""
+    params, tiles, packed = fused_problem[:3]
+    memo = {}
+
+    def run(loss, scale):
+        if (loss, scale) not in memo:
+            memo[loss, scale] = jk.tile_linearize_local(
+                *_lin_inputs(params.points, tiles.buckets[0], packed, jnp),
+                loss=loss, loss_scale=scale, interpret=True)
+        return memo[loss, scale]
+
+    return run
+
+
 @pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("cauchy", 2.0)])
-def test_tile_linearize_local_plain_matches_jax(fused_problem, loss, scale):
+def test_tile_linearize_local_plain_matches_jax(fused_problem, jax_linearize,
+                                                loss, scale):
     params, tiles, packed, _, params_p, tiles_p, packed_p = fused_problem
     close(packed_p, packed, rtol=1e-13, atol=1e-13)
-    b, bp = tiles.buckets[0], tiles_p.buckets[0]
-    want = jk.tile_linearize_local(
-        *_lin_inputs(params.points, b, packed, jnp), loss=loss,
-        loss_scale=scale, interpret=True)
+    bp = tiles_p.buckets[0]
+    want = jax_linearize(loss, scale)
     got = tk.tile_linearize_local(
         *_lin_inputs(params_p.points, bp, packed_p, torch), loss=loss,
         loss_scale=scale)
@@ -323,6 +340,104 @@ def test_local_sweep_data_flow_matches_plain_and_jax(fused_problem, mode):
     close(cells, want_cells, rtol=1e-12, atol=1e-12)
     close(tk.sum_chunk_bins(got, b.loc[1], V, bins), want_cells, rtol=1e-12,
           atol=1e-12)
+
+
+def _run_linearize_bins(pts, cell_t, xy0_t, xy1_t, mask_t, tables, bins,
+                        loss, scale):
+    """The data flow of tile_linearize_local's bin pass, in torch: one run
+    of bins (``SlotBins.runs``) at a time, every slot recomputed in the
+    working dtype at its sorted position (``order``), and each bin's 189
+    values summed over its slots in slot order into its row."""
+    W, Nb = cell_t.shape
+    n_chunks, Vl, _ = tables.shape
+    f = bins.order.long()
+    p = f % Nb
+    tb = tables[p // (Nb // n_chunks), cell_t.reshape(-1)[f].long()]
+    col = lambda c: tb[:, tk._TILE_COL[c]]
+    X = [pts[a, p] for a in range(3)]
+    pf = [pts[3 + a, p] for a in range(3)]
+    _, r0, r1, _, P = _slot_products(
+        col, X, pf, xy0_t.reshape(-1)[f], xy1_t.reshape(-1)[f],
+        mask_t.reshape(-1)[f], loss, scale, zguard=True)
+    P0, P1 = torch.stack(P[0]), torch.stack(P[1])                  # 18, S
+    iu, ju = torch.triu_indices(18, 18)
+    vals = torch.cat([P0 * r0 + P1 * r1,
+                      P0[iu] * P0[ju] + P1[iu] * P1[ju]]).T         # S, 189
+    bstart = bins.seg_start.long()[bins.bin_seg.long()]
+    out = torch.zeros((bins.n_bins, 189), dtype=vals.dtype)
+    runs = bins.runs.long()
+    for b0, b1 in zip(runs[:-1].tolist(), runs[1:].tolist()):
+        assert b0 // Vl == (b1 - 1) // Vl        # one chunk's bins
+        for b in range(b0, b1):
+            s0, s1 = int(bstart[b]), int(bstart[b + 1])
+            if s1 > s0:                          # a running sum: slot order
+                out[b] = vals[s0:s1].cumsum(0)[-1]
+    return (out[:, :18].reshape(n_chunks, Vl, 18),
+            out[:, 18:].reshape(n_chunks, Vl, 171))
+
+
+@pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("cauchy", 2.0)])
+def test_linearize_bins_data_flow_matches_plain_and_jax(
+        fused_problem, jax_linearize, loss, scale):
+    """tile_linearize_local's bin pass data flow (one block per run of
+    bins, slots recomputed through the sorted list, each bin summed in
+    slot order) against tile_linearize_local_plain and JAX
+    tile_linearize_local (interpret), f64."""
+    params_p, tiles_p, packed_p = fused_problem[4:]
+    args = _lin_inputs(params_p.points, tiles_p.buckets[0], packed_p, torch)
+    n_chunks, Vl, _ = args[5].shape
+    bins = tk.slot_bins(args[1], n_chunks, Vl)
+    gc, hc = _run_linearize_bins(*args, bins, loss, scale)
+    want = jax_linearize(loss, scale)
+    plain = tk.tile_linearize_local_plain(*args, loss=loss, loss_scale=scale)
+    for got, w, pl in ((gc, want[5], plain[5]), (hc, want[6], plain[6])):
+        close(got, w, rtol=1e-10, atol=1e-10)
+        close(got, as_np(pl), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("local,run_slots,run_bins", [
+    (True, 8192, 1024), (True, 8, 3), (False, 8192, 1024), (False, 16, 5)])
+def test_bin_runs_sum_like_index_add(fused_problem, monkeypatch, local,
+                                     run_slots, run_bins):
+    """SlotBins.runs cuts the bins into runs in bin order, each inside one
+    chunk (one run a chunk when the chunk fits), of at most RUN_BINS bins,
+    every bin but a run's first starting within RUN_SLOTS sorted slots of
+    the run's first; summing each run's bins over their sorted slots
+    equals index_add_ over the bins."""
+    monkeypatch.setattr(tk, "RUN_SLOTS", run_slots)
+    monkeypatch.setattr(tk, "RUN_BINS", run_bins)
+    tiles_p = fused_problem[5]
+    b = tiles_p.buckets[0]
+    if local:
+        cell_t, (n_chunks, n_cells) = b.loc[0].T, b.loc[1].shape
+    else:
+        cell_t, n_chunks, n_cells = b.cell.T, 1, tiles_p.cells.cols.shape[0]
+    bins = tk.slot_bins(cell_t.contiguous(), n_chunks, n_cells)
+    runs = bins.runs.long()
+    assert bins.runs.dtype == torch.int32
+    assert runs[0] == 0 and runs[-1] == bins.n_bins
+    assert bool((runs[1:] > runs[:-1]).all())
+    assert int((runs[1:] - runs[:-1]).max()) <= run_bins
+    bstart = bins.seg_start.long()[bins.bin_seg.long()]
+    W, Nb = cell_t.shape
+    if W * Nb // n_chunks <= run_slots and n_cells <= run_bins:
+        assert runs.numel() - 1 == n_chunks      # one run a chunk
+    order = bins.order.long()
+    key = ((torch.arange(Nb) // (Nb // n_chunks))[None, :] * n_cells
+           + cell_t.long()).reshape(-1)
+    vals = torch.randn(W * Nb, 7, dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(2))
+    out = torch.zeros((bins.n_bins, 7), dtype=torch.float64)
+    for b0, b1 in zip(runs[:-1].tolist(), runs[1:].tolist()):
+        assert b0 // n_cells == (b1 - 1) // n_cells
+        assert int(bstart[b1 - 1] - bstart[b0]) < run_slots or b1 - b0 == 1
+        for bb in range(b0, b1):
+            s0, s1 = int(bstart[bb]), int(bstart[bb + 1])
+            assert bool((key[order[s0:s1]] == bb).all())
+            out[bb] = vals[order[s0:s1]].sum(0)
+    want = torch.zeros(bins.n_bins, 7, dtype=torch.float64).index_add_(
+        0, key, vals)
+    close(out, want.numpy(), rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
