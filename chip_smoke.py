@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # the full run, one card
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
+    python3 chip_smoke.py --cost-only        # the two cost wrappers alone
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -22,13 +23,17 @@ Phases (any failure raises and exits non-zero):
      slots; the monolithic pair takes the plane stack a solve builds once
      (``mono_stack``), whose build time is printed on its own line, and
      ``cost_grid`` called without it is split into its stack build and
-     its kernels; ``cost_grid``'s bound counts the bytes ``cost_mono``
-     must read (the mask plane, the xy sectors holding a live slot);
+     its kernels; both cost kernels' bounds count the bytes ``cost_band``
+     must read (the mask planes, the xy sectors holding a live slot, the
+     table rows of the bands), printed beside the whole stacks' bytes;
+     ``cost_grid_banded`` is also held against its plain version with the
+     Huber and Cauchy losses in float64;
   3b. one classic LM step on the uniform-random rig (the ``linearize_grid``
      path), split into linearize / Schur solve / trial cost, with the
      device's idle share; the step run twice must give the same bits;
-  4. one banded LM step on the band-prepped occlusion flagship run twice
-     must give the same bits; then the grid main path: ``run_pipeline`` on
+  4. one banded LM step on the band-prepped occlusion flagship, split the
+     same way, run twice must give the same bits; then the grid main
+     path: ``run_pipeline`` on
      the 8x24-cell occlusion rig (400k points), float64; the banded kernels
      must launch and the final RMSE must sit under twice the pixel noise;
   5. a small uniform-random rig through ``run_pipeline`` (monolithic);
@@ -319,7 +324,9 @@ def phase_grid_kernels(args, records):
                       f"(intrinsics {'frozen' if frozen else 'free'}) route: "
                       f"{route}")
                 lin_in = (nbytes(pts, pf, *grid.band[2]) + T * 78 * esz)
-                cost_in = nbytes(pts, *grid.band[3]) + T * 78 * esz
+                cost_in = cost_band_bytes(pts, grid.band[3], band_rows(
+                    grid.band[1], prep.cost_groups))
+                stacks = nbytes(*grid.band[3])
                 calls = {
                     "linearize_grid_banded": (
                         k.linearize_grid_banded, k.linearize_grid_banded_plain,
@@ -355,8 +362,9 @@ def phase_grid_kernels(args, records):
                     "cost_grid": (
                         k.cost_grid, k.cost_grid_plain, (pts, sp, grid),
                         dict(block_np=1024, pxm=pxm),
-                        cost_mono_bytes(pts, pxm, T), live),
+                        cost_band_bytes(pts, (pxm,), T), live),
                 }
+                stacks = nbytes(pxm)
             if tag:
                 calls = {n: c for n, c in calls.items()
                          if n.startswith("linearize")}
@@ -373,17 +381,43 @@ def phase_grid_kernels(args, records):
                 if name.startswith("linearize"):
                     records[name][dname + (f":{tag}" if tag else "")].update(
                         route=route, rows=rows)
-                if name == "cost_grid":
+                if name.startswith("cost"):
                     rec = records[name][dname]
-                    rec["bound_counts"] = ("the mask plane, the xy planes' "
+                    rec["bound_counts"] = ("the mask planes, the xy planes' "
                                            "32-byte sectors holding a live "
                                            "slot, the points, 30 table "
-                                           "columns")
-                    print(f"  cost_grid {dname}: the bound "
+                                           "columns of the rows read")
+                    rec["stack_gbytes"] = stacks / 1e9
+                    # the call by device time: the kernel and its fixed-order
+                    # sum against the wrapper's own torch ops
+                    times = device_ms(lambda: kern(*a, **kw))
+                    rec["device_ms"] = dict(
+                        kernel=sum(v for n, v in times.items()
+                                   if "cost_band" in n),
+                        reduce=sum(v for n, v in times.items()
+                                   if "reduce_cost" in n))
+                    rec["device_ms"]["other"] = (sum(times.values())
+                                                 - sum(rec["device_ms"]
+                                                       .values()))
+                    print(f"  {name} {dname} by device time (ms): "
+                          + ", ".join(f"{n} {v:.4f}" for n, v in
+                                      rec["device_ms"].items())
+                          + f"; by CUDA events {rec['ms']:.4f}")
+                    print(f"  {name} {dname}: the bound "
                           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}) "
                           f"counts {in_bytes / 1e9:.3f} GB read: "
-                          f"{rec['bound_counts']} (the whole stack is "
-                          f"{nbytes(pxm) / 1e9:.3f} GB)")
+                          f"{rec['bound_counts']} (the whole stack"
+                          f"{'s are' if banded else ' is'} "
+                          f"{stacks / 1e9:.3f} GB)")
+                if name == "cost_grid_banded" and dtype == torch.float64:
+                    # the robust losses, each branch of the chain's loss
+                    for loss, scale in (("huber", 2.0), ("cauchy", 3.0)):
+                        lkw = dict(kw, loss=loss, loss_scale=scale)
+                        measure(records, name, dname,
+                                lambda: kern(*a, **lkw),
+                                lambda: plain(*a, **lkw), labels, args.reps,
+                                in_bytes + out_bytes,
+                                slots * OPS_PER_SLOT[name], mode=loss)
             del pts, pf, sp, grid, tables, prep, calls
             pxm = None
             torch.cuda.empty_cache()
@@ -391,17 +425,31 @@ def phase_grid_kernels(args, records):
     return rigs
 
 
-def cost_mono_bytes(pts, pxm, T):
-    """The bytes ``cost_mono`` must read: the mask plane whole, the xy
-    planes' 32-byte sectors that hold a live slot (it loads xy only for a
-    live slot), counted from the mask on the card, the points and the 30
-    table columns of its chain."""
-    esz = pxm.element_size()
-    t_pad, n_pad = pxm.shape[1:]
+def cost_band_bytes(pts, stacks, n_rows):
+    """The bytes ``cost_band`` must read: each stack's mask plane whole, the
+    xy planes' 32-byte sectors that hold a live slot (it loads xy only for a
+    live slot), counted from the masks on the card, the points, and the 30
+    table columns of its chain for the ``n_rows`` table rows it reads."""
+    esz = pts.element_size()
     per = 32 // esz
-    live = pxm[2].reshape(t_pad, n_pad // per, per).ne(0).any(-1)
-    return (pxm[2].numel() * esz + 2 * 32 * int(live.sum())
-            + 3 * pts.shape[0] * esz + T * 30 * esz)
+    total = 3 * pts.shape[0] * esz + n_rows * 30 * esz
+    for pxm in stacks:
+        w, cols = pxm.shape[1:]
+        live = pxm[2].reshape(w, cols // per, per).ne(0).any(-1)
+        total += pxm[2].numel() * esz + 2 * 32 * int(live.sum())
+    return total
+
+
+def band_rows(starts, groups):
+    """The distinct rows of the cyclically extended table that the tiles'
+    bands read: rows [starts[t] * 8, starts[t] * 8 + w) of each tile t of
+    each width group (w, lo, hi)."""
+    import torch
+
+    rows = [(starts[lo:hi].long()[:, None] * 8
+             + torch.arange(w, device=starts.device)).reshape(-1)
+            for w, lo, hi in groups if hi > lo]
+    return int(torch.cat(rows).unique().numel())
 
 
 def cost_wrapper_split(pts, sp, grid):
@@ -433,6 +481,74 @@ def cost_split(args, dname, pts, sp, grid, pxm):
           f"stack ({split['stack_gbytes']:.3f} GB, built once per solve): "
           f"{split['stack_build_ms']:.3f} ms")
     return split
+
+
+def host_ms(fn, reps):
+    """Median host time of fn from its call to its return, the card's queue
+    drained before each call: the host's share of a call that the card
+    waits on."""
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(walls)
+
+
+def phase_cost_only(args):
+    """``--cost-only``: the two cost wrappers at the main paths' shapes (the
+    band-prepped occlusion flagship for ``cost_grid_banded``, the
+    uniform-random rig with its solve's stack for ``cost_grid``, which is
+    phase 3b's trial cost), float64 and float32, each by CUDA events, by
+    profiler device time (the cost kernel, its sum, the wrapper's torch
+    ops) and by host time to return; one JSON line. It reads only the
+    wrappers' signatures, so the file run from the root of another tree
+    (a parent, a copy with one part of ``cost_band`` changed) times that
+    tree in the same call."""
+    import torch
+
+    from deeparc_tpu_torch.kernels import rig_grid as k
+    from deeparc_tpu_torch.solver.rig_grid import mono_stack
+
+    print("[cost only] the cost wrappers by CUDA events, device and host "
+          "time")
+    rigs = {True: flagship_rig(args.n_points, 6, 0),
+            False: flagship_rig(args.n_points, None, 1)}
+    out: dict = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for banded, data in rigs.items():
+            pts, _, sp, grid, _, prep = kernel_inputs(data, dtype, banded)
+            if banded:
+                (_, w), (_, bn) = prep.widths
+                name = "cost_grid_banded"
+                call = lambda: k.cost_grid_banded(
+                    pts, sp, grid, grid.band[1], w, block_np=bn,
+                    pxm=grid.band[3])
+            else:
+                name, pxm = "cost_grid", mono_stack(grid, (256, 1024))
+                call = lambda: k.cost_grid(pts, sp, grid, block_np=1024,
+                                           pxm=pxm)
+            times = device_ms(call)
+            kern = sum(v for n, v in times.items()
+                       if "cost" in n and "reduce" not in n)
+            red = sum(v for n, v in times.items() if "reduce_cost" in n)
+            rec = dict(ms=time_ms(call, args.reps),
+                       host_ms=host_ms(call, args.reps), kernel_ms=kern,
+                       reduce_ms=red,
+                       other_ms=sum(times.values()) - kern - red)
+            out.setdefault(name, {})[dname] = rec
+            print(f"  {name} {dname}: " + ", ".join(
+                f"{n} {v:.4f}" for n, v in rec.items()))
+            del pts, sp, grid, prep, call
+            pxm = None
+            torch.cuda.empty_cache()
+    print(json.dumps({"cost_only": out}))
 
 
 def wall_ms(fn, reps):
@@ -517,45 +633,68 @@ def grid_step_split(data):
     step = make_grid_step(opts, params, pxm=pxm)
     state = init_grid_state(params, grid, opts, pxm=pxm)
     run = lambda: step(state, grid, cam_free, free.points)
-    k.reset_launch_counts()
-    run()
-    torch.cuda.synchronize()
-    per_step = {fn.__name__: fn.launches
-                for fn in (k.linearize_grid, k.cost_grid)}
-    wall = wall_ms(run, 3)
     sp = slot_params(params, grid)
-    parts = {
-        "linearize": time_ms(lambda: assemble_grid_system(
-            params.points, sp, grid, cam_free, free.points, pxm=pxm), 3),
-        "trial cost": time_ms(lambda: grid_cost(params.points, sp, grid,
-                                                pxm=pxm), 3),
-    }
     print(f"  the solve's plane stack, built once per solve: "
           f"{time_ms(stack, 3):.3f} ms")
-    print_split("one LM step (f64), Schur solve = the rest", wall, parts,
+    return split_grid_step(
+        "one LM step (f64) on the uniform rig", run,
+        (k.linearize_grid, k.cost_grid),
+        lambda: assemble_grid_system(params.points, sp, grid, cam_free,
+                                     free.points, pxm=pxm),
+        lambda: grid_cost(params.points, sp, grid, pxm=pxm))
+
+
+def split_grid_step(label, run, kernels, lin, cost):
+    """One grid LM step ``run`` split on the card: host wall time around
+    the synchronised step; the linearize ``lin`` and the trial cost
+    ``cost`` timed alone with CUDA events; the Schur solve is the rest;
+    the idle share from the profiler's device time over one step. The
+    step run twice from one state must give the same bits. Returns the
+    ``kernels``' launches in one step."""
+    import torch
+
+    from deeparc_tpu_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    per_step = {fn.__name__: fn.launches for fn in kernels}
+    wall = wall_ms(run, 3)
+    parts = {"linearize": time_ms(lin, 3), "trial cost": time_ms(cost, 3)}
+    print_split(f"{label}, Schur solve = the rest", wall, parts,
                 sum(device_ms(run).values()))
-    check_step_repeats(run, "monolithic grid step on the uniform rig")
+    print(f"  launches in one step: {per_step}")
+    check_step_repeats(run, label)
     print("  the step run twice: the same bits")
     return per_step
 
 
-def banded_step_repeats(data):
+def banded_step_split(data):
     """Phase 4: one classic LM step of the banded grid path (float64, the
     pipeline's full-BA free mask, intrinsics frozen) on the band-prepped
-    occlusion flagship, run twice from one state, must give the same
-    bits."""
+    occlusion flagship, split as phase 3b splits the monolithic one: host
+    wall time around the synchronised step; the linearize
+    (``assemble_grid_system`` with the band) and the trial cost
+    (``grid_cost`` with the band) timed alone with CUDA events; the Schur
+    solve is the rest; the idle share from the profiler's device time over
+    one step (:func:`split_grid_step`); the banded kernels' launches in one
+    step. The step run twice from one state must give the same bits."""
     import dataclasses
 
     import torch
 
+    from deeparc_tpu_torch import kernels as k
     from deeparc_tpu_torch.config import SolverOptions
     from deeparc_tpu_torch.residuals.reprojection import flatten_camera
     from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
     from deeparc_tpu_torch.solver.rig_band import band_grid
     from deeparc_tpu_torch.solver.rig_grid import (
+        assemble_grid_system,
+        grid_cost,
         grid_from_scene,
         init_grid_state,
         make_grid_step,
+        slot_params,
     )
 
     scene = from_deeparc(data, dtype=torch.float64, device="cuda")
@@ -576,10 +715,17 @@ def banded_step_repeats(data):
                           band_intr_frozen=frozen)
     state = init_grid_state(params, grid, opts, band_widths=bws,
                             band_blocks=bbs)
-    check_step_repeats(lambda: step(state, grid, cam_free, pf),
-                       "banded grid step on the occlusion flagship")
-    print(f"  one banded LM step (f64, intrinsics "
-          f"{'frozen' if frozen else 'free'}) run twice: the same bits")
+    run = lambda: step(state, grid, cam_free, pf)
+    sp = slot_params(params, grid)
+    split_grid_step(
+        f"one banded LM step (f64, intrinsics "
+        f"{'frozen' if frozen else 'free'}) on the occlusion flagship", run,
+        (k.linearize_grid_banded, k.cost_grid_banded),
+        lambda: assemble_grid_system(
+            params.points, sp, grid, cam_free, pf, band_width=bws[0],
+            band_block=bbs[0], band_intr_frozen=frozen),
+        lambda: grid_cost(params.points, sp, grid, band_width=bws[1],
+                          band_block=bbs[1]))
 
 
 def run_main_path(data, args, label, solver=None):
@@ -1224,6 +1370,9 @@ def main(argv=None) -> int:
                     help="LM iterations per solve")
     ap.add_argument("--reps", type=int, default=5,
                     help="timed runs per kernel and plain version")
+    ap.add_argument("--cost-only", action="store_true",
+                    help="after the build, time only the two cost wrappers "
+                         "(an A/B or ablation of cost_band) and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -1253,6 +1402,9 @@ def main(argv=None) -> int:
                 or "Compiling entry" in line):
             print("  ptxas:", line.strip())
 
+    if args.cost_only:
+        phase_cost_only(args)
+        return 0
     records: dict = {}
     rigs = phase_grid_kernels(args, records)
     print("[phase 3b] one LM step on the uniform-random rig (the "
@@ -1268,7 +1420,7 @@ def main(argv=None) -> int:
           f"{data.n_obs} observations"
           + ("" if args.n_points == 400_000 else
              f" (n_points cut from 400000 to {args.n_points})"))
-    banded_step_repeats(data)
+    banded_step_split(data)
     # each path's counts are set to 0 just before it runs and read just after
     k.reset_launch_counts()
     res = run_main_path(data, args, "occlusion rig")

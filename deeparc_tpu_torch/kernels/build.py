@@ -51,8 +51,7 @@ def _bind(lib):
         "tile_gather_cells": [i, p, p, p, i, i, p, p],
         "probe_fma_pass": [i, p, ctypes.c_long, p, p],
         "probe_sweep_payload": [i, p, p, i, p, p],
-        "rig_cost": [i, i] + [p] * 4 + [i] * 5 + [d, i, i, p, p],
-        "rig_cost_mono": [i, i, p, p, p, i, i, d, p, p, p],
+        "rig_cost_band": [i, i] + [p] * 4 + [i, i, d, p, p, p],
         "rig_reduce_slots": [i, p] + [i] * 5 + [p, p, p],
         "rig_reduce_cost": [i, p, i, p, p],
         "tile_linearize_rows": [i, i, i] + [p] * 6 + [i] * 4 + [d, i, i]

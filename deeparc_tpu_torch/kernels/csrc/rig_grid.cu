@@ -8,11 +8,10 @@
 //   cost_grid             (:859, body _cost_kernel :159)
 // The monolithic pair takes the banded pair's tables with every tile's band
 // starting at cell 0, one group of width t_pad and no cyclic extension (the
-// wrappers in kernels/rig_grid.py build those tables). Each monolithic
-// wrapper has a kernel of its own: cost_grid runs cost_mono (below);
-// linearize_grid runs linearize_mono (below) and falls back to
-// linearize_kernel only for a rig whose E row does not fit its
-// shared-memory tile.
+// wrappers in kernels/rig_grid.py build those tables). Both cost wrappers
+// run cost_band (below), one launch a call; linearize_grid runs
+// linearize_mono (below) and falls back to linearize_kernel only for a rig
+// whose E row does not fit its shared-memory tile.
 //
 // Design of linearize_kernel (linearize_grid_banded). One thread owns one
 // point of a tile of blockDim.x points and walks the tile's band of w cells;
@@ -444,67 +443,42 @@ cudaError_t mono_attr(size_t smem) {
                               (int)smem);
 }
 
-template <typename S, int LOSS>
-__global__ void __launch_bounds__(256)
-cost_kernel(const S* __restrict__ tbl, const int* __restrict__ starts,
-            const S* __restrict__ pts, const S* __restrict__ pxm, int n_pad,
-            int t_lo, int g_tiles, int bn, int w, S scale,
-            S* __restrict__ partial_cost) {
-  __shared__ S cost_stage[32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long gcols = (long)g_tiles * bn;
-  S acc = S(0);
-  for (int i = blockIdx.x; i < g_tiles; i += gridDim.x) {
-    const int tile = t_lo + i;
-    const int row0 = starts[tile] * 8;
-    for (int j = tid; j < bn; j += blockDim.x) {
-      const long p = (long)tile * bn + j;
-      const S X[3] = {pts[p], pts[(long)n_pad + p], pts[2L * n_pad + p]};
-      for (int cell = 0; cell < w; ++cell) {
-        const long off = (long)cell * gcols + (long)i * bn + j;
-        acc += slot_cost<S, LOSS>(tbl + (long)(row0 + cell) * SP_COLS, X,
-                                  pxm[off], pxm[(long)w * gcols + off],
-                                  pxm[2L * w * gcols + off], scale);
-      }
-    }
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) cost_stage[warp] = acc;
-  __syncthreads();
-  if (tid == 0) {
-    S s = S(0);
-    for (int ww = 0; ww < (int)(blockDim.x >> 5); ++ww) s += cost_stage[ww];
-    partial_cost[blockIdx.x] += s;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// cost_grid: the monolithic trial cost (every point against all t_pad cells)
+// The trial cost: cost_grid_banded and cost_grid
 // ---------------------------------------------------------------------------
 //
-// Replaces cost_grid (rig_pallas.py:859, body _cost_kernel :159). One thread
-// owns one point and walks the t_pad cells in order; a block of COST_THREADS
-// points stages the 30 table columns the residual chain reads (R_i, R_o,
-// t_i, t_o, c, f, d: CostCols) for COST_CELLS cells at a time in shared
-// memory, where every lane of a warp reads the same value (a broadcast).
-// Per cell the thread reads its slot's mask first (one coalesced plane
-// row per warp) and loads xy0 / xy1 and runs the chain only for a live
-// slot: a dead slot adds exactly zero to the cost, and on the uniform rig
-// 79% of the slots are dead. Per-thread sums go through a warp sum and the
-// block's warps in order into one partial per block, summed by one warp in
-// a fixed order (reduce_cost_lanes): no float atomics.
+// Replaces cost_grid_banded (rig_pallas.py:777, body _banded_cost_kernel
+// :751) and cost_grid (:859, body _cost_kernel :159) with one kernel,
+// cost_band, launched once per call over all of the call's width groups
+// (CostGroups, by value). cost_grid is one group of width t_pad whose bands
+// all start at cell 0 (a start table of zeros).
 //
-// What bounds it on the card. Device-memory bytes: the mask plane (t_pad x
-// n_pad values) is read whole, the xy planes only in the 32-byte sectors
-// that hold a live slot; ~1,560 blocks of 256 threads at 400k points fill
-// the 132 SMs. The f64 divide of the perspective chain is the longest
-// dependent step; several warps per scheduler hide it. cost_kernel (the
-// banded wrapper's) reads all three planes at every slot and a 78-value
-// table row from device memory per slot.
+// A block owns up to COST_THREADS points of one tile, one thread a point,
+// and walks the tile's band of w cells in order: table rows
+// [starts[tile] * 8, starts[tile] * 8 + w) of the cyclically extended table.
+// It stages the 30 table columns the residual chain reads (R_i, R_o, t_i,
+// t_o, c, f, d: CostCols) for COST_CELLS cells at a time in shared memory,
+// where every lane of a warp reads the same value (a broadcast). Per cell
+// the thread reads its slot's mask first (one coalesced plane row per warp)
+// and loads xy0 / xy1 and runs the chain only for a live slot: a dead slot
+// adds exactly zero to the cost, and 79% (uniform rig) to 86% (occlusion
+// flagship's bands) of the slots are dead. Per-thread sums go through a
+// warp sum and the block's warps in order into one partial per block,
+// summed by one warp in a fixed order (reduce_cost_lanes): no float
+// atomics, the same bits every run.
+//
+// What bounds it on the card. Device-memory bytes: the mask planes are read
+// whole, the xy planes only in the 32-byte sectors that hold a live slot.
+// One launch covers every group, ~1,560 blocks of 256 threads at 400k
+// points, so the card is full whatever the groups' sizes; the f64 divide of
+// the perspective chain is the longest dependent step, and several warps per
+// scheduler hide it. Dead lanes idle through a warp's chain when one lane of
+// the warp is live.
 constexpr int COST_THREADS = 256;
-constexpr int COST_CELLS = 64;   // cells of the table staged at a time
-constexpr int COST_COLS = 30;    // table columns of the residual chain
-constexpr int COST_GROUP = 4;    // cells whose loads a thread issues at once
+constexpr int COST_CELLS = 96;     // cells of the table staged at a time
+constexpr int COST_COLS = 30;      // table columns of the residual chain
+constexpr int COST_GROUP = 4;      // cells whose loads a thread issues at once
+constexpr int COST_MAX_GROUPS = 8; // width groups of one launch
 
 // The staged table's columns: grid columns 0..17 (R_i, R_o), then 45..56
 // (t_i, t_o, c, f, d).
@@ -515,51 +489,91 @@ struct CostCols {
 };
 static_assert(RO == 9 && TI == 45 && D1 == 56, "CostCols maps the grid table");
 
+// The width groups of one launch (kernels/rig_grid.py _CostGroups holds the
+// same layout). Group g's plane stack is (3, w[g], cols[g]): column
+// (t - tile_lo[g]) * block_np + i holds point i of tile t. Its tiles take
+// per_tile blocks each, from block first_block[g] on; block j of a group
+// takes tile tile_lo[g] + j / per_tile, points (j % per_tile) * blockDim.x
+// + [0, blockDim.x) of it. A group without tiles starts where the next one
+// does and takes no block.
+struct CostGroups {
+  const void* pxm[COST_MAX_GROUPS];
+  long long cols[COST_MAX_GROUPS];
+  int w[COST_MAX_GROUPS];
+  int tile_lo[COST_MAX_GROUPS];
+  int first_block[COST_MAX_GROUPS];
+  int n;         // groups
+  int block_np;  // points of a tile
+  int per_tile;  // blocks of a tile
+  int n_pts;     // rows of the (n_pts, 3) points; later columns are padding
+};
+
 template <typename S, int LOSS>
 __global__ void __launch_bounds__(COST_THREADS)
-cost_mono(const S* __restrict__ tbl, const S* __restrict__ pts,
-          const S* __restrict__ pxm, int t_pad, int n_pad, S scale,
+cost_band(const S* __restrict__ tbl, const int* __restrict__ starts,
+          const S* __restrict__ pts, const CostGroups g, S scale,
           S* __restrict__ partial_cost) {
   __shared__ S ct[COST_CELLS * COST_COLS];
   __shared__ S cost_stage[COST_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long p = (long)blockIdx.x * COST_THREADS + tid;
-  const bool in = p < n_pad;
-  const long plane = (long)t_pad * n_pad;
-  S X[3] = {S(0), S(0), S(0)};
-  if (in) {
+  // the block's group: the last one that starts at or before it (constant
+  // indices only, so the struct is read where the launch put it)
+  const S* pxm = nullptr;
+  long cols = 0;
+  int w = 0, lo = 0, first = 0;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) X[a] = pts[(long)a * n_pad + p];
+  for (int i = 0; i < COST_MAX_GROUPS; ++i)
+    if (i < g.n && (int)blockIdx.x >= g.first_block[i]) {
+      pxm = static_cast<const S*>(g.pxm[i]);
+      cols = (long)g.cols[i];
+      w = g.w[i];
+      lo = g.tile_lo[i];
+      first = g.first_block[i];
+    }
+  const int j = blockIdx.x - first;
+  const int t = j / g.per_tile;  // tile within the group
+  const int i_pt = (j - t * g.per_tile) * blockDim.x + tid;  // point in it
+  const bool in = i_pt < g.block_np;
+  const long col = (long)t * g.block_np + i_pt;
+  const long p = (long)lo * g.block_np + col;
+  const long row0 = (long)starts[lo + t] * 8;
+  const long plane = (long)w * cols;
+  // a padding point's slots are all dead: its X is never read
+  S X[3] = {S(0), S(0), S(0)};
+  if (in && p < g.n_pts) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) X[a] = pts[3 * p + a];
   }
   S acc = S(0);
-  for (int c0 = 0; c0 < t_pad; c0 += COST_CELLS) {
-    const int nc = min(COST_CELLS, t_pad - c0);
+  for (int c0 = 0; c0 < w; c0 += COST_CELLS) {
+    const int nc = min(COST_CELLS, w - c0);
     __syncthreads();
-    for (int q = tid; q < nc * COST_COLS; q += COST_THREADS) {
-      const int j = q % COST_COLS;
-      ct[q] = tbl[(long)(c0 + q / COST_COLS) * SP_COLS + (j < 18 ? j : 27 + j)];
+    for (int q = tid; q < nc * COST_COLS; q += blockDim.x) {
+      const int jc = q % COST_COLS;
+      ct[q] = tbl[(row0 + c0 + q / COST_COLS) * SP_COLS +
+                  (jc < 18 ? jc : 27 + jc)];
     }
     __syncthreads();
     if (!in) continue;
     // cells in groups of COST_GROUP: a group's live xy loads go out
     // together with the next group's masks, then its chains run
-    const S* mrow = pxm + 2 * plane + p;
+    const S* mrow = pxm + 2 * plane + col;
     S m[COST_GROUP];
 #pragma unroll
     for (int u = 0; u < COST_GROUP; ++u)
-      m[u] = u < nc ? mrow[(long)(c0 + u) * n_pad] : S(0);
+      m[u] = u < nc ? mrow[(long)(c0 + u) * cols] : S(0);
     for (int c = 0; c < nc; c += COST_GROUP) {
       S x0[COST_GROUP], x1[COST_GROUP], mn[COST_GROUP];
 #pragma unroll
       for (int u = 0; u < COST_GROUP; ++u) {
-        const long off = (long)(c0 + c + u) * n_pad + p;
+        const long off = (long)(c0 + c + u) * cols + col;
         x0[u] = m[u] != S(0) ? pxm[off] : S(0);
         x1[u] = m[u] != S(0) ? pxm[plane + off] : S(0);
       }
 #pragma unroll
       for (int u = 0; u < COST_GROUP; ++u) {
         const int cn = c + COST_GROUP + u;
-        mn[u] = cn < nc ? mrow[(long)(c0 + cn) * n_pad] : S(0);
+        mn[u] = cn < nc ? mrow[(long)(c0 + cn) * cols] : S(0);
       }
 #pragma unroll
       for (int u = 0; u < COST_GROUP; ++u)
@@ -575,7 +589,7 @@ cost_mono(const S* __restrict__ tbl, const S* __restrict__ pts,
   __syncthreads();
   if (tid == 0) {
     S s = S(0);
-    for (int w = 0; w < COST_THREADS / 32; ++w) s += cost_stage[w];
+    for (int ww = 0; ww < (int)(blockDim.x >> 5); ++ww) s += cost_stage[ww];
     partial_cost[blockIdx.x] = s;
   }
 }
@@ -759,63 +773,42 @@ extern "C" int rig_linearize_mono(int dtype, int loss, const void* tbl,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int rig_cost(int dtype, int loss, const void* tbl,
-                        const void* starts, const void* pts, const void* pxm,
-                        int n_pad, int t_lo, int g_tiles, int bn, int w,
-                        double scale, int grid, int threads,
-                        void* partial_cost, void* stream) {
-  if (threads % 32 != 0 || threads > 256 || threads <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int* st = (const int*)starts;
-  cudaStream_t s = (cudaStream_t)stream;
-#define RIG_COST(T, L)                                                      \
-  cost_kernel<T, L><<<grid, threads, 0, s>>>(                               \
-      (const T*)tbl, st, (const T*)pts, (const T*)pxm, n_pad, t_lo, g_tiles, \
-      bn, w, (T)scale, (T*)partial_cost);                                   \
-  return (int)cudaGetLastError()
-  if (dtype == 1) {
-    if (loss == TRIVIAL) { RIG_COST(double, TRIVIAL); }
-    if (loss == HUBER) { RIG_COST(double, HUBER); }
-    if (loss == CAUCHY) { RIG_COST(double, CAUCHY); }
-  } else if (dtype == 0) {
-    if (loss == TRIVIAL) { RIG_COST(float, TRIVIAL); }
-    if (loss == HUBER) { RIG_COST(float, HUBER); }
-    if (loss == CAUCHY) { RIG_COST(float, CAUCHY); }
-  }
-#undef RIG_COST
-  return (int)cudaErrorInvalidValue;
-}
-
-// cost_grid: cost_mono over n_pad points (one partial per block of
-// COST_THREADS), then one warp sums the partials in order into out.
-extern "C" int rig_cost_mono(int dtype, int loss, const void* tbl,
-                             const void* pts, const void* pxm, int t_pad,
-                             int n_pad, double scale, void* partial_cost,
+// cost_grid_banded and cost_grid: cost_band over the groups, n_blocks blocks
+// of `threads` points (one partial each), then one warp sums the partials in
+// order into out.
+extern "C" int rig_cost_band(int dtype, int loss, const void* tbl,
+                             const void* starts, const void* pts,
+                             const CostGroups* groups, int n_blocks,
+                             int threads, double scale, void* partial_cost,
                              void* out, void* stream) {
-  if (t_pad <= 0 || n_pad <= 0) return (int)cudaErrorInvalidValue;
-  const int grid = (n_pad + COST_THREADS - 1) / COST_THREADS;
+  const CostGroups& g = *groups;
+  if (!starts || g.n < 1 || g.n > COST_MAX_GROUPS || n_blocks <= 0 ||
+      threads <= 0 ||
+      threads > COST_THREADS || threads % 32 != 0 || g.block_np <= 0 ||
+      (long)g.per_tile * threads < g.block_np || g.first_block[0] != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define RIG_COST_MONO(T, L)                                                  \
+#define RIG_COST_BAND(T, L)                                                  \
   {                                                                          \
-    cost_mono<T, L><<<grid, COST_THREADS, 0, s>>>(                           \
-        (const T*)tbl, (const T*)pts, (const T*)pxm, t_pad, n_pad, (T)scale, \
+    cost_band<T, L><<<n_blocks, threads, 0, s>>>(                            \
+        (const T*)tbl, (const int*)starts, (const T*)pts, g, (T)scale,       \
         (T*)partial_cost);                                                   \
     const cudaError_t e = cudaGetLastError();                                \
     if (e != cudaSuccess) return (int)e;                                     \
-    reduce_cost_lanes<T><<<1, 32, 0, s>>>((const T*)partial_cost, grid,      \
+    reduce_cost_lanes<T><<<1, 32, 0, s>>>((const T*)partial_cost, n_blocks,  \
                                           (T*)out);                          \
     return (int)cudaGetLastError();                                          \
   }
   if (dtype == 1) {
-    if (loss == TRIVIAL) RIG_COST_MONO(double, TRIVIAL)
-    if (loss == HUBER) RIG_COST_MONO(double, HUBER)
-    if (loss == CAUCHY) RIG_COST_MONO(double, CAUCHY)
+    if (loss == TRIVIAL) RIG_COST_BAND(double, TRIVIAL)
+    if (loss == HUBER) RIG_COST_BAND(double, HUBER)
+    if (loss == CAUCHY) RIG_COST_BAND(double, CAUCHY)
   } else if (dtype == 0) {
-    if (loss == TRIVIAL) RIG_COST_MONO(float, TRIVIAL)
-    if (loss == HUBER) RIG_COST_MONO(float, HUBER)
-    if (loss == CAUCHY) RIG_COST_MONO(float, CAUCHY)
+    if (loss == TRIVIAL) RIG_COST_BAND(float, TRIVIAL)
+    if (loss == HUBER) RIG_COST_BAND(float, HUBER)
+    if (loss == CAUCHY) RIG_COST_BAND(float, CAUCHY)
   }
-#undef RIG_COST_MONO
+#undef RIG_COST_BAND
   return (int)cudaErrorInvalidValue;
 }
 

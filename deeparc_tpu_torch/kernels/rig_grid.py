@@ -16,8 +16,9 @@ JAX reference. Each wrapper counts its kernel launches in a plain ``int``
 attribute, ``launches``.
 
 The monolithic pair takes the banded pair's tables with every tile's band
-starting at cell 0, one group of width t_pad and no cyclic extension; each
-has a kernel of its own (``linearize_mono``, ``cost_mono``).
+starting at cell 0, one group of width t_pad and no cyclic extension.
+``linearize_grid`` has a kernel of its own (``linearize_mono``); both cost
+wrappers launch ``cost_band`` once a call, over all their width groups.
 
 Inputs are laid out as in the reference: cells of a tile's band in rows,
 points in columns. ``pxm`` stacks [xy0; xy1; mask] per width group as
@@ -32,6 +33,9 @@ and from the flat camera order, never E itself.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -270,7 +274,7 @@ def _prep_cost_banded(points, sp, grid, starts, w_band, block_np, pxm):
     tbl = _extend_cyclic(pack_slot_tables(sp, grid, zeros6, zeros6, zeros6,
                                           t_pad), w_max)
     return dict(groups=groups, pxms=pxms, tbl=tbl, starts=starts,
-                pts=_pts_pack(points, None, n_pad), block_np=block_np)
+                points=points, n_pad=n_pad, block_np=block_np)
 
 
 def _prep_cost_mono(points, sp, grid, block_np, pxm):
@@ -283,7 +287,7 @@ def _prep_cost_mono(points, sp, grid, block_np, pxm):
                 tbl=pack_slot_tables(sp, grid, zeros6, zeros6, zeros6, t_pad),
                 starts=torch.zeros(n_tiles, dtype=torch.int32,
                                    device=points.device),
-                pts=_pts_pack(points, None, n_pad), block_np=block_np)
+                points=points, n_pad=n_pad, block_np=block_np)
 
 
 def _finish_linearize(N, cost, pout, g_slots, hcc_slots, E):
@@ -483,7 +487,8 @@ def _plain_linearize(prep, loss, loss_scale):
 
 
 def _plain_cost(prep, loss, loss_scale):
-    tbl, pts, bn = prep["tbl"], prep["pts"], prep["block_np"]
+    tbl, bn = prep["tbl"], prep["block_np"]
+    pts = _pts_pack(prep["points"], None, prep["n_pad"])
     total = torch.zeros((), dtype=pts.dtype, device=pts.device)
     for rows, planes, p0, p1 in _tile_chunks(prep["groups"], prep["pxms"],
                                              prep["starts"], bn):
@@ -674,57 +679,84 @@ def _cuda_linearize_mono(prep, loss, loss_scale):
     return _finish_linearize(prep["N"], cost, pout, g_slots, hcc_slots, E)
 
 
-def _cuda_cost(prep, loss, loss_scale):
-    """cost_grid_banded's kernel (``cost_kernel``) over the width groups."""
+# points of a cost_band block, and width groups of one launch
+# (csrc/rig_grid.cu COST_THREADS, COST_MAX_GROUPS)
+COST_THREADS = 256
+COST_MAX_GROUPS = 8
+
+
+class CostLaunch(NamedTuple):
+    """cost_band's one launch over width groups ``(w, tile_lo, tile_hi)``
+    of ``block_np``-point tiles: blocks of ``threads`` points,
+    ``per_tile`` blocks a tile, each group's first block, ``n_blocks`` in
+    all. Block j of a group takes tile ``tile_lo + (j - first) //
+    per_tile`` and its points ``((j - first) % per_tile) * threads +
+    [0, threads)`` below ``block_np``, at the same columns of the group's
+    stack counted from the group's first tile. A group without tiles
+    starts where the next one does and takes no block."""
+    threads: int
+    per_tile: int
+    first_blocks: tuple
+    n_blocks: int
+
+
+def cost_launch(groups, block_np) -> CostLaunch:
+    """cost_band's launch map (:class:`CostLaunch`); raises ValueError for
+    more than ``COST_MAX_GROUPS`` groups (the struct the launch passes has
+    room for that many)."""
+    if len(groups) > COST_MAX_GROUPS:
+        raise ValueError(f"cost_band takes at most {COST_MAX_GROUPS} width "
+                         f"groups in one launch, not {len(groups)}")
+    threads = min(COST_THREADS, _round_up(block_np, 32))
+    per_tile = -(-block_np // threads)
+    firsts, n_blocks = [], 0
+    for _, lo, hi in groups:
+        firsts.append(n_blocks)
+        n_blocks += (hi - lo) * per_tile
+    return CostLaunch(threads, per_tile, tuple(firsts), n_blocks)
+
+
+class _CostGroups(ctypes.Structure):
+    """csrc/rig_grid.cu CostGroups: the groups of one cost_band launch."""
+    _fields_ = [("pxm", ctypes.c_void_p * COST_MAX_GROUPS),
+                ("cols", ctypes.c_longlong * COST_MAX_GROUPS),
+                ("w", ctypes.c_int * COST_MAX_GROUPS),
+                ("tile_lo", ctypes.c_int * COST_MAX_GROUPS),
+                ("first_block", ctypes.c_int * COST_MAX_GROUPS),
+                ("n", ctypes.c_int), ("block_np", ctypes.c_int),
+                ("per_tile", ctypes.c_int), ("n_pts", ctypes.c_int)]
+
+
+def _cuda_cost(prep, loss, loss_scale, counter):
+    """Both cost wrappers' kernel (``cost_band``): one launch over all the
+    prep's width groups, one thread a point, then one warp sums the blocks'
+    partials in order."""
     from deeparc_tpu_torch.kernels.build import check, library
 
-    lib = library()
-    pts, bn = prep["pts"], prep["block_np"]
-    dev, dtype = pts.device, pts.dtype
+    pts, bn = prep["points"].contiguous(), prep["block_np"]
     tbl = prep["tbl"].contiguous()
     pxms = tuple(p.contiguous() for p in prep["pxms"])
     dt, ls = _cuda_args(pts, loss, (tbl,) + pxms)
+    groups = prep["groups"]
     starts = prep["starts"].to(torch.int32).contiguous()
-    n_blocks = _n_blocks(dev, max(hi - lo for _, lo, hi in prep["groups"]))
-    threads = min(256, _round_up(bn, 32))
-    partial_cost = torch.zeros((n_blocks,), dtype=dtype, device=dev)
-    cost = torch.empty((), dtype=dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for (w, lo, hi), pxm in zip(prep["groups"], pxms):
-        if hi == lo:
-            continue
-        cost_grid_banded.launches += 1
-        check(lib.rig_cost(dt, ls, tbl.data_ptr(), starts.data_ptr(),
-                           pts.data_ptr(), pxm.data_ptr(), pts.shape[1], lo,
-                           hi - lo, bn, w, float(loss_scale),
-                           min(hi - lo, n_blocks), threads,
-                           partial_cost.data_ptr(), stream), "rig_cost")
-    check(lib.rig_reduce_cost(dt, partial_cost.data_ptr(), n_blocks,
-                              cost.data_ptr(), stream), "rig_reduce_cost")
-    return cost
-
-
-# threads (points) of a cost_mono block (csrc/rig_grid.cu COST_THREADS)
-COST_THREADS = 256
-
-
-def _cuda_cost_mono(prep, loss, loss_scale):
-    """cost_grid's own kernel (``cost_mono``): one thread per point over
-    the whole stack, then one warp sums the blocks' partials in order."""
-    from deeparc_tpu_torch.kernels.build import check, library
-
-    pts, tbl, (pxm,) = prep["pts"], prep["tbl"].contiguous(), prep["pxms"]
-    pxm = pxm.contiguous()
-    dt, ls = _cuda_args(pts, loss, (tbl, pxm))
-    t_pad, n_pad = pxm.shape[1], pxm.shape[2]
-    partial = torch.empty((-(-n_pad // COST_THREADS),), dtype=pts.dtype,
+    launch = cost_launch(groups, bn)
+    if launch.n_blocks == 0:
+        return torch.zeros((), dtype=pts.dtype, device=pts.device)
+    g = _CostGroups(n=len(groups), block_np=bn, per_tile=launch.per_tile,
+                    n_pts=pts.shape[0])
+    for i, ((w, lo, hi), p, first) in enumerate(zip(groups, pxms,
+                                                    launch.first_blocks)):
+        g.pxm[i], g.cols[i] = p.data_ptr(), (hi - lo) * bn
+        g.w[i], g.tile_lo[i], g.first_block[i] = w, lo, first
+    partial = torch.empty((launch.n_blocks,), dtype=pts.dtype,
                           device=pts.device)
     cost = torch.empty((), dtype=pts.dtype, device=pts.device)
-    cost_grid.launches += 1
-    check(library().rig_cost_mono(
-        dt, ls, tbl.data_ptr(), pts.data_ptr(), pxm.data_ptr(), t_pad, n_pad,
+    counter.launches += 1
+    check(library().rig_cost_band(
+        dt, ls, tbl.data_ptr(), starts.data_ptr(),
+        pts.data_ptr(), ctypes.addressof(g), launch.n_blocks, launch.threads,
         float(loss_scale), partial.data_ptr(), cost.data_ptr(),
-        torch.cuda.current_stream(pts.device).cuda_stream), "rig_cost_mono")
+        torch.cuda.current_stream(pts.device).cuda_stream), "rig_cost_band")
     return cost
 
 
@@ -797,7 +829,7 @@ def cost_grid_banded(points, sp, grid, starts, w_band, loss="trivial",
         return cost_grid_banded_plain(points, sp, grid, starts, w_band, loss,
                                       loss_scale, block_np, pxm)
     prep = _prep_cost_banded(points, sp, grid, starts, w_band, block_np, pxm)
-    return _cuda_cost(prep, loss, loss_scale)
+    return _cuda_cost(prep, loss, loss_scale, cost_grid_banded)
 
 
 def linearize_grid_plain(points, point_free, sp, grid, free_outer, free_inner,
@@ -835,13 +867,13 @@ def cost_grid_plain(points, sp, grid, loss="trivial", loss_scale=0.5,
 def cost_grid(points, sp, grid, loss="trivial", loss_scale=0.5,
               block_np=1024, pxm=None):
     """Fused robustified half-SSE over the whole grid (trial-cost pass).
-    ``pxm`` as for :func:`linearize_grid`; the kernel runs one thread per
-    point, so ``block_np`` only pads the stack it builds."""
+    ``pxm`` as for :func:`linearize_grid`: one width group of t_pad cells,
+    every band at cell 0, over ``block_np``-point tiles."""
     if not _dispatch(points, "cost_grid"):
         return cost_grid_plain(points, sp, grid, loss, loss_scale, block_np,
                                pxm)
-    return _cuda_cost_mono(_prep_cost_mono(points, sp, grid, block_np, pxm),
-                           loss, loss_scale)
+    return _cuda_cost(_prep_cost_mono(points, sp, grid, block_np, pxm),
+                      loss, loss_scale, cost_grid)
 
 
 KERNEL_WRAPPERS = (linearize_grid_banded, cost_grid_banded, linearize_grid,

@@ -221,21 +221,106 @@ def test_band_subtiles_pin_starts_and_groups(banded, tp):
         tk.band_subtiles(prep.lin_groups, 48, 32)
 
 
-def test_cost_banded_plain_matches_pallas(banded):
+@pytest.mark.parametrize("loss,scale,width", [
+    ("trivial", 0.5, "groups"),
+    ("huber", 2.0, "groups"),
+    ("cauchy", 3.0, "groups"),
+    ("cauchy", 3.0, "one"),   # one integer width, each side gathers its stack
+])
+def test_cost_banded_plain_matches_pallas(banded, loss, scale, width):
+    """The banded trial cost against JAX's (interpret mode), over the band
+    prep's width groups with its gathered stacks, or over one width that
+    covers every tile's band with no stack given. 1e-5 relative: the
+    reference's own tolerance for the banded pair (tests/test_rig_band.py);
+    both sides compute in float64."""
     scene, prep, tg = banded
     g = prep.grid
     params = dataclasses.replace(
         scene.params, points=scene.params.points[np.asarray(prep.perm)])
     tparams = params_to_torch(params)
+    if width == "groups":
+        kw_j = dict(w_band=prep.cost_groups, pxm=g.band[3])
+        kw_t = dict(w_band=prep.cost_groups, pxm=tg.band[3])
+    else:
+        kw_j = kw_t = dict(w_band=prep.w_band_cost, pxm=None)
     want = jk.cost_grid_banded(params.points, jslot_params(params, g), g,
-                               g.band[1], w_band=prep.cost_groups,
-                               loss="cauchy", loss_scale=3.0, block_np=128,
-                               interpret=True, pxm=g.band[3])
+                               g.band[1], loss=loss, loss_scale=scale,
+                               block_np=128, interpret=True, **kw_j)
     got = tk.cost_grid_banded(tparams.points, slot_params(tparams, tg), tg,
-                              tg.band[1], w_band=prep.cost_groups,
-                              loss="cauchy", loss_scale=3.0, block_np=128,
-                              pxm=tg.band[3])
+                              tg.band[1], loss=loss, loss_scale=scale,
+                              block_np=128, **kw_t)
     close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("block_np", [128, 320, 512])
+def test_cost_launch_maps_blocks_to_band_columns(banded, block_np):
+    """cost_band's one launch over all width groups: block j of a group,
+    decoded as the kernel decodes it (tile lo + j // per_tile, points
+    (j % per_tile) * threads + [0, threads) below block_np), reads exactly
+    the gathered stack's columns that hold that tile's points in that
+    tile's band, and the blocks cover every column of every group once.
+    The decode here is Python's copy of the kernel's; the kernel's own
+    (``cost_band`` in ``csrc/rig_grid.cu``) is held only by
+    ``chip_smoke.py`` phase 3, against the plain version, on the
+    flagship's three width groups."""
+    _, _, tg = banded
+    gen = torch.Generator().manual_seed(block_np)
+    n_tiles = 7
+    n_pad = n_tiles * block_np
+    t_pad = tg.xy0.shape[1]
+    groups = ((16, 0, 2), (24, 2, 2), (32, 2, 6), (8, 6, 7))
+    starts = torch.randint(0, t_pad // 8, (n_tiles,), generator=gen,
+                           dtype=torch.int32)
+    pxm_ext = tk.banded_planes(tg, n_pad, 32)
+    launch = tk.cost_launch(groups, block_np)
+    assert launch.threads % 32 == 0 and launch.threads <= tk.COST_THREADS
+    assert launch.per_tile * launch.threads >= block_np
+    firsts = list(launch.first_blocks) + [launch.n_blocks]
+    assert firsts[0] == 0
+    for (w, lo, hi), first, nxt in zip(groups, firsts, firsts[1:]):
+        stack = tk.gather_banded_planes(pxm_ext, starts, w, block_np, lo, hi)
+        assert nxt - first == (hi - lo) * launch.per_tile
+        seen = torch.zeros(stack.shape[-1], dtype=torch.int64)
+        for j in range(nxt - first):
+            tile = lo + j // launch.per_tile
+            i0 = (j % launch.per_tile) * launch.threads
+            n = max(0, min(launch.threads, block_np - i0))
+            col0 = (tile - lo) * block_np + i0
+            p0 = tile * block_np + i0
+            rows = int(starts[tile]) * 8 + torch.arange(w)
+            assert torch.equal(stack[:, :, col0:col0 + n],
+                               pxm_ext[:, rows, p0:p0 + n])
+            seen[col0:col0 + n] += 1
+        assert torch.equal(seen, torch.ones_like(seen))
+
+
+@pytest.mark.parametrize("block_np", [32, 1024])
+def test_cost_launch_of_the_monolithic_stack(mono, block_np):
+    """cost_grid's launch: its prep's one group of t_pad cells over the
+    (3, t_pad, n_pad) stack with a zero start table (every band at cell 0),
+    so block j owns stack columns [j * threads, (j + 1) * threads) and the
+    blocks cover n_pad once."""
+    _, t_in = _mono_inputs(mono)
+    points, _, sp, grid = t_in[:4]
+    prep = tk._prep_cost_mono(points, sp, grid, block_np, None)
+    (pxm,), ((w, lo, hi),) = prep["pxms"], prep["groups"]
+    n_pad = prep["n_pad"]
+    assert pxm.shape == (3, w, n_pad) and (lo, hi) == (0, n_pad // block_np)
+    assert not prep["starts"].any() and prep["starts"].numel() == hi
+    launch = tk.cost_launch(prep["groups"], block_np)
+    assert launch.first_blocks == (0,)
+    assert launch.n_blocks * launch.threads == n_pad
+    for j in range(launch.n_blocks):
+        t, k = divmod(j, launch.per_tile)
+        assert t * block_np + k * launch.threads == j * launch.threads
+
+
+def test_cost_launch_refuses_more_than_eight_groups():
+    groups = tuple((8, i, i + 1) for i in range(tk.COST_MAX_GROUPS + 1))
+    assert tk.cost_launch(groups[:-1], 1024).first_blocks == tuple(
+        4 * i for i in range(tk.COST_MAX_GROUPS))
+    with pytest.raises(ValueError, match="at most 8 width groups"):
+        tk.cost_launch(groups, 1024)
 
 
 @pytest.mark.parametrize("R,K", [(7, 3), (32, 8), (5, 0)])
