@@ -5,6 +5,7 @@
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
     python3 chip_smoke.py --cost-only        # the two cost wrappers alone
+    python3 chip_smoke.py --new-paths-only   # phases 10-12 alone
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -75,8 +76,25 @@ Phases (any failure raises and exits non-zero):
      ``linearize_grid`` on the dense 400k-point rig, and
      ``...microbench_sweep_payload``): the FMA ceiling may not pass 1.05 of
      the published peak, the linearize's share of it not 1.0;
-then one JSON line with the probes' entry points' results, one with the
-nine kernels' records (errors, milliseconds, the bound, launches on the
+  10. the indexed engine on the occlusion flagship (float64, 4.0M
+     observations): one LM step with DENSE_SCHUR, then one with
+     ITERATIVE_SCHUR (30 PCG), each split into the Jacobian blocks /
+     ``build_system`` / ``solve_schur`` / the trial cost with the device's
+     idle share, ``sum_rows`` launches and peak memory, run twice bit for
+     bit; the step's fixed-order row sums through the solve's maps against
+     ``index_add_``; then ``run_pipeline(engine="indexed")`` with
+     at most 10 LM iterations a solve, RMSE under twice the pixel noise;
+  11. ``run_incremental`` on the flagship (24 cells a batch, 8 batches, on
+     the grid engine; the banded kernels must launch) and on a windowed
+     BAL scene of 128 cameras with the pose graph (the tile engine; its
+     kernels must launch), at most 20 LM iterations a solve: finite batch
+     costs, RMSE under twice the pixel noise;
+  12. checkpoint/resume of ``solve_ba_grid`` (banded flagship),
+     ``solve_tiles_prepared`` (phase 8's scene) and ``solve_ba`` against
+     an uninterrupted solve: the same final cost within 1e-12 relative,
+     one ``lm_iteration`` log line per iteration;
+then one JSON line with the probes' entry points' results, one with
+phases 10-12's records, one with the nine kernels' records (errors, milliseconds, the bound, launches on the
 main paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -1335,6 +1353,403 @@ def phase_probes(args, records):
     return launches, {"vpu_roofline": roof, "microbench_sweep_payload": payload}
 
 
+# ---------------------------------------------------------------------------
+# Indexed engine, incremental BA, checkpoint/resume (phases 10-12)
+# ---------------------------------------------------------------------------
+
+# the windowed BAL scene of phase 11's pose-graph run: fewer cameras than
+# phase 6's 2000, so the pose graph's dense (6 edges) x (6 cameras) float64
+# Jacobian stays well under 2 GB (all pairs within the window are edges)
+POSE_SCENE = dict(n_cameras=128, track_length=8, window=64, n_hubs=8,
+                  hub_frac=0.15, pixel_noise=PIXEL_NOISE, point_noise=0.02)
+# LM iterations a solve: phase 10's indexed pipeline (it converges in ~5 on
+# the flagship), phase 11's incremental batches (5 left the last batches
+# unconverged: RMSE 3.1 px)
+INDEXED_ITERATIONS = 10
+INCREMENTAL_ITERATIONS = 20
+
+
+def check_state_repeats(run, label):
+    """One indexed LM step run twice from one state gives the same bits in
+    the next state's parameters and cost."""
+    import dataclasses
+
+    import torch
+
+    a, b = run()[0], run()[0]
+    for f in dataclasses.fields(a.params):
+        if not torch.equal(getattr(a.params, f.name),
+                           getattr(b.params, f.name)):
+            raise AssertionError(f"{label}, run twice: different bits in "
+                                 f"{f.name}")
+    if not torch.equal(a.cost, b.cost):
+        raise AssertionError(f"{label}, run twice: different bits in cost")
+
+
+def indexed_sums(index, maps, N, R, K, reps):
+    """The indexed step's fixed-order row sums against ``index_add_`` on the
+    card, through the solve's own maps (``solver.schur.schur_maps``), on
+    values made from a seed: the point sums (F = 12), an extrinsic camera
+    group (F = 6, segmented), E's full grid of one group (F = 18) and one
+    Hcc block pair (F = 36, segmented)."""
+    import torch
+
+    from deeparc_tpu_torch.kernels import tile as k
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    M = index.obs_point.shape[0]
+    rand = lambda F: torch.randn((M, F), dtype=torch.float64, device="cuda",
+                                 generator=gen)
+    op, oo = index.obs_point.long(), index.obs_outer.long()
+    cases = (("points", 12, op, N, maps.point),
+             ("outer group", 6, oo, R, maps.outer),
+             ("E grid, outer group", 18, op * R + oo, N * R, maps.dense_e[0]),
+             ("Hcc outer x outer", 36, oo * R + oo, R * R, maps.hcc[0]))
+    sums: dict = {}
+    for label, F, dst, n_out, gmap in cases:
+        part = rand(F)
+        check_sum(sums, f"float64:{label}", "float64", None,
+                  lambda: k.sum_rows(part, dst, n_out, gmap), part, dst,
+                  n_out, reps)
+        del part
+    return sums
+
+
+def indexed_step_split(data, reps):
+    """Phase 10a: one LM step of the indexed engine (float64, DENSE_SCHUR,
+    the pipeline's full-BA free mask) on the occlusion flagship: host wall
+    time around the synchronised step; the Jacobian blocks
+    (``jacobian_blocks_flat``), ``build_system``, ``solve_schur`` and the
+    trial cost (``robust_cost``) timed alone with CUDA events (the rest:
+    J dx, the step's update); the idle share from the profiler's device
+    time; ``sum_rows`` launches in one step; the step run twice must give
+    the same bits. Then one ITERATIVE_SCHUR step (30 PCG iterations).
+    Returns the record."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.residuals.reprojection import (
+        flatten_camera,
+        jacobian_blocks_flat,
+    )
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.ba import (
+        init_state,
+        make_step_pure,
+        robust_cost,
+    )
+    from deeparc_tpu_torch.solver.schur import (
+        build_system,
+        schur_maps,
+        solve_schur,
+    )
+
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    free = freeze_masks(scene)
+    params, index = scene.params, scene.index
+    N, R, K = (params.points.shape[0], params.ext_rot.shape[0],
+               params.center.shape[0])
+    cam_free, pf = flatten_camera(free), free.points
+    torch.cuda.synchronize()
+    t0 = time.time()
+    maps = schur_maps(index, N, R, K)
+    torch.cuda.synchronize()
+    maps_ms = (time.time() - t0) * 1e3
+    print(f"  {index.obs_point.shape[0]} observations, {N} points, camera "
+          f"vector C = {6 * (R + K)}; the solve's row-sum maps, built once "
+          f"per solve: {maps_ms:.1f} ms")
+    rec = {"maps_build_ms": maps_ms}
+    for solver, cg in (("dense_schur", None), ("iterative_schur", 30)):
+        opts = SolverOptions(linear_solver=solver,
+                             **({"cg_max_iterations": cg} if cg else {}))
+        step = make_step_pure(opts)
+        state = init_state(params, index, opts)
+        m = maps if solver == "dense_schur" else maps._replace(dense_e=(),
+                                                               hcc=())
+        run = lambda: step(state, index, cam_free, pf, m)
+        k.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        launches = k.sum_rows.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wall = wall_ms(run, 3)
+        blocks = jacobian_blocks_flat(params, index)
+        sys = build_system(blocks.r, blocks.jp, blocks.jc, index, N, R, K,
+                           cam_free, pf, m)
+        parts = {
+            "jacobian": time_ms(lambda: jacobian_blocks_flat(params, index),
+                                3),
+            "build_system": time_ms(lambda: build_system(
+                blocks.r, blocks.jp, blocks.jc, index, N, R, K, cam_free, pf,
+                m), 3),
+            "solve_schur": time_ms(lambda: solve_schur(
+                sys, state.tr.radius, opts), 3),
+            "trial cost": time_ms(lambda: robust_cost(params, index, opts),
+                                  3)}
+        del blocks, sys
+        busy = sum(device_ms(run).values())
+        label = f"one indexed LM step ({solver}{f', {cg} PCG' if cg else ''})"
+        print_split(label, wall, parts, busy)
+        print(f"  sum_rows launches in one step: {launches}; peak device "
+              f"memory {peak:.2f} GiB")
+        check_state_repeats(run, label)
+        print("  the step run twice: the same bits")
+        rec[solver] = dict(wall_ms=wall, device_ms=busy,
+                           idle_share=1 - busy / wall if busy else None,
+                           sum_rows_launches=launches, peak_gib=peak, **parts)
+        del state
+        torch.cuda.empty_cache()
+    rec["sum_rows"] = indexed_sums(index, maps, N, R, K, reps)
+    return rec
+
+
+def phase_indexed(args, data):
+    """Phase 10: the indexed engine at full size (the step split, then
+    ``run_pipeline(engine="indexed")`` with the LM iterations capped);
+    returns its record."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import PipelineOptions, SolverOptions
+    from deeparc_tpu_torch.pipeline import run_pipeline
+
+    print("[phase 10] the indexed engine on the occlusion flagship, float64")
+    t0 = time.time()
+    rec = indexed_step_split(data, args.reps)
+    opts = PipelineOptions(
+        solver=SolverOptions(max_iterations=INDEXED_ITERATIONS),
+        write_snapshots=False, engine="indexed")
+    k.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    res = run_pipeline(data, opts, device="cuda", dtype=torch.float64,
+                       verbose=True)
+    torch.cuda.synchronize()
+    seconds = time.time() - t1
+    launches = k.sum_rows.launches
+    per_iter = res.solve_seconds / max(res.solve_iterations, 1)
+    print(f"  run_pipeline(engine='indexed'): rounds {res.filter_rounds}, "
+          f"points {res.scene.n_points}, final_rmse_px "
+          f"{res.final_rmse_px:.6f}, LM iterations {res.solve_iterations} "
+          f"(at most {INDEXED_ITERATIONS} a solve), {per_iter:.6f} "
+          f"s/iteration, pipeline {seconds:.3f} s, sum_rows launches "
+          f"{launches}; phase 10 took {time.time() - t0:.1f} s")
+    if launches <= 0:
+        raise AssertionError("the indexed engine launched no sum_rows")
+    if not res.final_rmse_px < 2 * PIXEL_NOISE:
+        raise AssertionError(f"indexed pipeline: final RMSE "
+                             f"{res.final_rmse_px} px not under "
+                             f"{2 * PIXEL_NOISE} px")
+    rec["pipeline"] = dict(rounds=res.filter_rounds,
+                           final_rmse_px=res.final_rmse_px,
+                           lm_iterations=res.solve_iterations,
+                           s_per_iteration=per_iter, seconds=seconds,
+                           sum_rows_launches=launches)
+    return rec
+
+
+def check_incremental(inc, label):
+    import math
+
+    costs = [h["cost"] for h in inc.history]
+    print(f"  {label}: {inc.batches} batches, per-batch cost "
+          + ", ".join(f"{c:.6e}" for c in costs) + ", iterations "
+          + str([h["iterations"] for h in inc.history])
+          + f"; final_rmse_px {inc.final_rmse_px:.6f}")
+    if not all(math.isfinite(c) for c in costs):
+        raise AssertionError(f"{label}: a batch cost is not finite")
+    if not inc.final_rmse_px < 2 * PIXEL_NOISE:
+        raise AssertionError(f"{label}: final RMSE {inc.final_rmse_px} px "
+                             f"not under {2 * PIXEL_NOISE} px")
+
+
+def phase_incremental(args, data):
+    """Phase 11: BFS incremental BA on the card. The shared flagship on the
+    grid engine (one ring of 24 cells a batch, 8 batches); then a windowed
+    BAL scene of 128 cameras on the tile engine with the pose-graph stage.
+    Returns its record."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import PipelineOptions, SolverOptions
+    from deeparc_tpu_torch.io import make_bal_windowed_host
+    from deeparc_tpu_torch.pipeline.incremental import run_incremental
+
+    print("[phase 11] BFS incremental BA, float64")
+    rec = {}
+    opts = PipelineOptions(solver=SolverOptions(
+        max_iterations=INCREMENTAL_ITERATIONS))
+    k.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    inc = run_incremental(data, opts, batch_size=24, device="cuda",
+                          verbose=True)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {fn.__name__: fn.launches for fn in k.KERNEL_WRAPPERS
+                if fn.launches}
+    print(f"  occlusion flagship, run_incremental (batch 24 cells, at most "
+          f"{INCREMENTAL_ITERATIONS} LM iterations a solve): "
+          f"{seconds:.3f} s; kernel launches per batch "
+          + str({kn: n / inc.batches for kn, n in launches.items()}))
+    check_incremental(inc, "grid incremental")
+    for kname in ("linearize_grid_banded", "cost_grid_banded"):
+        if not launches.get(kname):
+            raise AssertionError(f"run_incremental launched no {kname}")
+    rec["grid"] = dict(batches=inc.batches, seconds=seconds,
+                       final_rmse_px=inc.final_rmse_px,
+                       costs=[h["cost"] for h in inc.history],
+                       launches=launches)
+
+    C = POSE_SCENE["n_cameras"]
+    bal = make_bal_windowed_host(n_points=args.global_points, seed=1,
+                                 **POSE_SCENE)
+    opts = PipelineOptions(solver=SolverOptions(
+        linear_solver="iterative_schur", cg_max_iterations=30,
+        max_iterations=INCREMENTAL_ITERATIONS))
+    k.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    inc = run_incremental(bal, opts, device="cuda", verbose=True,
+                          pose_graph=True)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {fn.__name__: fn.launches for fn in k.KERNEL_WRAPPERS
+                if fn.launches}
+    print(f"  windowed BAL scene, {C} cameras (cut from phase 6's 2000 for "
+          f"the pose graph's dense Jacobian), {bal.n_points} points, "
+          f"{bal.n_obs} observations, run_incremental_free with the pose "
+          f"graph: {seconds:.3f} s, peak device memory {peak:.2f} GiB; "
+          f"kernel launches per batch "
+          + str({kn: n / inc.batches for kn, n in launches.items()}))
+    check_incremental(inc, "free incremental with the pose graph")
+    if not launches.get("tile_linearize_local"):
+        raise AssertionError("run_incremental_free launched no tile kernel")
+    rec["free"] = dict(cameras=C, batches=inc.batches, seconds=seconds,
+                       final_rmse_px=inc.final_rmse_px, peak_gib=peak,
+                       costs=[h["cost"] for h in inc.history],
+                       launches=launches)
+    return rec
+
+
+def phase_resume(args, data):
+    """Phase 12: checkpoint/resume on the card. For ``solve_ba_grid`` (the
+    banded flagship), ``solve_tiles_prepared`` (phase 8's windowed BAL
+    scene) and ``solve_ba`` (the flagship's observation list): k = 3
+    iterations (fewer if the solve converges by then) with
+    ``checkpoint_every=k`` and a ``JsonlLogger``, resumed to 6, against an
+    uninterrupted 6-iteration solve: the final costs
+    within 1e-12 relative (whether the bits match is printed); the log
+    holds one ``lm_iteration`` line per iteration."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.io import make_bal_windowed_host
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.ba import solve_ba
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_from_scene,
+        solve_ba_grid,
+    )
+    from deeparc_tpu_torch.solver.tiles import (
+        solve_tiles_prepared,
+        tiles_from_scene,
+    )
+    from deeparc_tpu_torch.utils import JsonlLogger
+
+    print("[phase 12] checkpoint/resume on the card, float64")
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_resume")
+    os.makedirs(work, exist_ok=True)
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    free = freeze_masks(scene)
+    grid = grid_from_scene(scene)
+    bal = from_deeparc(make_bal_windowed_host(
+        n_points=args.global_points, seed=1, **TILE_SCENE),
+        dtype=torch.float64, device="cuda")
+    bfree = freeze_masks(bal)
+    tiles, params_t, free_t = tiles_from_scene(bal, bfree)
+    bcam = flatten_camera(bfree)
+    tile_opts = dict(linear_solver="iterative_schur", cg_max_iterations=30)
+    solvers = {
+        "solve_ba_grid": (lambda o, **kw: solve_ba_grid(
+            scene.params, grid, free, o, **kw), {}),
+        "solve_tiles_prepared": (lambda o, **kw: solve_tiles_prepared(
+            params_t, tiles, free_t, bcam, o, **kw), tile_opts),
+        "solve_ba": (lambda o, **kw: solve_ba(
+            scene.params, scene.index, free, o, **kw), {}),
+    }
+    rec = {}
+    for name, (solve, extra) in solvers.items():
+        path = os.path.join(work, f"{name}.npz")
+        log_path = os.path.join(work, f"{name}.jsonl")
+        for p in (path, log_path):
+            if os.path.exists(p):
+                os.remove(p)
+        full = solve(SolverOptions(max_iterations=6, **extra))
+        # stop before the uninterrupted solve converges: a resumed solve
+        # starts with its status cleared, as the reference's does
+        k = min(3, full.iterations - 1)
+        if k < 1:
+            raise AssertionError(f"{name}: converged in one iteration")
+        with JsonlLogger(log_path) as logger:
+            first = solve(SolverOptions(max_iterations=k, **extra),
+                          checkpoint_path=path, checkpoint_every=k,
+                          logger=logger)
+        resumed = solve(SolverOptions(max_iterations=6, **extra),
+                        checkpoint_path=path, checkpoint_every=100,
+                        resume=True)
+        lines = [ln for ln in open(log_path) if '"lm_iteration"' in ln]
+        rel = abs(resumed.cost - full.cost) / abs(full.cost)
+        same = resumed.cost == full.cost and all(
+            torch.equal(getattr(resumed.params, f.name),
+                        getattr(full.params, f.name))
+            for f in dataclasses.fields(full.params))
+        print(f"  {name}: uninterrupted {full.iterations} iterations, cost "
+              f"{full.cost:.12e}; {k} + resumed to {resumed.iterations}: "
+              f"{resumed.cost:.12e}, relative difference {rel:.3e} (tol "
+              f"1e-12), same bits: {same}; log lines {len(lines)} for "
+              f"{first.iterations} iterations")
+        if resumed.iterations != full.iterations or not rel <= 1e-12:
+            raise AssertionError(f"{name}: the resumed solve did not end "
+                                 f"where the uninterrupted one did")
+        if len(lines) != first.iterations:
+            raise AssertionError(f"{name}: {len(lines)} lm_iteration lines "
+                                 f"for {first.iterations} iterations")
+        rec[name] = dict(cost=full.cost, resumed_cost=resumed.cost,
+                         rel_diff=rel, same_bits=same,
+                         iterations=full.iterations)
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def new_paths(args, data, phases=(10, 11, 12)):
+    """Phases 10-12 (those in ``phases``) on the occlusion flagship
+    ``data``; their records."""
+    import torch
+
+    out = {}
+    for n, key, phase in ((10, "indexed", phase_indexed),
+                          (11, "incremental", phase_incremental),
+                          (12, "resume", phase_resume)):
+        if n not in phases:
+            continue
+        t0 = time.time()
+        out[key] = phase(args, data)
+        out[key]["phase_seconds"] = time.time() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_record(name, rec, launches, per_step):
     """The JSON record of one kernel: the float64 numbers (a sweep's matvec
     mode, the one PCG repeats; ``sweep_payload``'s float32 many mode),
@@ -1373,6 +1788,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cost-only", action="store_true",
                     help="after the build, time only the two cost wrappers "
                          "(an A/B or ablation of cost_band) and exit")
+    ap.add_argument("--new-paths-only", nargs="?", const="10,11,12",
+                    default=None, metavar="PHASES",
+                    help="after the build, run only these of phases 10-12 "
+                         "(indexed engine, incremental BA, checkpoint/"
+                         "resume; default all three) and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -1404,6 +1824,11 @@ def main(argv=None) -> int:
 
     if args.cost_only:
         phase_cost_only(args)
+        return 0
+    if args.new_paths_only:
+        data = flagship_rig(args.n_points, 6, 0)
+        phases = [int(p) for p in args.new_paths_only.split(",")]
+        print(json.dumps({"paths": new_paths(args, data, phases)}))
         return 0
     records: dict = {}
     rigs = phase_grid_kernels(args, records)
@@ -1475,6 +1900,7 @@ def main(argv=None) -> int:
 
     probe_launches, probe_results = phase_probes(args, records)
     launches.update(probe_launches)
+    paths = new_paths(args, data)
     for kname, n in {**launches, **helpers}.items():
         if n <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
@@ -1498,6 +1924,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"the port imported {mod}")
     print(f"  script {time.time() - t_start:.1f} s after the card check")
     print(json.dumps({"probes": probe_results}))
+    print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """deeparc_tpu_torch — the PyTorch + CUDA port of ``deeparc_tpu``.
 
 Runs ``pipeline.run_pipeline`` on an NVIDIA Hopper card: shared-extrinsic
-rigs on the grid engine, non-shared (BAL-style) scenes on the tile engine.
+rigs on the grid engine, non-shared (BAL-style) scenes on the tile engine,
+any scene on the indexed (observation-list) engine; and
+``pipeline.incremental.run_incremental`` (BFS incremental BA, with the
+pose graph on non-shared scenes).
 The JAX package ``deeparc_tpu`` stays beside it as the reference the port
 is tested against; this package imports neither JAX nor ``deeparc_tpu``
 and keeps its own copies of the numpy I/O, the problem generators and the
@@ -11,12 +14,16 @@ Layer map (mirrors ``deeparc_tpu``):
   io/         .deeparc / PLY / BAL I/O, native parser binding, generators
   geometry/   rotations, projection model, camera centers
   scene       dataclasses of tensors (BAParams, SceneIndex, Scene)
-  residuals/  reprojection + hemisphere residuals
+  residuals/  reprojection residuals and Jacobian blocks, hemisphere
+              residuals, the pose graph
   solver/     losses, trust region, small linear algebra and PCG, LM, the
-              grid engine with its live-band prep, the tile engine
+              indexed engine (Schur over the observation list), the grid
+              engine with its live-band prep, the tile engine
   kernels/    the hand-written Hopper kernels (CUDA C++ under csrc/) with
               their plain PyTorch versions
-  pipeline/   hemisphere fit -> freeze solve -> filter loop driver, CLI
+  pipeline/   hemisphere fit -> freeze solve -> filter loop driver, BFS
+              incremental BA, CLI
+  utils/      solver-state checkpoints, JSONL logger, phase timers
 """
 
 import torch

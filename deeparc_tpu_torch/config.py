@@ -76,8 +76,8 @@ class PipelineOptions:
     # tile engine for non-shared (BAL-style) scenes — the two at-scale
     # paths; 'grid' / 'indexed' / 'tiles' force one.
     # 'grid-sharded' / 'tiles-sharded' (the same loop with the solves
-    # sharded over several devices) and 'indexed' are not ported yet: the
-    # pipeline raises NotImplementedError naming their ROADMAP item.
+    # sharded over several devices) are not ported yet: the pipeline
+    # raises NotImplementedError naming their ROADMAP item.
     engine: str = "auto"
     # mesh size for the *-sharded engines (None = all visible devices)
     devices: int | None = None

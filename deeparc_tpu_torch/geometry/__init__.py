@@ -13,6 +13,8 @@ from deeparc_tpu_torch.geometry.rotation import (
     angle_axis_rotate,
     angle_axis_to_matrix,
     cross_matrix,
+    matrix_to_angle_axis,
+    quaternion_to_angle_axis,
     so3_right_jacobian,
 )
 
@@ -20,5 +22,6 @@ __all__ = [
     "camera_center_composed", "camera_center_single",
     "hemisphere_camera_centers", "CameraSlice", "StructureMasks",
     "project_observation", "transform_point", "angle_axis_rotate",
-    "angle_axis_to_matrix", "cross_matrix", "so3_right_jacobian",
+    "angle_axis_to_matrix", "cross_matrix", "matrix_to_angle_axis",
+    "quaternion_to_angle_axis", "so3_right_jacobian",
 ]

@@ -3,6 +3,9 @@
 Usage:
     python -m deeparc_tpu_torch.pipeline.cli scene.deeparc -o out/
     python -m deeparc_tpu_torch.pipeline.cli --synthetic --n-points 2000 -o out/
+    python -m deeparc_tpu_torch.pipeline.cli scene.deeparc --engine indexed
+    python -m deeparc_tpu_torch.pipeline.cli scene.deeparc --incremental \
+        --batch-size 24
     deeparc-tpu-torch scene.bal --device cpu
 
 ``--device cuda`` (the default) runs the hand-written CUDA kernels and fails
@@ -34,14 +37,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--linear-solver", default="dense_schur",
                    choices=["dense_schur", "iterative_schur"],
                    help="grid engine: dense Schur; the tile engine always "
-                        "solves by PCG")
+                        "solves by PCG; the indexed engine either")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "grid", "indexed", "tiles",
                             "grid-sharded", "tiles-sharded"],
                    help="auto = the dense grid engine for shared rigs, the "
-                        "tile engine for non-shared (BAL-style) scenes; the "
-                        "indexed and sharded engines are not ported yet and "
-                        "exit with the ROADMAP item that ports them")
+                        "tile engine for non-shared (BAL-style) scenes; "
+                        "indexed = the observation-list engine (small "
+                        "problems); the sharded engines are not ported yet "
+                        "and exit with the ROADMAP item that ports them")
     p.add_argument("--sweep-dtype", default=None, choices=["f32", "bf16"],
                    help="tile engine: bf16 stores the Jacobian planes the "
                         "PCG sweeps re-read in half the bytes (every sum "
@@ -67,6 +71,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "steps (the banded kernels exploit it)")
     p.add_argument("--visibility", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
+    # incremental registration (the reference's *_bfs dataset path)
+    p.add_argument("--incremental", action="store_true",
+                   help="register cameras incrementally in BFS order over "
+                        "the covisibility graph, bundle-adjusting per "
+                        "batch (non-shared scenes add a pose-graph "
+                        "refinement stage between batches)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="--incremental: cameras activated per batch "
+                        "(default: one ring / C//8)")
+    p.add_argument("--no-pose-graph", action="store_true",
+                   help="--incremental: skip the pose-graph stage")
     return p
 
 
@@ -121,10 +136,26 @@ def main(argv=None) -> int:
         engine=args.engine,
         sweep_dtype=args.sweep_dtype,
     )
+    dtype = torch.float32 if args.f32 else torch.float64
+    if args.incremental:
+        from deeparc_tpu_torch.io import write_deeparc
+        from deeparc_tpu_torch.pipeline.incremental import run_incremental
+        from deeparc_tpu_torch.scene import to_deeparc
+
+        inc = run_incremental(data, options, batch_size=args.batch_size,
+                              dtype=dtype, device=device,
+                              verbose=not args.quiet,
+                              pose_graph=not args.no_pose_graph)
+        if args.output_dir:
+            os.makedirs(args.output_dir, exist_ok=True)
+            write_deeparc(to_deeparc(inc.scene), os.path.join(
+                args.output_dir, f"{basename}_incremental.deeparc"))
+        print(f"[deeparc] incremental done: batches={inc.batches} "
+              f"cost={inc.final_cost:.6e} rmse={inc.final_rmse_px:.4f}px")
+        return 0
     result = run_pipeline(
         data, options, output_dir=args.output_dir, basename=basename,
-        dtype=torch.float32 if args.f32 else torch.float64, device=device,
-        verbose=not args.quiet)
+        dtype=dtype, device=device, verbose=not args.quiet)
     print(f"[deeparc] done: rounds={result.filter_rounds} "
           f"cost={result.final_cost:.6e} rmse={result.final_rmse_px:.4f}px")
     return 0

@@ -1,5 +1,5 @@
 """The SfM pipeline: hemisphere fit -> freeze solve -> filter loop, PyTorch
-port of the grid and tile branches of
+port of the single-device branches of
 ``deeparc_tpu.pipeline.driver.run_pipeline`` (reference ``src/sfm.cc:77-131``):
 
   1. load the scene, compute camera centers              (sfm.cc:83-86)
@@ -15,9 +15,11 @@ A shared-extrinsic rig runs on the grid engine (``solve_ba_grid``: the
 banded kernels when ``band_grid`` finds locality, the monolithic ones
 otherwise); a non-shared (BAL-style) scene runs on the tile engine
 (``solve_tiles_prepared`` on one layout that every round reuses, the
-filter editing its mask planes). The tensors' device picks the hand
-kernels (CUDA) or their plain versions (CPU); the layouts and their reuse
-across rounds are the same on both.
+filter editing its mask planes); ``engine="indexed"`` runs the
+observation-list engine (``solve_ba``, the scene compacted between
+rounds). The tensors' device picks the hand kernels (CUDA) or their plain
+versions (CPU); the layouts and their reuse across rounds are the same on
+both.
 """
 
 from __future__ import annotations
@@ -50,9 +52,8 @@ from deeparc_tpu_torch.solver.lm import fit_hemisphere
 
 # what the port does not run yet, and the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "indexed": "the indexed engine (ROADMAP.md Queue 1 item 9)",
-    "grid-sharded": "the sharded engines (ROADMAP.md Queue 1 item 10)",
-    "tiles-sharded": "the sharded engines (ROADMAP.md Queue 1 item 10)",
+    "grid-sharded": "the sharded engines (ROADMAP.md Queue 1 item 4)",
+    "tiles-sharded": "the sharded engines (ROADMAP.md Queue 1 item 4)",
 }
 
 
@@ -290,6 +291,52 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     return scene, rounds
 
 
+def _indexed_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
+    """The freeze solve and the solve/filter rounds on the observation list
+    (``solve_ba``), the scene compacted before each round's solve into
+    buckets of 1024 observations and 256 points; returns (scene, rounds)."""
+    from deeparc_tpu_torch.pipeline.filtering import filter_outliers
+    from deeparc_tpu_torch.solver.ba import solve_ba
+
+    dev = scene.params.points.device
+    log(f"[deeparc] engine=indexed ({scene.n_obs} observations, "
+        f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
+
+    def run_solve(free):
+        res = solve_ba(scene.params, scene.index, free, options.solver)
+        totals["iterations"] += res.iterations
+        totals["seconds"] += res.seconds
+        return res
+
+    # points-only pre-solve (freeze_camera=true; sfm.cc:111)
+    result = run_solve(freeze_masks(scene, freeze_camera=True))
+    scene = dataclasses.replace(scene, params=result.params)
+    log(f"[deeparc] freeze-camera solve: cost={result.cost:.6e} "
+        f"iters={result.iterations}")
+    scene, stats = filter_outliers(scene, hemi[:3], hemi[3], options.filter)
+    log(f"block: {stats.obs_alive}")
+    log(f"point3d: {stats.points_alive}")
+
+    step = 0
+    rounds: list = []
+    snapshot(scene, step)
+    old_points, current_points = -1, stats.points_alive
+    while current_points != old_points and step < options.max_filter_rounds:
+        step += 1
+        old_points = current_points
+        scene = compact(scene, obs_bucket=1024, point_bucket=256)
+        result = run_solve(freeze_masks(scene))
+        scene = dataclasses.replace(scene, params=result.params)
+        scene, stats = filter_outliers(scene, hemi[:3], hemi[3],
+                                       options.filter)
+        current_points = stats.points_alive
+        log(f"block: {stats.obs_alive}")
+        log(f"point3d: {current_points}")
+        snapshot(scene, step)
+        rounds.append(sidecar(step, result, stats))
+    return scene, rounds
+
+
 def run_pipeline(data: DeepArcData,
                  options: PipelineOptions = PipelineOptions(),
                  output_dir: Optional[str] = None, basename: str = "scene",
@@ -297,14 +344,15 @@ def run_pipeline(data: DeepArcData,
                  verbose: bool = True) -> PipelineResult:
     """The whole pipeline on ``device``. ``engine="auto"`` takes the grid
     engine for a shared-extrinsic rig and the tile engine otherwise;
-    ``data`` is read by field name (the reference's ``DeepArcData`` serves
-    as well as the port's)."""
+    ``"grid"``, ``"tiles"`` and ``"indexed"`` force one; ``data`` is read
+    by field name (the reference's ``DeepArcData`` serves as well as the
+    port's)."""
     device = check_device(device)
     engine = options.engine
     if engine in _NOT_PORTED:
         raise NotImplementedError(f"engine={engine!r}: {_NOT_PORTED[engine]}"
                                   " is not ported yet")
-    if engine not in ("auto", "grid", "tiles"):
+    if engine not in ("auto", "grid", "tiles", "indexed"):
         raise ValueError(f"unknown engine {engine!r}")
     if options.impl not in ("auto", "pallas"):
         raise NotImplementedError(
@@ -340,7 +388,8 @@ def run_pipeline(data: DeepArcData,
             step, result, stats, t_start)
 
     totals = {"iterations": 0, "seconds": 0.0, "cg": 0}
-    rounds_fn = _grid_rounds if use_grid else _tile_rounds
+    rounds_fn = (_indexed_rounds if engine == "indexed" else
+                 _grid_rounds if use_grid else _tile_rounds)
     scene, rounds_log = rounds_fn(scene, options, hemi, log, snapshot,
                                   sidecar, totals)
 

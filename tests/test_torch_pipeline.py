@@ -69,11 +69,11 @@ def test_pipeline_golden_shared_matches_jax(tmp_path, capsys):
     assert got.final_rmse_px < 1e-6
 
 
-@pytest.mark.parametrize("engine", ["tiles-sharded", "indexed",
-                                    "grid-sharded"])
+@pytest.mark.parametrize("engine", ["tiles-sharded", "grid-sharded"])
 def test_unported_engines_name_their_roadmap_item(engine):
     rig = make_hemisphere_rig(n_arc=2, n_ring=3, n_points=20, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 4"):
         run_pipeline(rig.data, PipelineOptions(engine=engine), device="cpu")
 
 
