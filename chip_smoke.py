@@ -5,7 +5,8 @@
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
     python3 chip_smoke.py --cost-only        # the two cost wrappers alone
-    python3 chip_smoke.py --new-paths-only   # phases 10-12 alone
+    python3 chip_smoke.py --new-paths-only   # phases 10-13 alone
+    python3 chip_smoke.py --new-paths-only 13   # the sharded engines alone
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -93,9 +94,29 @@ Phases (any failure raises and exits non-zero):
      ``solve_tiles_prepared`` (phase 8's scene) and ``solve_ba`` against
      an uninterrupted solve: the same final cost within 1e-12 relative,
      one ``lm_iteration`` log line per iteration;
+  13. the sharded engines (``deeparc_tpu_torch.parallel``): (a)
+     ``run_pipeline(engine="grid-sharded")`` on the flagship in a one-rank
+     NCCL group that the pipeline starts (``linearize_grid`` and
+     ``cost_grid`` must launch, RMSE under twice the pixel noise), and its
+     freeze-camera solve against ``solve_ba_grid`` on the monolithic route
+     (cost within 1e-9 relative, the same iterations); (b)
+     ``run_pipeline(engine="tiles-sharded")`` on phase 7's scene, at most
+     10 LM iterations a solve (``tile_linearize_local`` and
+     ``tile_sweep_local`` must launch, RMSE under twice the pixel noise);
+     (c) one sharded grid step at one rank on phase 3b's rig, split as 3b,
+     with the collectives' calls, bytes and time by CUDA events: the same
+     bits twice, and phase 3b's unsharded step's bits in points, camera
+     vector and cost; (d) a two-rank gloo group of spawned processes, both
+     on ``cuda:0``: ``solve_ba_grid_sharded`` (flagship, 10 iterations),
+     ``solve_ba_tiles_sharded`` (phase 8's scene, ``locality=False``, so
+     ``tile_sweep`` launches; 5 iterations) and ``solve_ba_sharded``
+     (flagship, 5 iterations) against the same solves at one rank:
+     iterations equal, cost rtol 1e-9, points rtol 1e-7; (e)
+     ``dryrun_multichip(1)``;
 then one JSON line with the probes' entry points' results, one with
-phases 10-12's records, one with the nine kernels' records (errors, milliseconds, the bound, launches on the
-main paths and per LM step at the kernel's timing scene; the probes'
+phases 10-13's records, one with the nine kernels' records (errors,
+milliseconds, the bound, launches on the main paths, on phase 13's
+sharded paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}``.
 
@@ -746,7 +767,7 @@ def banded_step_split(data):
                           band_block=bbs[1]))
 
 
-def run_main_path(data, args, label, solver=None):
+def run_main_path(data, args, label, solver=None, engine="auto"):
     import torch
 
     from deeparc_tpu_torch.config import PipelineOptions, SolverOptions
@@ -754,7 +775,8 @@ def run_main_path(data, args, label, solver=None):
     from deeparc_tpu_torch.pipeline import run_pipeline
 
     solver = solver or SolverOptions(max_iterations=args.max_iterations)
-    opts = PipelineOptions(solver=solver, write_snapshots=False)
+    opts = PipelineOptions(solver=solver, write_snapshots=False,
+                           engine=engine)
     torch.cuda.synchronize()
     t0 = time.time()
     res = run_pipeline(data, opts, device="cuda", dtype=torch.float64,
@@ -1732,12 +1754,378 @@ def phase_resume(args, data):
     return rec
 
 
-def new_paths(args, data, phases=(10, 11, 12)):
-    """Phases 10-12 (those in ``phases``) on the occlusion flagship
-    ``data``; their records."""
+# ---------------------------------------------------------------------------
+# The sharded engines (phase 13)
+# ---------------------------------------------------------------------------
+
+# LM iterations a solve of the tiles-sharded pipeline (phase 7's scene; the
+# pipeline's layout build and its rounds must fit the script's time)
+TILES_SHARDED_ITERATIONS = 10
+# LM iterations of each solve of the two-rank runs (13d)
+TWO_RANK_ITERATIONS = {"grid": 10, "tiles": 5, "indexed": 5}
+
+
+def timed_reducer():
+    """A ``Reducer`` over the current group that times its all_reduce calls
+    with CUDA events (``ms()``, since the last ``reset()``)."""
     import torch
 
+    from deeparc_tpu_torch.parallel.multihost import Reducer
+
+    class Timed(Reducer):
+        def reset(self):
+            self.events, self.bytes, self.calls = [], 0, 0
+
+        def _reduce(self, x, op):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = super()._reduce(x, op)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        def ms(self):
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in self.events)
+
+    red = Timed()
+    red.reset()
+    return red
+
+
+def sharded_step_split(data):
+    """13c: one sharded LM step at one rank (NCCL) on phase 3b's
+    uniform-random rig with its inputs: split as phase 3b splits it, plus
+    the collectives by CUDA events (calls, bytes, ms, share of the step);
+    run twice for the same bits, and the same bits as phase 3b's unsharded
+    step in points, camera vector and cost. Returns the record."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.rig_grid import (
+        assemble_grid_system,
+        grid_cost,
+        grid_from_scene,
+        init_grid_state,
+        make_grid_step,
+        mono_stack,
+        slot_params,
+    )
+
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    grid = grid_from_scene(scene)
+    free = freeze_masks(scene)
+    cam_free = flatten_camera(free)
+    params = scene.params
+    opts = SolverOptions()
+    pxm = mono_stack(grid, (256, 1024))
+    red = timed_reducer()
+    step = make_grid_step(opts, params, pxm=pxm, reducer=red)
+    state = init_grid_state(params, grid, opts, pxm=pxm, reducer=red)
+    run = lambda: step(state, grid, cam_free, free.points)
+    unsharded = make_grid_step(opts, params, pxm=pxm)(
+        init_grid_state(params, grid, opts, pxm=pxm), grid, cam_free,
+        free.points)[0]
+    red.reset()
+    got = run()[0]
+    torch.cuda.synchronize()
+    coll = dict(calls=red.calls, bytes=red.bytes, ms=red.ms())
+    for field in ("points", "cam_vec", "cost"):
+        if not torch.equal(getattr(got, field), getattr(unsharded, field)):
+            raise AssertionError(f"the one-rank sharded step and phase 3b's "
+                                 f"step differ in {field}")
+    print("  the one-rank sharded step and phase 3b's unsharded step: the "
+          "same bits in points, camera vector and cost")
+    sp = slot_params(params, grid)
+    wall = wall_ms(run, 3)
+    per_step = split_grid_step(
+        "one sharded LM step (f64, one rank, NCCL) on the uniform rig", run,
+        (k.linearize_grid, k.cost_grid),
+        lambda: assemble_grid_system(params.points, sp, grid, cam_free,
+                                     free.points, pxm=pxm),
+        lambda: grid_cost(params.points, sp, grid, pxm=pxm))
+    C = cam_free.shape[0]
+    print(f"  collectives of one step: {coll['calls']} all_reduce calls, "
+          f"{coll['bytes']} bytes handed to them (C = {C}), "
+          f"{coll['ms']:.3f} ms by CUDA events, "
+          f"{coll['ms'] / wall:.4f} of the step's {wall:.3f} ms wall")
+    return dict(wall_ms=wall, collective_calls=coll["calls"],
+                collective_bytes=coll["bytes"], collective_ms=coll["ms"],
+                collective_share=coll["ms"] / wall, C=C,
+                launches_per_step=per_step)
+
+
+def sharded_runs(flagship, tile_data):
+    """The three sharded solves of 13d in the current group, on the card:
+    ``solve_ba_grid_sharded`` on the flagship, ``solve_ba_tiles_sharded``
+    on the ``locality=False`` layout of phase 8's scene and
+    ``solve_ba_sharded`` on the flagship, the LM iterations capped
+    (``TWO_RANK_ITERATIONS``). Returns {solve: numpy results} and the
+    kernels' launches."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.parallel import shard_scene, solve_ba_sharded
+    from deeparc_tpu_torch.parallel.sharded_grid import solve_ba_grid_sharded
+    from deeparc_tpu_torch.parallel.sharded_tiles import (
+        solve_ba_tiles_sharded,
+    )
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.rig_grid import grid_from_scene
+    from deeparc_tpu_torch.solver.tiles import tiles_from_scene
+
+    np_of = lambda t: t.detach().cpu().numpy()
     out = {}
+    k.reset_launch_counts()
+    scene = from_deeparc(flagship, dtype=torch.float64, device="cuda")
+    free = freeze_masks(scene)
+    t0 = time.time()
+    res = solve_ba_grid_sharded(
+        scene.params, grid_from_scene(scene), free,
+        SolverOptions(max_iterations=TWO_RANK_ITERATIONS["grid"]))
+    out["grid"] = dict(points=np_of(res.params.points),
+                       cam_vec=np_of(flatten_camera(res.params)),
+                       cost=res.cost, iterations=res.iterations,
+                       seconds=time.time() - t0)
+    t0 = time.time()
+    res = solve_ba_sharded(
+        shard_scene(scene, free, torch.distributed.get_world_size()),
+        SolverOptions(max_iterations=TWO_RANK_ITERATIONS["indexed"]),
+        device=scene.params.points.device)
+    out["indexed"] = dict(points=np_of(res.points).reshape(-1, 3)[
+        :scene.n_points], cam_vec=np_of(res.cam_vec),
+                          cost=float(res.cost), iterations=res.iterations,
+                          seconds=time.time() - t0)
+    del scene, free, res
+    torch.cuda.empty_cache()
+    scene = from_deeparc(tile_data, dtype=torch.float64, device="cuda")
+    free = freeze_masks(scene)
+    tiles, params_t, free_t = tiles_from_scene(scene, free, locality=False)
+    t0 = time.time()
+    res = solve_ba_tiles_sharded(
+        params_t, tiles, free_t, flatten_camera(free), SolverOptions(
+            linear_solver="iterative_schur", cg_max_iterations=30,
+            max_iterations=TWO_RANK_ITERATIONS["tiles"]))
+    out["tiles"] = dict(points=np_of(res.params.points),
+                        cam_vec=np_of(flatten_camera(res.params)),
+                        cost=res.cost, iterations=res.iterations,
+                        seconds=time.time() - t0)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in k.KERNEL_WRAPPERS}
+    return out, launches
+
+
+def _two_rank_main(rank, n, rdv, out_path, flagship, tile_data):
+    """One rank of 13d's gloo group, both ranks on ``cuda:0``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=n, rank=rank)
+    try:
+        res = sharded_runs(flagship, tile_data)
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_on_the_card(flagship, tile_data, work):
+    """13d: the three sharded solves in a two-rank gloo group of spawned
+    processes on ``cuda:0`` (NCCL refuses two ranks on one card) against
+    the same solves at one rank (this process's group): iterations equal,
+    cost rtol 1e-9, points and camera vector rtol 1e-7 / atol 1e-9.
+    Returns the record and the one-rank run's launches."""
+    import os
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    one, launches = sharded_runs(flagship, tile_data)
+    torch.cuda.empty_cache()
+    out_path = os.path.join(work, "two_ranks.pkl")
+    t0 = time.time()
+    mp.start_processes(_two_rank_main,
+                       args=(2, os.path.join(work, "rdv"), out_path,
+                             flagship, tile_data),
+                       nprocs=2, join=True, start_method="spawn")
+    seconds = time.time() - t0
+    with open(out_path, "rb") as f:
+        two, two_launches = pickle.load(f)
+    rec = {}
+    for name in ("grid", "indexed", "tiles"):
+        a, b = one[name], two[name]
+        d_pts = float(np.max(np.abs(a["points"] - b["points"])))
+        rel_cost = abs(a["cost"] - b["cost"]) / abs(a["cost"])
+        print(f"  {name}: one rank {a['iterations']} iterations, cost "
+              f"{a['cost']:.12e} ({a['seconds']:.3f} s); two ranks "
+              f"{b['iterations']} iterations, cost {b['cost']:.12e} "
+              f"({b['seconds']:.3f} s); relative cost difference "
+              f"{rel_cost:.3e}, max point difference {d_pts:.3e}")
+        if a["iterations"] != b["iterations"]:
+            raise AssertionError(f"two ranks: {name} took another number "
+                                 "of iterations")
+        np.testing.assert_allclose(b["cost"], a["cost"], rtol=1e-9)
+        for key in ("points", "cam_vec"):
+            np.testing.assert_allclose(b[key], a[key], rtol=1e-7, atol=1e-9,
+                                       err_msg=f"two ranks: {name} {key}")
+        rec[name] = dict(iterations=a["iterations"], cost_one=a["cost"],
+                         cost_two=b["cost"], rel_cost=rel_cost,
+                         max_point_diff=d_pts, seconds_one=a["seconds"],
+                         seconds_two=b["seconds"])
+    print(f"  two-rank group (gloo, spawned, both on cuda:0): "
+          f"{seconds:.1f} s with start-up; its rank 0's launches "
+          f"{ {n: v for n, v in two_launches.items() if v} }")
+    rec["two_rank_seconds"] = seconds
+    rec["two_rank_launches"] = two_launches
+    return rec, launches
+
+
+def phase_sharded(args, flagship, uniform=None, tile_data=None):
+    """Phase 13: the sharded engines on the card. (a) the grid-sharded
+    pipeline on the flagship in a one-rank NCCL group (started by the
+    pipeline), and its freeze-camera solve against ``solve_ba_grid`` on the
+    monolithic route; (b) the tiles-sharded pipeline on phase 7's scene;
+    (c) one sharded grid step (:func:`sharded_step_split`); (d) two ranks
+    on the card (:func:`two_ranks_on_the_card`); (e)
+    ``dryrun_multichip(1)``. Returns its record and the sharded paths'
+    launches."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.io import make_bal_windowed_host
+    from deeparc_tpu_torch.parallel.dryrun import dryrun_multichip
+    from deeparc_tpu_torch.parallel.sharded_grid import solve_ba_grid_sharded
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_from_scene,
+        solve_ba_grid,
+    )
+
+    print("[phase 13] the sharded engines on the card, float64")
+    t0 = time.time()
+    rec, launches = {}, {}
+    uniform = uniform or flagship_rig(args.n_points, None, 1)
+    tile_data = tile_data or make_bal_windowed_host(
+        n_points=args.tile_points, seed=0, **TILE_SCENE)
+
+    print("  (a) run_pipeline(engine='grid-sharded') on the occlusion "
+          "flagship, one rank")
+    k.reset_launch_counts()
+    res = run_main_path(flagship, args, "grid-sharded pipeline",
+                        engine="grid-sharded")
+    grid_launches = {fn.__name__: fn.launches
+                     for fn in (k.linearize_grid, k.cost_grid,
+                                k.linearize_grid_banded, k.cost_grid_banded)}
+    print(f"  launches: {grid_launches}; process group: "
+          f"{dist.get_world_size()} rank, {dist.get_backend()}")
+    launches.update({name: grid_launches[name]
+                     for name in ("linearize_grid", "cost_grid")})
+    rec["grid_pipeline"] = dict(
+        rounds=res.filter_rounds, final_rmse_px=res.final_rmse_px,
+        lm_iterations=res.solve_iterations, seconds=res.solve_seconds,
+        s_per_iteration=res.solve_seconds / max(res.solve_iterations, 1))
+    scene = from_deeparc(flagship, dtype=torch.float64, device="cuda")
+    grid = grid_from_scene(scene)
+    frozen = freeze_masks(scene, freeze_camera=True)
+    frozen = dataclasses.replace(
+        frozen, points=frozen.points * grid.point_mask[:, None])
+    opts = SolverOptions(max_iterations=args.max_iterations)
+    a = solve_ba_grid_sharded(scene.params, grid, frozen, opts)
+    b = solve_ba_grid(scene.params, grid, frozen, opts,
+                      band_reuse={"prep": None})
+    rel = abs(a.cost - b.cost) / abs(b.cost)
+    print(f"  freeze-camera solve: sharded (one rank) cost {a.cost:.12e} in "
+          f"{a.iterations} iterations ({a.seconds:.3f} s), solve_ba_grid "
+          f"monolithic {b.cost:.12e} in {b.iterations} ({b.seconds:.3f} s); "
+          f"relative difference {rel:.3e} (tol 1e-9)")
+    if not (rel < 1e-9 and a.iterations == b.iterations):
+        raise AssertionError("the sharded freeze-camera solve disagrees "
+                             "with solve_ba_grid")
+    rec["freeze_solve"] = dict(cost_sharded=a.cost, cost_mono=b.cost,
+                               rel=rel, iterations=a.iterations,
+                               seconds_sharded=a.seconds,
+                               seconds_mono=b.seconds)
+    del scene, grid, frozen, a, b
+    torch.cuda.empty_cache()
+
+    print("  (b) run_pipeline(engine='tiles-sharded') on the windowed BAL "
+          f"scene, at most {TILES_SHARDED_ITERATIONS} LM iterations a solve")
+    k.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    res = run_main_path(tile_data, args, "tiles-sharded pipeline",
+                        SolverOptions(linear_solver="iterative_schur",
+                                      cg_max_iterations=30,
+                                      max_iterations=TILES_SHARDED_ITERATIONS),
+                        engine="tiles-sharded")
+    tile_launches = {fn.__name__: fn.launches
+                     for fn in (k.tile_linearize_local, k.tile_sweep_local)}
+    print(f"  launches: {tile_launches}")
+    launches.update(tile_launches)
+    rec["tiles_pipeline"] = dict(
+        rounds=res.filter_rounds, final_rmse_px=res.final_rmse_px,
+        lm_iterations=res.solve_iterations, solve_seconds=res.solve_seconds,
+        pipeline_seconds=time.time() - t1, cg_iterations=res.cg_iterations,
+        s_per_iteration=res.solve_seconds / max(res.solve_iterations, 1))
+    torch.cuda.empty_cache()
+
+    print("  (c) one sharded grid step on the uniform-random rig")
+    rec["step"] = sharded_step_split(uniform)
+    torch.cuda.empty_cache()
+
+    print("  (d) two ranks on the card")
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_two_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    global_data = make_bal_windowed_host(n_points=args.global_points, seed=1,
+                                         **TILE_SCENE)
+    rec["two_ranks"], one_launches = two_ranks_on_the_card(
+        flagship, global_data, work)
+    shutil.rmtree(work, ignore_errors=True)
+    launches["tile_sweep"] = one_launches["tile_sweep"]
+    torch.cuda.empty_cache()
+
+    print("  (e) dryrun_multichip(1)")
+    rec["dryrun"] = dryrun_multichip(1)
+    dist.destroy_process_group()
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the sharded "
+                                 "paths")
+    print(f"  launches on the sharded paths: {launches}; phase 13 took "
+          f"{time.time() - t0:.1f} s")
+    rec["launches"] = launches
+    return rec, launches
+
+
+def new_paths(args, data, phases=(10, 11, 12, 13), uniform=None,
+              tile_data=None):
+    """Phases 10-13 (those in ``phases``) on the occlusion flagship
+    ``data`` (phase 13 also on ``uniform`` and ``tile_data``, made here
+    when not given); their records, and the sharded paths' launches."""
+    import torch
+
+    out, sharded = {}, {}
     for n, key, phase in ((10, "indexed", phase_indexed),
                           (11, "incremental", phase_incremental),
                           (12, "resume", phase_resume)):
@@ -1747,14 +2135,21 @@ def new_paths(args, data, phases=(10, 11, 12)):
         out[key] = phase(args, data)
         out[key]["phase_seconds"] = time.time() - t0
         torch.cuda.empty_cache()
-    return out
+    if 13 in phases:
+        t0 = time.time()
+        out["sharded"], sharded = phase_sharded(args, data, uniform,
+                                                tile_data)
+        out["sharded"]["phase_seconds"] = time.time() - t0
+    return out, sharded
 
 
-def kernel_record(name, rec, launches, per_step):
+def kernel_record(name, rec, launches, per_step, sharded):
     """The JSON record of one kernel: the float64 numbers (a sweep's matvec
     mode, the one PCG repeats; ``sweep_payload``'s float32 many mode),
     every other measurement nested; ``launches_per_step`` is at the scene
-    the kernel is timed on (0 for the probes, on no LM step)."""
+    the kernel is timed on (0 for the probes, on no LM step);
+    ``launches_sharded`` its launches on phase 13's sharded paths (0 where
+    those run it not)."""
     main = next(key for key in ("float64:matvec", "float64", "float32:many")
                 if key in rec)
     r = rec[main]
@@ -1765,6 +2160,7 @@ def kernel_record(name, rec, launches, per_step):
                 if name.startswith("tile") else BAND_SOURCE
                 if name == "linearize_grid_banded" else GRID_SOURCE),
         replaces=REPLACES[name], launches=launches[name],
+        launches_sharded=sharded.get(name, 0),
         max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r.get("library_ms"),
@@ -1788,11 +2184,12 @@ def main(argv=None) -> int:
     ap.add_argument("--cost-only", action="store_true",
                     help="after the build, time only the two cost wrappers "
                          "(an A/B or ablation of cost_band) and exit")
-    ap.add_argument("--new-paths-only", nargs="?", const="10,11,12",
+    ap.add_argument("--new-paths-only", nargs="?", const="10,11,12,13",
                     default=None, metavar="PHASES",
-                    help="after the build, run only these of phases 10-12 "
+                    help="after the build, run only these of phases 10-13 "
                          "(indexed engine, incremental BA, checkpoint/"
-                         "resume; default all three) and exit")
+                         "resume, the sharded engines; default all four) "
+                         "and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -1828,14 +2225,20 @@ def main(argv=None) -> int:
     if args.new_paths_only:
         data = flagship_rig(args.n_points, 6, 0)
         phases = [int(p) for p in args.new_paths_only.split(",")]
-        print(json.dumps({"paths": new_paths(args, data, phases)}))
+        paths, sharded = new_paths(args, data, phases)
+        print(json.dumps({"paths": paths}))
+        print(json.dumps({"sharded_launches": sharded}))
+        print(nvidia_smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
         return 0
     records: dict = {}
     rigs = phase_grid_kernels(args, records)
     print("[phase 3b] one LM step on the uniform-random rig (the "
           "linearize_grid path)")
     per_step = grid_step_split(rigs[False])
-    data = rigs[True]
+    data, uniform = rigs[True], rigs[False]
     del rigs
     torch.cuda.empty_cache()
 
@@ -1891,7 +2294,6 @@ def main(argv=None) -> int:
     helpers = {fn.__name__: fn.launches
                for fn in (k.sort_jcam_planes, k.sum_rows)}
     print(f"  launches of the tile path's helpers: {helpers}")
-    del tile_data
     torch.cuda.empty_cache()
 
     print("[phase 8] solve_ba_tiles(locality=False): the tile_sweep path")
@@ -1900,12 +2302,14 @@ def main(argv=None) -> int:
 
     probe_launches, probe_results = phase_probes(args, records)
     launches.update(probe_launches)
-    paths = new_paths(args, data)
+    paths, sharded = new_paths(args, data, uniform=uniform,
+                               tile_data=tile_data)
+    del tile_data, uniform
     for kname, n in {**launches, **helpers}.items():
         if n <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
 
-    kernels = [kernel_record(kname, rec, launches, per_step)
+    kernels = [kernel_record(kname, rec, launches, per_step, sharded)
                for kname, rec in records.items()]
     for rec in kernels:
         if rec["name"] == "cost_grid":

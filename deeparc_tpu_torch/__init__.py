@@ -4,7 +4,8 @@ Runs ``pipeline.run_pipeline`` on an NVIDIA Hopper card: shared-extrinsic
 rigs on the grid engine, non-shared (BAL-style) scenes on the tile engine,
 any scene on the indexed (observation-list) engine; and
 ``pipeline.incremental.run_incremental`` (BFS incremental BA, with the
-pose graph on non-shared scenes).
+pose graph on non-shared scenes); the sharded engines run the same loop
+over the ranks of a process group.
 The JAX package ``deeparc_tpu`` stays beside it as the reference the port
 is tested against; this package imports neither JAX nor ``deeparc_tpu``
 and keeps its own copies of the numpy I/O, the problem generators and the
@@ -23,6 +24,8 @@ Layer map (mirrors ``deeparc_tpu``):
               their plain PyTorch versions
   pipeline/   hemisphere fit -> freeze solve -> filter loop driver, BFS
               incremental BA, CLI
+  parallel/   the sharded engines on torch.distributed (one process per
+              device): grid, tile and indexed solves, multi-host meshes
   utils/      solver-state checkpoints, JSONL logger, phase timers
 """
 

@@ -75,11 +75,11 @@ class PipelineOptions:
     # 'auto' = dense (points x cells) grid engine for shared-extrinsic rigs,
     # tile engine for non-shared (BAL-style) scenes — the two at-scale
     # paths; 'grid' / 'indexed' / 'tiles' force one.
-    # 'grid-sharded' / 'tiles-sharded' (the same loop with the solves
-    # sharded over several devices) are not ported yet: the pipeline
-    # raises NotImplementedError naming their ROADMAP item.
+    # 'grid-sharded' / 'tiles-sharded' run the same loop with the solves
+    # sharded over the ranks of the process group (one device a rank).
     engine: str = "auto"
-    # mesh size for the *-sharded engines (None = all visible devices)
+    # ranks of the *-sharded engines: must be the process group's size
+    # (None = whatever the group has; a one-rank group without one)
     devices: int | None = None
     # tiles engine: storage dtype for the per-slot Jacobian planes the PCG
     # sweeps re-read every iteration ("bf16" stores them in 2 bytes; every

@@ -7,6 +7,9 @@ Usage:
     python -m deeparc_tpu_torch.pipeline.cli scene.deeparc --incremental \
         --batch-size 24
     deeparc-tpu-torch scene.bal --device cpu
+    python -m deeparc_tpu_torch.pipeline.cli scene.deeparc --engine grid-sharded
+    torchrun --nproc-per-node 4 -m deeparc_tpu_torch.pipeline.cli \
+        scene.deeparc --engine grid-sharded --devices 4
 
 ``--device cuda`` (the default) runs the hand-written CUDA kernels and fails
 if no card is present; ``--device cpu`` runs their plain PyTorch versions.
@@ -44,8 +47,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto = the dense grid engine for shared rigs, the "
                         "tile engine for non-shared (BAL-style) scenes; "
                         "indexed = the observation-list engine (small "
-                        "problems); the sharded engines are not ported yet "
-                        "and exit with the ROADMAP item that ports them")
+                        "problems); grid-sharded / tiles-sharded = the grid "
+                        "/ tile engine with every solve sharded over the "
+                        "ranks of the process group (one device a rank; "
+                        "run under torchrun for more than one)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="sharded engines: the number of ranks, which must "
+                        "be the process group's size (torchrun "
+                        "--nproc-per-node N ... --devices N); without "
+                        "torchrun one rank")
     p.add_argument("--sweep-dtype", default=None, choices=["f32", "bf16"],
                    help="tile engine: bf16 stores the Jacobian planes the "
                         "PCG sweeps re-read in half the bytes (every sum "
@@ -134,6 +144,7 @@ def main(argv=None) -> int:
         hemisphere_max_iterations=args.hemisphere_iterations,
         write_snapshots=not args.no_snapshots,
         engine=args.engine,
+        devices=args.devices,
         sweep_dtype=args.sweep_dtype,
     )
     dtype = torch.float32 if args.f32 else torch.float64

@@ -17,9 +17,13 @@ otherwise); a non-shared (BAL-style) scene runs on the tile engine
 (``solve_tiles_prepared`` on one layout that every round reuses, the
 filter editing its mask planes); ``engine="indexed"`` runs the
 observation-list engine (``solve_ba``, the scene compacted between
-rounds). The tensors' device picks the hand kernels (CUDA) or their plain
-versions (CPU); the layouts and their reuse across rounds are the same on
-both.
+rounds). ``engine="grid-sharded"`` / ``"tiles-sharded"`` run the same
+loop with every solve sharded over the ranks of the process group
+(``parallel/``; a one-rank group is started when there is none): each
+rank runs the whole loop, the hemisphere fit, the layouts and the filter
+on the full scene, and only rank 0 logs and writes files. The tensors'
+device picks the hand kernels (CUDA) or their plain versions (CPU); the
+layouts and their reuse across rounds are the same on both.
 """
 
 from __future__ import annotations
@@ -50,11 +54,8 @@ from deeparc_tpu_torch.scene import (
 )
 from deeparc_tpu_torch.solver.lm import fit_hemisphere
 
-# what the port does not run yet, and the ROADMAP.md item that ports it
-_NOT_PORTED = {
-    "grid-sharded": "the sharded engines (ROADMAP.md Queue 1 item 4)",
-    "tiles-sharded": "the sharded engines (ROADMAP.md Queue 1 item 4)",
-}
+ENGINES = ("auto", "grid", "tiles", "indexed", "grid-sharded",
+           "tiles-sharded")
 
 
 class PipelineResult(NamedTuple):
@@ -130,13 +131,16 @@ def rmse_px(scene: Scene) -> float:
     return float(np.sqrt(float(torch.sum(r * r)) / n))
 
 
-def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
-    """The freeze solve and the solve/filter rounds on the grid engine;
-    returns (scene, rounds)."""
+def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
+                 sharded=False):
+    """The freeze solve and the solve/filter rounds on the grid engine
+    (``sharded``: each solve over the process group); returns (scene,
+    rounds)."""
     from deeparc_tpu_torch.pipeline.filtering import (
         FilterStats,
         filter_masks_grid,
     )
+    from deeparc_tpu_torch.parallel.sharded_grid import solve_ba_grid_sharded
     from deeparc_tpu_torch.solver.rig_grid import (
         grid_from_scene,
         solve_ba_grid,
@@ -144,15 +148,20 @@ def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
 
     dev, dtype = scene.params.points.device, scene.params.points.dtype
     grid = grid_from_scene(scene)
-    log(f"[deeparc] engine=grid ({grid.mask.shape[1]} cells, "
+    log(f"[deeparc] engine={'grid-sharded' if sharded else 'grid'} "
+        f"({grid.mask.shape[1]} cells, "
         f"{float(grid.mask.mean()) * 100:.1f}% grid density, "
         f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
     hemi_center = torch.as_tensor(hemi[:3], dtype=dtype, device=dev)
     band_state: dict = {}    # band prep shared across filter rounds
 
     def run_solve(free):
-        res = solve_ba_grid(scene.params, grid, free, options.solver,
-                            band_reuse=band_state)
+        if sharded:
+            res = solve_ba_grid_sharded(scene.params, grid, free,
+                                        options.solver)
+        else:
+            res = solve_ba_grid(scene.params, grid, free, options.solver,
+                                band_reuse=band_state)
         totals["iterations"] += res.iterations
         totals["seconds"] += res.seconds
         return res
@@ -196,12 +205,17 @@ def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     return scene, rounds
 
 
-def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
+def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
+                 sharded=False):
     """The freeze solve and the solve/filter rounds on the tile engine, on
-    one layout that every round reuses; returns (scene, rounds)."""
+    one layout that every round reuses (``sharded``: each solve over the
+    process group); returns (scene, rounds)."""
     from deeparc_tpu_torch.pipeline.filtering import (
         FilterStats,
         filter_masks_tiles,
+    )
+    from deeparc_tpu_torch.parallel.sharded_tiles import (
+        solve_ba_tiles_sharded,
     )
     from deeparc_tpu_torch.residuals.reprojection import flatten_camera
     from deeparc_tpu_torch.solver.tiles import (
@@ -215,7 +229,8 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     tiles, params_t, free_t, slot_src = tiles_from_scene(
         scene, free0, with_slot_src=True)
     v_loc = [b.loc[1].shape[1] if b.loc else None for b in tiles.buckets]
-    log(f"[deeparc] engine=tiles ({tiles.cells.cols.shape[0]} cells, "
+    log(f"[deeparc] engine={'tiles-sharded' if sharded else 'tiles'} "
+        f"({tiles.cells.cols.shape[0]} cells, "
         f"{len(tiles.buckets)} width buckets "
         f"{[b.cell.shape[1] for b in tiles.buckets]}, v_local={v_loc}, "
         f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
@@ -226,10 +241,16 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     solve_cache: dict = {}   # the step, shared across filter rounds
 
     def run_solve(tiles_cur, params_cur, cam_free, free_rows):
-        res = solve_tiles_prepared(params_cur, tiles_cur, free_rows, cam_free,
-                                   options.solver, unpermute=False,
-                                   sweep_dtype=sweep_dtype,
-                                   _cache=solve_cache)
+        if sharded:
+            res = solve_ba_tiles_sharded(params_cur, tiles_cur, free_rows,
+                                         cam_free, options.solver,
+                                         sweep_dtype=sweep_dtype)
+        else:
+            res = solve_tiles_prepared(params_cur, tiles_cur, free_rows,
+                                       cam_free, options.solver,
+                                       unpermute=False,
+                                       sweep_dtype=sweep_dtype,
+                                       _cache=solve_cache)
         totals["iterations"] += res.iterations
         totals["seconds"] += res.seconds
         totals["cg"] += res.cg_iterations
@@ -344,33 +365,53 @@ def run_pipeline(data: DeepArcData,
                  verbose: bool = True) -> PipelineResult:
     """The whole pipeline on ``device``. ``engine="auto"`` takes the grid
     engine for a shared-extrinsic rig and the tile engine otherwise;
-    ``"grid"``, ``"tiles"`` and ``"indexed"`` force one; ``data`` is read
-    by field name (the reference's ``DeepArcData`` serves as well as the
-    port's)."""
+    ``"grid"``, ``"tiles"`` and ``"indexed"`` force one;
+    ``"grid-sharded"`` and ``"tiles-sharded"`` shard every solve over the
+    process group's ranks (``options.devices``, when set, must be its
+    size); ``data`` is read by field name (the reference's ``DeepArcData``
+    serves as well as the port's)."""
     device = check_device(device)
     engine = options.engine
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(f"engine={engine!r}: {_NOT_PORTED[engine]}"
-                                  " is not ported yet")
-    if engine not in ("auto", "grid", "tiles", "indexed"):
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
+    sharded = engine.endswith("-sharded")
+    rank = 0
+    if sharded:
+        import torch.distributed as dist
+
+        from deeparc_tpu_torch.parallel.multihost import (
+            start_group,
+            world_hint,
+        )
+
+        start_group(device)
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if options.devices is not None and options.devices != world:
+            raise ValueError(f"devices={options.devices} in a world of "
+                             f"{world} ranks: {world_hint(options.devices)}")
     if options.impl not in ("auto", "pallas"):
         raise NotImplementedError(
             f"impl={options.impl!r}: the port runs its engines through the "
             "hand kernels only (the einsum/planes/xla impls are left out, "
             "ROADMAP.md Queue 1)")
-    use_grid = engine == "grid" or (engine == "auto" and data.share_extrinsic)
+    use_grid = engine in ("grid", "grid-sharded") or (
+        engine == "auto" and data.share_extrinsic)
 
     t_start = time.time()
+    # every rank runs the loop; rank 0 alone logs and writes files
+    output_dir = output_dir if rank == 0 else None
     out = lambda name: os.path.join(output_dir, name) if output_dir else None
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
-    log = print if verbose else (lambda *a, **k: None)
+    log = print if verbose and rank == 0 else (lambda *a, **k: None)
 
     scene = from_deeparc(data, dtype=dtype, device=device)
     log(f"[deeparc] loaded: {scene.n_obs} obs, {scene.n_points} points, "
         f"{scene.n_extrinsics} extrinsics, {scene.n_intrinsics} intrinsics, "
         f"share_extrinsic={scene.meta.share_extrinsic}, device={device}")
+    if sharded:
+        log(f"[deeparc] process group: world size {world} "
+            f"({dist.get_backend()})")
 
     hemi = fit_hemisphere(scene_camera_centers(scene),
                           options.hemisphere_max_iterations).cpu().numpy()
@@ -388,10 +429,13 @@ def run_pipeline(data: DeepArcData,
             step, result, stats, t_start)
 
     totals = {"iterations": 0, "seconds": 0.0, "cg": 0}
-    rounds_fn = (_indexed_rounds if engine == "indexed" else
-                 _grid_rounds if use_grid else _tile_rounds)
-    scene, rounds_log = rounds_fn(scene, options, hemi, log, snapshot,
-                                  sidecar, totals)
+    if engine == "indexed":
+        scene, rounds_log = _indexed_rounds(scene, options, hemi, log,
+                                            snapshot, sidecar, totals)
+    else:
+        rounds_fn = _grid_rounds if use_grid else _tile_rounds
+        scene, rounds_log = rounds_fn(scene, options, hemi, log, snapshot,
+                                      sidecar, totals, sharded=sharded)
 
     log(f"TOTAL REPEAT: {len(rounds_log)}")
     scene = compact(scene)

@@ -270,12 +270,29 @@ def _params_from(cam_vec, points, template: BAParams) -> BAParams:
                                points=points)
 
 
+def reductions(reducer):
+    """(sum, max, symmetric sum) over the ranks of ``reducer``; identities
+    without one (the single-device step)."""
+    if reducer is None:
+        same = lambda x: x
+        return same, same, same
+    return reducer.sum, reducer.max, reducer.sum_sym
+
+
 def make_grid_step(options: SolverOptions, template: BAParams,
                    chunk_size: int = 8192, band_widths: tuple = (0, 0),
                    band_blocks: tuple = (0, 0),
-                   band_intr_frozen: bool = False, pxm=None):
+                   band_intr_frozen: bool = False, pxm=None,
+                   reducer=None):
     """LM step over the grid layout:
     step(state, grid, cam_free, point_free) -> (state, info).
+
+    With ``reducer`` (``parallel.multihost.Reducer``), the step is one
+    shard of a sharded step: the caller gives each rank its rows of the
+    grid and of ``state.points``, and every sum over points (the camera
+    system, the Schur pieces, the trust-region scalars, the trial cost)
+    goes through the reducer, so all ranks hold the same camera update and
+    take the same decisions. Without it: the single-device step.
 
     ``band_widths`` = (linearize, cost) live-band widths or width groups
     from ``rig_band.band_grid`` ((0, 0) = monolithic kernels) and
@@ -314,6 +331,8 @@ def make_grid_step(options: SolverOptions, template: BAParams,
     def to_nat(v):
         return v[:ce][f2n] if ext_only else v[f2n]
 
+    allsum, allmax, allsum_sym = reductions(reducer)
+
     def step(state: GridState, grid: GridIndex, cam_free, point_free):
         params = _params_from(state.cam_vec, state.points, template)
         sys = assemble_grid_system(
@@ -321,6 +340,8 @@ def make_grid_step(options: SolverOptions, template: BAParams,
             point_free, chunk_size, options.loss, options.loss_scale,
             band_width=band_widths[0], band_block=band_blocks[0],
             band_intr_frozen=band_intr_frozen, pxm=pxm)
+        if reducer is not None:
+            sys = sys._replace(g_c=allsum(sys.g_c), hcc=allsum_sym(sys.hcc))
         dtype = state.points.dtype
 
         # augmented per-point blocks, eliminated in closed form
@@ -339,9 +360,9 @@ def make_grid_step(options: SolverOptions, template: BAParams,
         N, Cn = sys.E.shape[0], sys.E.shape[2]
         E2 = sys.E.reshape(N * 3, Cn)
         bg = torch.einsum("pij,pj->pi", binv, sys.g_p).reshape(-1)
-        rhs = (-sys.g_c + to_flat(E2.T @ bg)) * cam_free
+        rhs = (-sys.g_c + allsum(to_flat(E2.T @ bg))) * cam_free
         be = torch.einsum("pij,pjd->pid", binv, sys.E).reshape(N * 3, Cn)
-        corr = to_flat(E2.T @ be)
+        corr = allsum_sym(to_flat(E2.T @ be))
         S = sys.hcc + torch.diag(d2c / state.tr.radius) - corr
         dc = masked_spd_solve(S, rhs, cam_free)
 
@@ -349,18 +370,18 @@ def make_grid_step(options: SolverOptions, template: BAParams,
         dp = -torch.einsum("pij,pj->pi", binv, sys.g_p + e_dc) * point_free
 
         # model cost change from the stored quadratic pieces
-        dtg = torch.sum(dp * sys.g_p) + torch.dot(dc, sys.g_c)
-        dhd = (torch.einsum("pi,pij,pj->", dp, sys.hpp, dp)
-               + 2.0 * torch.sum(dp * e_dc) + dc @ (sys.hcc @ dc))
+        dtg = allsum(torch.sum(dp * sys.g_p)) + torch.dot(dc, sys.g_c)
+        dhd = (allsum(torch.einsum("pi,pij,pj->", dp, sys.hpp, dp)
+                      + 2.0 * torch.sum(dp * e_dc)) + dc @ (sys.hcc @ dc))
         mcc = -(dtg + 0.5 * dhd)
 
         new_points = state.points + dp
         new_cam = state.cam_vec + dc
         trial = _params_from(new_cam, new_points, template)
-        new_cost = grid_cost(new_points, slot_params(trial, grid), grid,
-                             loss=options.loss, loss_scale=options.loss_scale,
-                             band_width=band_widths[1],
-                             band_block=band_blocks[1], pxm=pxm)
+        new_cost = allsum(grid_cost(
+            new_points, slot_params(trial, grid), grid, loss=options.loss,
+            loss_scale=options.loss_scale, band_width=band_widths[1],
+            band_block=band_blocks[1], pxm=pxm))
 
         rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
         accept = (mcc > 0) & (rho > options.min_relative_decrease)
@@ -368,9 +389,10 @@ def make_grid_step(options: SolverOptions, template: BAParams,
             accept, tr_mod.step_accepted(state.tr, rho, options.max_radius),
             tr_mod.step_rejected(state.tr))
         grad_max = torch.maximum(torch.max(torch.abs(sys.g_c)),
-                                 torch.max(torch.abs(sys.g_p)))
-        step_norm = torch.sqrt(torch.sum(dp * dp) + torch.dot(dc, dc))
-        x_norm = torch.sqrt(torch.sum(state.points * state.points)
+                                 allmax(torch.max(torch.abs(sys.g_p))))
+        step_norm = torch.sqrt(allsum(torch.sum(dp * dp))
+                               + torch.dot(dc, dc))
+        x_norm = torch.sqrt(allsum(torch.sum(state.points * state.points))
                             + torch.dot(state.cam_vec, state.cam_vec))
         cost_change = state.cost - new_cost
         ftol = accept & (torch.abs(cost_change)
@@ -397,14 +419,18 @@ def make_grid_step(options: SolverOptions, template: BAParams,
 
 def init_grid_state(params: BAParams, grid: GridIndex, options: SolverOptions,
                     band_widths: tuple = (0, 0),
-                    band_blocks: tuple = (0, 0), pxm=None) -> GridState:
+                    band_blocks: tuple = (0, 0), pxm=None,
+                    reducer=None) -> GridState:
     """The start state. Its cost comes from the same cost kernel as every
-    trial cost, so a borderline first-step rho cannot flip on rounding."""
+    trial cost, so a borderline first-step rho cannot flip on rounding;
+    with ``reducer`` it is summed over the ranks' rows, as in the step."""
     dtype, dev = params.points.dtype, params.points.device
     cost0 = grid_cost(params.points, slot_params(params, grid), grid,
                       loss=options.loss, loss_scale=options.loss_scale,
                       band_width=band_widths[1], band_block=band_blocks[1],
                       pxm=pxm)
+    if reducer is not None:
+        cost0 = reducer.sum(cost0)
     return GridState(points=params.points, cam_vec=flatten_camera(params),
                      cost=cost0,
                      tr=tr_mod.init_tr(options.initial_radius, dtype, dev),
@@ -467,8 +493,9 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
     intr_frozen = False
     unperm = lambda pts: pts
     # the monolithic kernels' stack of THIS solve's mask (a filter round's
-    # next solve builds its own)
-    pxm = (mono_stack(grid, (min(chunk_size, 256), min(chunk_size, 1024)))
+    # next solve builds its own), in tiles of the linearize's points and of
+    # the cost pass's 1024 (grid_cost's block)
+    pxm = (mono_stack(grid, (min(chunk_size, 256), 1024))
            if prep is None else None)
     if prep is not None:
         if options.progress_to_stdout:

@@ -69,7 +69,7 @@ from deeparc_tpu_torch.solver.ba import (
 from deeparc_tpu_torch.solver.linalg import inv3x3, pcg
 from deeparc_tpu_torch.solver.loss import rho as loss_rho
 from deeparc_tpu_torch.solver.loss import weight as loss_weight
-from deeparc_tpu_torch.solver.rig_grid import slot_params
+from deeparc_tpu_torch.solver.rig_grid import reductions, slot_params
 from deeparc_tpu_torch.utils.logging import log_iteration
 
 # target observations per chunk: rows-per-chunk = CHUNK_OBS // W
@@ -1011,9 +1011,15 @@ def _params_from(cam_vec, points, template: BAParams) -> BAParams:
 
 
 def make_tile_step(options: SolverOptions, template: BAParams,
-                   sweep_dtype=None, sweep_block_n: int = 256):
+                   sweep_dtype=None, sweep_block_n: int = 256, reducer=None):
     """LM step over the tile layout:
     step(state, tiles, cam_free, point_free_t) -> (state, info).
+
+    With ``reducer`` (``parallel.multihost.Reducer``), the step is one
+    shard of a sharded step: each rank holds its rows of every bucket, and
+    the cell-space sums (gradient, Grams, the PCG's rhs and correction
+    bins) and the trust-region scalars go through the reducer. Without it:
+    the single-device step.
 
     ``sweep_dtype`` (e.g. ``torch.bfloat16``) stores the per-slot Jacobian
     planes that the PCG sweeps re-read every iteration in that dtype; every
@@ -1021,6 +1027,7 @@ def make_tile_step(options: SolverOptions, template: BAParams,
     stay in the working dtype. ``sweep_block_n`` is the sweep kernels'
     threads per block."""
     C = 6 * template.ext_rot.shape[0] + 6 * template.center.shape[0]
+    allsum, allmax, allsum_sym = reductions(reducer)
 
     def step(state: TileState, tiles: TileIndex, cam_free, point_free_t):
         cells, cols = tiles.cells, tiles.cells.cols
@@ -1031,6 +1038,14 @@ def make_tile_step(options: SolverOptions, template: BAParams,
         sys, lin_planes = linearize_tiles_mixed(
             state.points, packed, tiles, point_free_t, C, options.loss,
             options.loss_scale, plane_dtype=sweep_dtype)
+        if reducer is not None:
+            # the Grams move packed; the flat diagonal is re-derived from
+            # the summed Grams, not summed on its own
+            hcc_cells = allsum_sym(sys.hcc_cells)
+            sys = sys._replace(
+                g_c=allsum(sys.g_c), hcc_cells=hcc_cells,
+                hcc_diag=cells_to_flat(
+                    torch.diagonal(hcc_cells, dim1=-2, dim2=-1), cells, C))
 
         # augmented per-point blocks
         d2p = tr_mod.lm_diagonal(torch.diagonal(sys.hpp, dim1=-2, dim2=-1),
@@ -1046,7 +1061,8 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
         sweep_fn, edot_fn = _make_kernel_sweeps(
             tiles, sys, binv, lin_planes, sweep_dtype, sweep_block_n)
-        rhs = (-sys.g_c + cells_to_flat(sweep_fn(None, True), cells, C)) \
+        rhs = (-sys.g_c
+               + cells_to_flat(allsum(sweep_fn(None, True)), cells, C)) \
             * cam_free
 
         def hcc_matvec(v):
@@ -1056,8 +1072,8 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
         def matvec(v):
             vm = v * cam_free
-            corr = cells_to_flat(sweep_fn(flat_to_cells(vm, cols), False),
-                                 cells, C)
+            corr = cells_to_flat(
+                allsum(sweep_fn(flat_to_cells(vm, cols), False)), cells, C)
             s = hcc_matvec(vm) + cam_aug * v - corr
             return torch.where(cam_free > 0.5, s, v)
 
@@ -1070,9 +1086,10 @@ def make_tile_step(options: SolverOptions, template: BAParams,
         dp = -torch.einsum("bij,bj->bi", binv, sys.g_p + e_dc) * point_free_t
 
         # model cost change from the quadratic pieces
-        dtg = torch.sum(dp * sys.g_p) + torch.dot(dc, sys.g_c)
-        dhd = (torch.einsum("bi,bij,bj->", dp, sys.hpp, dp)
-               + 2.0 * torch.sum(dp * e_dc) + torch.dot(dc, hcc_matvec(dc)))
+        dtg = allsum(torch.sum(dp * sys.g_p)) + torch.dot(dc, sys.g_c)
+        dhd = (allsum(torch.einsum("bi,bij,bj->", dp, sys.hpp, dp)
+                      + 2.0 * torch.sum(dp * e_dc))
+               + torch.dot(dc, hcc_matvec(dc)))
         mcc = -(dtg + 0.5 * dhd)
 
         new_points = state.points + dp
@@ -1080,8 +1097,8 @@ def make_tile_step(options: SolverOptions, template: BAParams,
         trial = _params_from(new_cam, new_points, template)
         trial_packed = pack_cells(slot_params(trial, tiles.cells),
                                   tiles.cells, cam_free)
-        new_cost = tile_cost(new_points, trial_packed, tiles, options.loss,
-                             options.loss_scale)
+        new_cost = allsum(tile_cost(new_points, trial_packed, tiles,
+                                    options.loss, options.loss_scale))
 
         rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
         accept = (mcc > 0) & (rho > options.min_relative_decrease)
@@ -1089,9 +1106,10 @@ def make_tile_step(options: SolverOptions, template: BAParams,
             accept, tr_mod.step_accepted(state.tr, rho, options.max_radius),
             tr_mod.step_rejected(state.tr))
         grad_max = torch.maximum(torch.max(torch.abs(sys.g_c)),
-                                 torch.max(torch.abs(sys.g_p)))
-        step_norm = torch.sqrt(torch.sum(dp * dp) + torch.dot(dc, dc))
-        x_norm = torch.sqrt(torch.sum(state.points * state.points)
+                                 allmax(torch.max(torch.abs(sys.g_p))))
+        step_norm = torch.sqrt(allsum(torch.sum(dp * dp))
+                               + torch.dot(dc, dc))
+        x_norm = torch.sqrt(allsum(torch.sum(state.points * state.points))
                             + torch.dot(state.cam_vec, state.cam_vec))
         cost_change = state.cost - new_cost
         ftol = accept & (torch.abs(cost_change)
@@ -1117,7 +1135,10 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
 
 def init_tile_state(params_t: BAParams, tiles: TileIndex,
-                    options: SolverOptions, cam_free=None) -> TileState:
+                    options: SolverOptions, cam_free=None,
+                    reducer=None) -> TileState:
+    """The start state; with ``reducer`` its cost is summed over the ranks'
+    rows, as in the step."""
     dtype, dev = params_t.points.dtype, params_t.points.device
     if cam_free is None:
         cam_free = torch.ones(6 * params_t.ext_rot.shape[0]
@@ -1127,6 +1148,8 @@ def init_tile_state(params_t: BAParams, tiles: TileIndex,
                         cam_free)
     cost0 = tile_cost(params_t.points, packed, tiles, options.loss,
                       options.loss_scale)
+    if reducer is not None:
+        cost0 = reducer.sum(cost0)
     return TileState(points=params_t.points, cam_vec=flatten_camera(params_t),
                      cost=cost0,
                      tr=tr_mod.init_tr(options.initial_radius, dtype, dev),

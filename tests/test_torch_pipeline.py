@@ -69,20 +69,13 @@ def test_pipeline_golden_shared_matches_jax(tmp_path, capsys):
     assert got.final_rmse_px < 1e-6
 
 
-@pytest.mark.parametrize("engine", ["tiles-sharded", "grid-sharded"])
-def test_unported_engines_name_their_roadmap_item(engine):
-    rig = make_hemisphere_rig(n_arc=2, n_ring=3, n_points=20, seed=0)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 4"):
-        run_pipeline(rig.data, PipelineOptions(engine=engine), device="cpu")
-
-
 def test_cli_runs_without_jax(tmp_path):
     """The port imports neither JAX nor ``deeparc_tpu`` nor the repo's
     top-level ``scripts`` (its own entry points are
     ``deeparc_tpu_torch.scripts``): in a fresh interpreter, import every
-    module of the port, run the CLI's --help and a small synthetic run on
-    the CPU, then inspect ``sys.modules``."""
+    module of the port (the sharded engines of ``parallel`` among them),
+    run the CLI's --help and a small synthetic run on the CPU, then
+    inspect ``sys.modules``."""
     code = (
         "import pkgutil, sys\n"
         "import deeparc_tpu_torch\n"
@@ -102,6 +95,9 @@ def test_cli_runs_without_jax(tmp_path):
         "       or m == 'scripts' or m.startswith('scripts.')]\n"
         "assert not bad, f'the port imported {bad[:5]}'\n"
         "assert 'deeparc_tpu_torch.scripts.vpu_roofline' in sys.modules\n"
+        "for m in ('multihost', 'sharded_ba', 'sharded_grid',\n"
+        "          'sharded_tiles', 'dryrun'):\n"
+        "    assert 'deeparc_tpu_torch.parallel.' + m in sys.modules, m\n"
         "print('NO_JAX_OK', len([m for m in sys.modules\n"
         "                        if m.startswith('deeparc_tpu_torch.')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
