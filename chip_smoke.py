@@ -5,8 +5,9 @@
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
     python3 chip_smoke.py --cost-only        # the two cost wrappers alone
-    python3 chip_smoke.py --new-paths-only   # phases 10-13 alone
+    python3 chip_smoke.py --new-paths-only   # phases 10-14 alone
     python3 chip_smoke.py --new-paths-only 13   # the sharded engines alone
+    python3 chip_smoke.py --new-paths-only 14   # the on-device LM driver
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -113,8 +114,24 @@ Phases (any failure raises and exits non-zero):
      (flagship, 5 iterations) against the same solves at one rank:
      iterations equal, cost rtol 1e-9, points rtol 1e-7; (e)
      ``dryrun_multichip(1)``;
+  14. the on-device LM driver (``driver="while_loop"``: one CUDA graph a
+     solve, a conditional WHILE node for the block of LM steps and one for
+     PCG in its body, set by the condition kernel of
+     ``csrc/graph_loop.cu``) against ``driver="python"``:
+     ``solve_ba_grid`` on the banded occlusion flagship and on the
+     monolithic uniform-random rig (10 iterations, blocks of 5),
+     ``solve_tiles_prepared`` on phase 6's locality layout
+     (ITERATIVE_SCHUR, 30 PCG; 6 iterations, blocks of 3) and
+     ``solve_ba`` on the flagship (DENSE_SCHUR, 3 iterations): the same
+     bits, iterations, status and PCG iterations; at least one
+     conditional node in the graph (counted through the driver API); the
+     case's hand kernels among the profiler's kernels after the first
+     graph launch; s per LM iteration of both drivers (the graph's over
+     its blocks' replays and reads), warm-up and capture + instantiate
+     time, device busy and idle share of both; no private pool (a graph's
+     or a loop body's) outlives its case;
 then one JSON line with the probes' entry points' results, one with
-phases 10-13's records, one with the nine kernels' records (errors,
+phases 10-14's records, one with the nine kernels' records (errors,
 milliseconds, the bound, launches on the main paths, on phase 13's
 sharded paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
@@ -1231,9 +1248,10 @@ def phase_tile_kernels(args, records):
     print("[phase 6c] one tile LM step on the locality=False layout "
           "(the tile_sweep path)")
     per_step.update(tile_global_step_split(layouts[False]))
+    local = layouts[True]
     del layouts
     torch.cuda.empty_cache()
-    return data, per_step, sums
+    return data, per_step, sums, local
 
 
 def phase_tile_global(args):
@@ -2118,11 +2136,278 @@ def phase_sharded(args, flagship, uniform=None, tile_data=None):
     return rec, launches
 
 
-def new_paths(args, data, phases=(10, 11, 12, 13), uniform=None,
-              tile_data=None):
-    """Phases 10-13 (those in ``phases``) on the occlusion flagship
-    ``data`` (phase 13 also on ``uniform`` and ``tile_data``, made here
-    when not given); their records, and the sharded paths' launches."""
+# ---------------------------------------------------------------------------
+# The on-device LM driver (phase 14)
+# ---------------------------------------------------------------------------
+
+# LM iterations and the block of phase 14's solves: (max_iterations,
+# while_block) per case
+DEVICE_LOOP_ITERATIONS = {"grid": (10, 5), "tiles": (6, 3), "indexed": (3, 3)}
+# hand kernels each case's replay must run (profiler names); set_condition
+# is the WHILE node's condition kernel
+REPLAY_KERNELS = {
+    "banded flagship": ("linearize_band", "cost_band", "set_condition"),
+    "monolithic uniform rig": ("linearize_mono", "cost_band",
+                               "set_condition"),
+    "windowed BAL scene": ("linearize_rows", "linearize_bins", "lsweep_bins",
+                           "sort_planes", "gather_cells", "set_condition"),
+    "indexed flagship": ("gather_cells", "set_condition"),
+}
+
+
+def busy_window(prof, graph):
+    """(device busy ms, window ms, kernel names, gaps) over a solve's LM
+    loop (the solvers' ``LM_LOOP`` range in the profile; for the graph
+    driver from its first graph launch there): busy is the union of the
+    kernels' intervals, gaps the window's largest idle stretches with the
+    kernels on either side; None when the profile holds no such range."""
+    from torch.autograd import DeviceType
+
+    from deeparc_tpu_torch.solver.ba import LM_LOOP
+
+    events = prof.events()
+    loops = [e.time_range for e in events
+             if e.name == LM_LOOP and e.device_type == DeviceType.CPU]
+    if not loops:
+        return None
+    lo, hi = loops[-1].start, loops[-1].end
+    if graph:
+        starts = [e.time_range.start for e in events
+                  if e.name == "cudaGraphLaunch"
+                  and lo <= e.time_range.start <= hi]
+        if not starts:
+            return None
+        lo = min(starts)
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events if e.device_type == DeviceType.CUDA
+                  and lo <= e.time_range.start <= hi)
+    if not kern:
+        return 0.0, (hi - lo) / 1e3, set(), []
+    busy, cur_lo, cur_hi = 0.0, kern[0][0], kern[0][1]
+    for a, b, _ in kern[1:]:
+        if a > cur_hi:
+            busy += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    busy += cur_hi - cur_lo
+    gaps = sorted(((b[0] - a[1]) / 1e3, a[2][:40], b[2][:40])
+                  for a, b in zip(kern, kern[1:]))[-3:][::-1]
+    return busy / 1e3, (hi - lo) / 1e3, {n for _, _, n in kern}, gaps
+
+
+def private_pool_bytes():
+    """Bytes of the caching allocator's segments held by private pools
+    (CUDA graphs' and their loop bodies'), after emptying its cache."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def device_loop_case(label, solve):
+    """One case of phase 14: ``solve(driver)`` with ``driver="while_loop"``
+    and the Python driver (s per LM iteration: the graph's blocks'
+    replays and reads, the Python driver's LM loop); then each again under
+    the profiler (device busy and idle share over the LM loop, for the
+    graph from its first replay, where the case's hand kernels must
+    show). The two drivers must give the same bits, iterations and PCG
+    iterations, the graph at least one conditional node, and no private
+    pool may outlive the case's graphs (each graph's and its loop
+    bodies')."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeparc_tpu_torch.solver import device_loop
+
+    pools0 = private_pool_bytes()
+    loops = []
+    device_loop.capture_hooks.append(loops.append)
+    try:
+        runs = {}
+        # the graph first: its warm-up step leaves no first-call work in
+        # the Python driver's loop
+        for driver in ("while_loop", "python"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = solve(driver)
+            torch.cuda.synchronize()
+            runs[driver] = (res, time.time() - t0)
+        # read the graph before its loop goes: each held loop holds its
+        # graph's memory
+        loop = loops.pop()
+        nodes = loop.while_nodes()
+        block_s = sum(loop.block_seconds)
+        took = dict(warmup_s=loop.warmup_seconds,
+                    capture_instantiate_s=loop.capture_seconds,
+                    blocks=len(loop.block_seconds))
+        del loop
+        # the profiler may drop kernels of a long run: up to three tries
+        # until the replay shows every hand kernel of the case
+        profiled = {}
+        for _ in range(3):
+            for driver in ("python", "while_loop"):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    solve(driver)
+                    torch.cuda.synchronize()
+                loops.clear()
+                profiled[driver] = busy_window(prof, driver == "while_loop")
+            names = (profiled["while_loop"] or (0, 0, set()))[2]
+            missing = [h for h in REPLAY_KERNELS[label]
+                       if not any(h in n for n in names)]
+            if not missing:
+                break
+    finally:
+        device_loop.capture_hooks.remove(loops.append)
+    py, wl = runs["python"][0], runs["while_loop"][0]
+    # every graph of the case is gone: its pools, the bodies' too, must
+    # have gone back to the caching allocator
+    del runs
+    kept_mib = (private_pool_bytes() - pools0) / 2**20
+    same = (py.cost == wl.cost and py.iterations == wl.iterations
+            and py.status == wl.status and all(
+                torch.equal(getattr(py.params, f.name),
+                            getattr(wl.params, f.name))
+                for f in dataclasses.fields(py.params)))
+    n = max(py.iterations, 1)
+    rec = dict(
+        iterations=py.iterations, status=py.status, cost=py.cost,
+        same_bits=same,
+        cg_iterations={"python": py.cg_iterations,
+                       "while_loop": wl.cg_iterations},
+        s_per_iteration={"python": py.seconds / n, "while_loop": block_s / n},
+        private_pools_kept_mib=kept_mib,
+        conditional_nodes=nodes, **took)
+    for driver, got in profiled.items():
+        if got is None:
+            raise AssertionError(f"{label}, {driver}: the profile holds no "
+                                 f"LM loop (or no graph launch in it)")
+        busy, window, names, gaps = got
+        rec[driver] = dict(device_busy_ms=busy, window_ms=window,
+                           idle_share=1 - busy / window if window else None,
+                           largest_gaps=gaps)
+    rec["replay_kernels"] = sorted(
+        n for n in profiled["while_loop"][2]
+        if any(h in n for h in REPLAY_KERNELS[label]))
+    print(f"  {label}: {py.iterations} iterations (status {py.status}), "
+          f"cost {py.cost:.12e}, same bits as the Python driver: {same}; "
+          f"s/iteration python {rec['s_per_iteration']['python']:.6f}, "
+          f"while_loop {rec['s_per_iteration']['while_loop']:.6f} "
+          f"({rec['blocks']} blocks, replay and read); warm-up "
+          f"{took['warmup_s']:.3f} s, capture + instantiate "
+          f"{took['capture_instantiate_s']:.3f} s; conditional nodes (top, "
+          f"bodies) {nodes}; PCG {rec['cg_iterations']}; private pools "
+          f"kept after the case {kept_mib:.1f} MiB")
+    for driver in ("python", "while_loop"):
+        r = rec[driver]
+        print(f"    {driver}, profiled LM loop: device busy "
+              f"{r['device_busy_ms']:.3f} of {r['window_ms']:.3f} ms, idle "
+              f"share {r['idle_share']:.4f}; largest gaps "
+              f"{r['largest_gaps']}")
+    if missing:
+        print(f"    replay kernels seen: {sorted(profiled['while_loop'][2])}")
+    if not same:
+        raise AssertionError(f"{label}: driver='while_loop' did not give "
+                             f"the Python driver's bits")
+    if py.cg_iterations != wl.cg_iterations:
+        raise AssertionError(f"{label}: PCG iterations differ: "
+                             f"{rec['cg_iterations']}")
+    if not nodes or nodes[0] < 1:
+        raise AssertionError(f"{label}: the graph holds no conditional node")
+    if not rec["while_loop"]["device_busy_ms"]:
+        raise AssertionError(f"{label}: the profiler saw no replay kernel")
+    if missing:
+        raise AssertionError(f"{label}: no kernel of the replay is named "
+                             f"{missing}")
+    if kept_mib > 0:
+        raise AssertionError(f"{label}: {kept_mib:.1f} MiB of private pools "
+                             f"outlived the case's graphs")
+    return rec
+
+
+def phase_device_loop(args, flagship, uniform=None, tile_layout_=None):
+    """Phase 14: ``driver="while_loop"`` on the card at full size, against
+    ``driver="python"``: ``solve_ba_grid`` on the banded occlusion
+    flagship and on the monolithic uniform-random rig, ``solve_tiles_
+    prepared`` on the windowed BAL scene (ITERATIVE_SCHUR, 30 PCG at the
+    pipeline's tolerance) and ``solve_ba`` (DENSE_SCHUR, 3 iterations) on
+    the flagship (:func:`device_loop_case`); returns the records."""
+    import torch
+
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.io import make_bal_windowed_host
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.ba import solve_ba
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_from_scene,
+        solve_ba_grid,
+    )
+    from deeparc_tpu_torch.solver.tiles import solve_tiles_prepared
+
+    print("[phase 14] the on-device LM driver (driver='while_loop': one "
+          "CUDA graph a solve, WHILE nodes for the LM block and PCG), "
+          "float64")
+    t_phase = time.time()
+    uniform = uniform or flagship_rig(args.n_points, None, 1)
+    rec = {}
+    # no convergence test ends these solves early: each runs its iterations
+    run_on = dict(function_tolerance=0.0, parameter_tolerance=0.0,
+                  gradient_tolerance=0.0, progress_to_stdout=False)
+    iters, block = DEVICE_LOOP_ITERATIONS["grid"]
+    opts = SolverOptions(max_iterations=iters, **run_on)
+    for label, data in (("banded flagship", flagship),
+                        ("monolithic uniform rig", uniform)):
+        scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+        grid, free = grid_from_scene(scene), freeze_masks(scene)
+        reuse: dict = {}
+        rec[label] = device_loop_case(label, lambda driver: solve_ba_grid(
+            scene.params, grid, free, opts, driver=driver,
+            while_block=block, band_reuse=reuse))
+        if (reuse["prep"] is None) != (label != "banded flagship"):
+            raise AssertionError(f"{label}: the band prep took the other "
+                                 f"route")
+        del scene, grid, free, reuse
+        torch.cuda.empty_cache()
+    if tile_layout_ is None:
+        tile_layout_ = tile_layout(make_bal_windowed_host(
+            n_points=args.tile_points, seed=0, **TILE_SCENE), True)
+    tiles, params_t, free_t, _, cam_free = tile_layout_
+    iters, block = DEVICE_LOOP_ITERATIONS["tiles"]
+    topts = SolverOptions(max_iterations=iters, **run_on,
+                          linear_solver="iterative_schur",
+                          cg_max_iterations=30)
+    rec["windowed BAL scene"] = device_loop_case(
+        "windowed BAL scene", lambda driver: solve_tiles_prepared(
+            params_t, tiles, free_t, cam_free, topts, driver=driver,
+            while_block=block))
+    del tiles, params_t, free_t, cam_free, tile_layout_
+    torch.cuda.empty_cache()
+    iters, block = DEVICE_LOOP_ITERATIONS["indexed"]
+    scene = from_deeparc(flagship, dtype=torch.float64, device="cuda")
+    free = freeze_masks(scene)
+    iopts = SolverOptions(max_iterations=iters, **run_on,
+                          linear_solver="dense_schur")
+    rec["indexed flagship"] = device_loop_case(
+        "indexed flagship", lambda driver: solve_ba(
+            scene.params, scene.index, free, iopts, driver=driver))
+    del scene, free
+    torch.cuda.empty_cache()
+    print(f"  phase 14 took {time.time() - t_phase:.1f} s")
+    return rec
+
+
+def new_paths(args, data, phases=(10, 11, 12, 13, 14), uniform=None,
+              tile_data=None, layout=None):
+    """Phases 10-14 (those in ``phases``) on the occlusion flagship
+    ``data`` (phase 13 also on ``uniform`` and ``tile_data``, phase 14 on
+    ``uniform`` and phase 6's locality ``layout``, made here when not
+    given); their records, and the sharded paths' launches."""
     import torch
 
     out, sharded = {}, {}
@@ -2140,6 +2425,11 @@ def new_paths(args, data, phases=(10, 11, 12, 13), uniform=None,
         out["sharded"], sharded = phase_sharded(args, data, uniform,
                                                 tile_data)
         out["sharded"]["phase_seconds"] = time.time() - t0
+        torch.cuda.empty_cache()
+    if 14 in phases:
+        t0 = time.time()
+        out["device_loop"] = phase_device_loop(args, data, uniform, layout)
+        out["device_loop"]["phase_seconds"] = time.time() - t0
     return out, sharded
 
 
@@ -2184,12 +2474,12 @@ def main(argv=None) -> int:
     ap.add_argument("--cost-only", action="store_true",
                     help="after the build, time only the two cost wrappers "
                          "(an A/B or ablation of cost_band) and exit")
-    ap.add_argument("--new-paths-only", nargs="?", const="10,11,12,13",
+    ap.add_argument("--new-paths-only", nargs="?", const="10,11,12,13,14",
                     default=None, metavar="PHASES",
-                    help="after the build, run only these of phases 10-13 "
+                    help="after the build, run only these of phases 10-14 "
                          "(indexed engine, incremental BA, checkpoint/"
-                         "resume, the sharded engines; default all four) "
-                         "and exit")
+                         "resume, the sharded engines, the on-device LM "
+                         "driver; default all five) and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -2271,7 +2561,7 @@ def main(argv=None) -> int:
                      for fn in (k.linearize_grid, k.cost_grid)})
     print(f"  launches on the grid paths: {launches}")
 
-    tile_data, tile_per_step, sums = phase_tile_kernels(args, records)
+    tile_data, tile_per_step, sums, layout = phase_tile_kernels(args, records)
     per_step.update(tile_per_step)
     print("  launches per LM step at each kernel's timing scene: "
           + ", ".join(f"{kname} {n:.2f}" for kname, n in per_step.items()))
@@ -2303,8 +2593,8 @@ def main(argv=None) -> int:
     probe_launches, probe_results = phase_probes(args, records)
     launches.update(probe_launches)
     paths, sharded = new_paths(args, data, uniform=uniform,
-                               tile_data=tile_data)
-    del tile_data, uniform
+                               tile_data=tile_data, layout=layout)
+    del tile_data, uniform, layout
     for kname, n in {**launches, **helpers}.items():
         if n <= 0:
             raise AssertionError(f"{kname} was not launched on its path")

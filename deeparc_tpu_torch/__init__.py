@@ -19,7 +19,9 @@ Layer map (mirrors ``deeparc_tpu``):
               residuals, the pose graph
   solver/     losses, trust region, small linear algebra and PCG, LM, the
               indexed engine (Schur over the observation list), the grid
-              engine with its live-band prep, the tile engine
+              engine with its live-band prep, the tile engine, the
+              on-device LM driver (driver="while_loop": CUDA graphs with
+              conditional WHILE nodes)
   kernels/    the hand-written Hopper kernels (CUDA C++ under csrc/) with
               their plain PyTorch versions
   pipeline/   hemisphere fit -> freeze solve -> filter loop driver, BFS

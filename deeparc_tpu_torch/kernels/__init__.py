@@ -1,3 +1,4 @@
+from deeparc_tpu_torch.kernels import graph_loop as _graph_loop
 from deeparc_tpu_torch.kernels import probes as _probes
 from deeparc_tpu_torch.kernels import rig_grid as _rig_grid
 from deeparc_tpu_torch.kernels import tile as _tile
@@ -51,6 +52,7 @@ def reset_launch_counts() -> None:
     _rig_grid.reset_launch_counts()
     _tile.reset_launch_counts()
     _probes.reset_launch_counts()
+    _graph_loop.reset_launch_counts()
 
 
 __all__ = [

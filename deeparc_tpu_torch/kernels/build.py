@@ -62,6 +62,9 @@ def _bind(lib):
         "tile_sort_jcam": [i, i, p, p, i, i, p, p],
         "tile_reduce_bins": [i, p, p, i, i, p, p],
         "tile_reduce_cost": [i, p, i, p, p],
+        "gl_while_begin": [p] * 5,
+        "gl_set_condition": [p, ctypes.c_ulonglong, p],
+        "gl_while_end": [p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -185,9 +185,19 @@ def _groups_of(w_band, N, block_np, pxm):
     return ((w_band, 0, n_pad // block_np),), n_pad
 
 
+def check_band_starts(starts: torch.Tensor, t_pad: int) -> None:
+    """Refuse a band start table with a start outside the cell table (a
+    host read: the band prep runs it where it hands the tables over, and a
+    wrapper when it gathers the planes itself, never on a solve's step)."""
+    if starts.numel() and int(starts.max()) * 8 >= t_pad:
+        raise ValueError("band start outside the cell table")
+
+
 def _band_stacks(grid, starts, groups, block_np, n_pad, t_pad, pxm):
     """The groups' plane stacks, gathered when not given; checks every
-    table against the shapes the kernels index with."""
+    table against the shapes the kernels index with. The starts' values
+    are checked where the planes are gathered (:func:`check_band_starts`):
+    given stacks come from a band prep that checked them."""
     w_max = max(w for w, _, _ in groups)
     if any(w % 8 or w > t_pad for w, _, _ in groups):
         raise ValueError(f"band widths {groups} must be multiples of 8 "
@@ -196,9 +206,8 @@ def _band_stacks(grid, starts, groups, block_np, n_pad, t_pad, pxm):
         raise ValueError(f"band start table has {starts.shape[0]} tiles, "
                          f"not {n_pad // block_np}: it was built for another "
                          f"point-tile width than {block_np}")
-    if starts.numel() and int(starts.max()) * 8 >= t_pad:
-        raise ValueError("band start outside the cell table")
     if pxm is None:
+        check_band_starts(starts, t_pad)
         pxm_ext = banded_planes(grid, n_pad, w_max)
         pxms = tuple(gather_banded_planes(pxm_ext, starts, w, block_np, lo, hi)
                      for w, lo, hi in groups)

@@ -27,6 +27,10 @@ from deeparc_tpu_torch.scene import BAParams, SceneIndex
 from deeparc_tpu_torch.solver import trust_region as tr_mod
 from deeparc_tpu_torch.utils.logging import log_iteration
 
+# the profiler's name for a solve's LM loop, under either driver, every
+# engine (``torch.profiler.record_function``)
+LM_LOOP = "deeparc.lm_loop"
+
 
 class StepInfo(NamedTuple):
     cost: torch.Tensor
@@ -83,12 +87,13 @@ def _apply_step(params: BAParams, dp: torch.Tensor,
     return dataclasses.replace(out, points=params.points + dp)
 
 
-def make_step_pure(options: SolverOptions):
+def make_step_pure(options: SolverOptions, device_loop: bool = False):
     """The LM step as a function of its inputs only:
     ``step(state, index, cam_free, point_free, maps=None) ->
     (BAState, StepInfo)``. ``maps`` are the solve's fixed-order row-sum
     maps (``solver.schur.schur_maps`` of ``index``), which the card
-    needs."""
+    needs. ``device_loop=True`` (the ``while_loop`` driver) runs PCG as
+    :func:`solver.linalg.pcg_device`."""
     from deeparc_tpu_torch.residuals.reprojection import (
         FlatObsJacobians,
         flatten_camera,
@@ -115,7 +120,7 @@ def make_step_pure(options: SolverOptions):
         sys = build_system(blocks.r, blocks.jp, blocks.jc, index,
                            point_free.shape[0], params.ext_rot.shape[0],
                            params.center.shape[0], cam_free, point_free, maps)
-        dp, dc = solve_schur(sys, state.tr.radius, options)
+        dp, dc = solve_schur(sys, state.tr.radius, options, device_loop)
         mcc = tr_mod.model_cost_change(j_times(sys, dp, dc).reshape(-1),
                                        sys_r(sys).reshape(-1))
 
@@ -158,13 +163,15 @@ def make_step_pure(options: SolverOptions):
     return step
 
 
-def make_step(index: SceneIndex, free: BAParams, options: SolverOptions):
+def make_step(index: SceneIndex, free: BAParams, options: SolverOptions,
+              device_loop: bool = False):
     """The step closed over (index, freeze masks, the index's row-sum
-    maps): ``step(state) -> (BAState, StepInfo)``."""
+    maps): ``step(state) -> (BAState, StepInfo)``; ``device_loop`` as for
+    :func:`make_step_pure`."""
     from deeparc_tpu_torch.residuals.reprojection import flatten_camera
     from deeparc_tpu_torch.solver.schur import schur_maps
 
-    step = make_step_pure(options)
+    step = make_step_pure(options, device_loop)
     cam_free, point_free = flatten_camera(free), free.points
     maps = schur_maps(index, point_free.shape[0], free.ext_rot.shape[0],
                       free.center.shape[0],
@@ -234,21 +241,34 @@ def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
              driver: str = "python", checkpoint_path: str | None = None,
              checkpoint_every: int = 10, resume: bool = False,
              logger=None) -> BAResult:
-    """LM to convergence on the observation list, one Python-driven step
-    per iteration: Ceres-style progress lines, the wall-clock cap
+    """LM to convergence on the observation list. The row-sum maps are
+    built once per solve.
+
+    ``driver="python"``: one Python-driven step per iteration with
+    Ceres-style progress lines, the wall-clock cap
     (``max_solver_time_in_seconds``, ``src/sfm.cc:71``), a solver-state
     checkpoint every ``checkpoint_every`` iterations (``resume=True``
     restarts from ``checkpoint_path`` with the saved trust-region state)
-    and a ``JsonlLogger``. The row-sum maps are built once per solve."""
-    if driver == "while_loop":
-        raise NotImplementedError(
-            "driver='while_loop': the port drives every solve from Python "
-            "(the while_loop drivers are left out, ROADMAP.md Queue 1 "
-            "item 5)")
-    if driver != "python":
+    and a ``JsonlLogger``. ``driver="while_loop"``: the whole solve, up to
+    ``options.max_iterations``, with no host read until it ends (on the
+    card one CUDA graph, ``solver/device_loop.py``); as in the reference,
+    no wall-clock cap, no checkpoint, no progress lines or log."""
+    if driver not in ("python", "while_loop"):
         raise ValueError(f"unknown driver {driver!r}")
-    step = make_step(index, free, options)
     state = init_state(params, index, options)
+    if driver == "while_loop":
+        from deeparc_tpu_torch.solver.device_loop import BlockLoop, run_blocks
+
+        loop = BlockLoop(make_step(index, free, options, device_loop=True),
+                         ())
+        loop.load(state)
+        # one block, the whole solve: no wall-clock cap, no checkpoint
+        k, status, _, seconds = run_blocks(
+            loop, 0, options.max_iterations, max(options.max_iterations, 1),
+            float("inf"))
+        return BAResult(params=loop.state.params, cost=float(loop.state.cost),
+                        iterations=k, status=status, seconds=seconds)
+    step = make_step(index, free, options)
     ck = load_checkpoint(checkpoint_path, resume, params)
     if ck is not None:
         ck_params, scal = ck
@@ -260,17 +280,18 @@ def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
     k = state.k
     if options.progress_to_stdout:
         print_header(k, state.cost)
-    while int(state.status) == 0 and k < options.max_iterations:
-        if time.time() - t0 > options.max_seconds:
-            break
-        state, info = step(state)
-        k += 1
-        if options.progress_to_stdout:
-            print_iteration(k, info)
-        log_iteration(logger, k, info)
-        if checkpoint_path and k % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, state.params, state.tr, k,
-                            state.cost)
+    with torch.profiler.record_function(LM_LOOP):
+        while int(state.status) == 0 and k < options.max_iterations:
+            if time.time() - t0 > options.max_seconds:
+                break
+            state, info = step(state)
+            k += 1
+            if options.progress_to_stdout:
+                print_iteration(k, info)
+            log_iteration(logger, k, info)
+            if checkpoint_path and k % checkpoint_every == 0:
+                save_checkpoint(checkpoint_path, state.params, state.tr, k,
+                                state.cost)
     return BAResult(params=state.params, cost=float(state.cost),
                     iterations=k, status=int(state.status),
                     seconds=time.time() - t0)

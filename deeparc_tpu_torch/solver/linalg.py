@@ -33,16 +33,40 @@ def masked_spd_solve(A: torch.Tensor, b: torch.Tensor,
     free = free.to(A.dtype)
     A_m = A * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
     # cholesky_ex does not synchronise; a failed factorisation yields NaN
-    # (as the reference's Cholesky does), which the LM accept test rejects
+    # (as the reference's Cholesky does), which the LM accept test rejects.
+    # Two triangular solves, not cholesky_solve: on the card that one
+    # allocates stream-ordered memory, which a CUDA graph's loop body
+    # cannot hold.
     L, info = torch.linalg.cholesky_ex(A_m)
-    x = torch.cholesky_solve((b * free)[:, None], L)[:, 0]
+    y = torch.linalg.solve_triangular(L, (b * free)[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.mH, y, upper=True)[:, 0]
     return torch.where(info == 0, x * free, torch.full_like(x, float("nan")))
 
 
 class CGResult(NamedTuple):
     x: torch.Tensor
-    iterations: int
+    iterations: int | torch.Tensor
     residual_norm: torch.Tensor
+
+
+def _cg_start(b, precond, tol):
+    """(atol2, x, r, p, rz) before the first iteration."""
+    atol2 = (tol * torch.linalg.norm(b)) ** 2
+    z = precond(b)
+    return atol2, torch.zeros_like(b), b, z, torch.dot(b, z)
+
+
+def _cg_iteration(matvec, precond, x, r, p, rz):
+    """One PCG iteration: the next (x, r, p, rz)."""
+    Ap = matvec(p)
+    denom = torch.dot(p, Ap)
+    alpha = torch.where(denom > 0, rz / denom, torch.zeros_like(rz))
+    x = x + alpha * p
+    r = r - alpha * Ap
+    z = precond(r)
+    rz_new = torch.dot(r, z)
+    beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
+    return x, r, z + beta * p, rz_new
 
 
 def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
@@ -53,26 +77,42 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
 
     A Python loop with the reference's stopping rule: iterate while
     ||r||^2 > (tol ||b||)^2 and fewer than ``max_iterations`` steps were
-    taken; the test reads one scalar back from the device per iteration."""
+    taken; the test reads one scalar back from the device per iteration.
+    The plain version of :func:`pcg_device`."""
     if precond is None:
         precond = lambda v: v
-    atol2 = (tol * torch.linalg.norm(b)) ** 2
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = torch.dot(r, z)
+    atol2, x, r, p, rz = _cg_start(b, precond, tol)
     k = 0
     while k < max_iterations and bool(torch.dot(r, r) > atol2):
-        Ap = matvec(p)
-        denom = torch.dot(p, Ap)
-        alpha = torch.where(denom > 0, rz / denom, torch.zeros_like(rz))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = torch.dot(r, z)
-        beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
-        p = z + beta * p
-        rz = rz_new
+        x, r, p, rz = _cg_iteration(matvec, precond, x, r, p, rz)
         k += 1
+    return CGResult(x=x, iterations=k, residual_norm=torch.linalg.norm(r))
+
+
+def pcg_device(matvec: Callable[[torch.Tensor], torch.Tensor],
+               b: torch.Tensor,
+               precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
+               max_iterations: int = 500, tol: float = 1e-10) -> CGResult:
+    """:func:`pcg` with its loop on the device: a WHILE loop
+    (``kernels.graph_loop.while_loop``, a conditional graph node inside a
+    capture) whose flag is the same stopping test, over buffers that each
+    iteration's results are copied into; the iteration count stays a
+    device tensor. The same ops in the same order as :func:`pcg`, so the
+    same iterates bit for bit."""
+    from deeparc_tpu_torch.kernels.graph_loop import while_loop
+
+    if precond is None:
+        precond = lambda v: v
+    atol2, x, r, p, rz = _cg_start(b, precond, tol)
+    x, r, p, rz = (t.clone() for t in (x, r, p, rz))
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
+
+    def body():
+        for buf, new in zip((x, r, p, rz),
+                            _cg_iteration(matvec, precond, x, r, p, rz)):
+            buf.copy_(new)
+        k.add_(1)
+
+    while_loop(lambda: (k < max_iterations) & (torch.dot(r, r) > atol2),
+               body)
     return CGResult(x=x, iterations=k, residual_norm=torch.linalg.norm(r))

@@ -209,11 +209,18 @@ def _group_tiles(covers8, max_groups):
 
 def _gather_stacks(grid, starts_d, starts_cost_d, lin_groups, cost_groups,
                    block_np, cost_block_np, w_max):
+    """The plane stacks of both tilings, after the start tables are checked
+    against the cell table (``kernels.rig_grid.check_band_starts``): the
+    one place the tables a solve's kernels index with are checked."""
     from deeparc_tpu_torch.kernels.rig_grid import (
         banded_planes,
+        check_band_starts,
         gather_banded_planes,
     )
 
+    t_pad = _round_up(grid.xy0.shape[1], 8)
+    check_band_starts(starts_d, t_pad)
+    check_band_starts(starts_cost_d, t_pad)
     N = grid.xy0.shape[0]
     n_pad = _round_up(N, max(block_np, cost_block_np))
     pxm_ext = banded_planes(grid, n_pad, w_max)

@@ -40,7 +40,12 @@ import torch
 from deeparc_tpu_torch.config import SolverOptions
 from deeparc_tpu_torch.kernels.tile import gather_map, sum_rows
 from deeparc_tpu_torch.residuals.reprojection import camera_col_indices
-from deeparc_tpu_torch.solver.linalg import inv3x3, masked_spd_solve, pcg
+from deeparc_tpu_torch.solver.linalg import (
+    inv3x3,
+    masked_spd_solve,
+    pcg,
+    pcg_device,
+)
 from deeparc_tpu_torch.solver.trust_region import lm_diagonal
 
 # a camera row's sources are cut into segments of this many observations,
@@ -347,7 +352,9 @@ def block_jacobi_preconditioner(sys: SchurSystem, cam_aug: torch.Tensor):
     aug = cam_aug.reshape(R + K, 6)
     frozen = 1.0 - sys.cam_free.reshape(R + K, 6)
     eye6 = torch.eye(6, dtype=blocks.dtype, device=blocks.device)
-    inv_blocks = torch.linalg.inv(blocks + eye6 * (aug + frozen)[:, :, None])
+    # inv_ex: linalg.inv's result without its host-side error check
+    inv_blocks = torch.linalg.inv_ex(
+        blocks + eye6 * (aug + frozen)[:, :, None]).inverse
 
     def precond(v):
         return torch.einsum("bij,bj->bi", inv_blocks,
@@ -357,8 +364,10 @@ def block_jacobi_preconditioner(sys: SchurSystem, cam_aug: torch.Tensor):
 
 
 def solve_schur(sys: SchurSystem, radius: torch.Tensor,
-                options: SolverOptions) -> tuple:
-    """Solve the augmented normal equations; returns (dp (N,3), dc (C,))."""
+                options: SolverOptions, device_loop: bool = False) -> tuple:
+    """Solve the augmented normal equations; returns (dp (N,3), dc (C,)).
+    ``device_loop`` runs PCG as :func:`solver.linalg.pcg_device` (the
+    ``while_loop`` driver)."""
     binv = _augmented_point_blocks(sys, radius, options)
     cam_aug = _cam_aug_diag(sys, radius, options)
     rhs = reduced_rhs(sys, binv) * sys.cam_free
@@ -374,10 +383,10 @@ def solve_schur(sys: SchurSystem, radius: torch.Tensor,
                 1.0 / (sys.hcc_diag + cam_aug + 1e-300),
                 torch.ones_like(cam_aug))
             precond = lambda v: precond_diag * v
-        result = pcg(lambda v: schur_matvec(sys, binv, cam_aug, v), rhs,
-                     precond=precond,
-                     max_iterations=options.cg_max_iterations,
-                     tol=options.cg_tolerance)
+        result = (pcg_device if device_loop else pcg)(
+            lambda v: schur_matvec(sys, binv, cam_aug, v), rhs,
+            precond=precond, max_iterations=options.cg_max_iterations,
+            tol=options.cg_tolerance)
         dc = result.x * sys.cam_free
     else:
         raise ValueError(f"unknown linear_solver {options.linear_solver!r}")

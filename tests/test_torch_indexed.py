@@ -136,10 +136,28 @@ def test_solve_ba_matches_jax(scenes, solver, loss):
     close(got.params.points, np.asarray(want.params.points), 1e-6, 1e-9)
 
 
-def test_solve_ba_while_loop_driver_names_its_roadmap_item(scenes):
-    ts = scenes[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        solve_ba(ts.params, ts.index, freeze_masks(ts), driver="while_loop")
+@pytest.mark.parametrize("solver", ["dense_schur", "iterative_schur"])
+def test_solve_ba_while_loop_driver_matches_python_and_jax(scenes, solver):
+    """``driver="while_loop"`` (the whole solve as one device loop; on the
+    CPU its plain form) gives the Python driver's bits and the reference's
+    ``driver="while_loop"`` iterations and cost (rtol 1e-8)."""
+    data = scenes[0]
+    js, ts = jfrom_deeparc(data), from_deeparc(data, device="cpu")
+    kw = dict(max_iterations=6, linear_solver=solver, cg_tolerance=1e-6)
+    want = jsolve_ba(js.params, js.index, jfreeze(js), JSolverOptions(**kw),
+                     driver="while_loop")
+    opts = SolverOptions(**kw)
+    got = solve_ba(ts.params, ts.index, freeze_masks(ts), opts,
+                   driver="while_loop")
+    py = solve_ba(ts.params, ts.index, freeze_masks(ts), opts)
+    assert (got.iterations, got.status) == (py.iterations, py.status)
+    assert got.cost == py.cost
+    for f in dataclasses.fields(got.params):
+        assert torch.equal(getattr(got.params, f.name),
+                           getattr(py.params, f.name)), f.name
+    assert got.iterations == want.iterations
+    np.testing.assert_allclose(got.cost, float(want.cost), rtol=1e-8)
+    close(got.params.points, np.asarray(want.params.points), 1e-6, 1e-9)
 
 
 def _sum_by_map(part, gmap, n_out):

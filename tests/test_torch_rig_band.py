@@ -181,3 +181,42 @@ def test_band_grid_update_refuses_a_moved_observation(occlusion):
     removed.mask[tuple(live[0])] = 0.0
     upd = band_grid_update(prep, removed)
     assert float(upd.grid.mask.sum()) == float(tgrid.mask.sum()) - 1
+
+
+def test_band_start_guard_runs_at_prep_and_refuses_a_start_outside(occlusion):
+    """The band-start check left the kernels' call path: a stored prep
+    whose start table points past the cell table is refused where the
+    prep hands the tables over (``band_grid_update``, so also
+    ``solve_ba_grid``'s set-up with ``band_reuse``), and by a wrapper that
+    gathers the planes itself; given the prep's stacks, a wrapper reads
+    no start back."""
+    from deeparc_tpu_torch.scene import freeze_masks
+    from deeparc_tpu_torch.solver.rig_grid import slot_params, solve_ba_grid
+
+    data, jgrid = occlusion
+    tgrid = grid_to_torch(jgrid)
+    prep = band_grid(tgrid, block_np=64, cost_block_np=128)
+    t_pad = -(-tgrid.xy0.shape[1] // 8) * 8
+    bad = prep.grid.band[0].clone()
+    bad[1] = t_pad // 8
+    stored = prep._replace(grid=dataclasses.replace(
+        prep.grid, band=(bad, prep.grid.band[1])))
+    with pytest.raises(ValueError, match="band start outside the cell table"):
+        band_grid_update(stored, tgrid)
+    scene = from_deeparc(data, device="cpu")
+    with pytest.raises(ValueError, match="band start outside the cell table"):
+        solve_ba_grid(scene.params, grid_from_scene(scene),
+                      freeze_masks(scene), band_reuse={"prep": stored})
+    g = prep.grid
+    params = scene.params
+    sp = slot_params(dataclasses.replace(
+        params, points=params.points[prep.perm.long()]), g)
+    w = prep.lin_groups
+    with pytest.raises(ValueError, match="band start outside the cell table"):
+        tk.cost_grid_banded(params.points[prep.perm.long()], sp, g, bad, w,
+                            block_np=64)
+    # with the prep's own stacks the wrapper takes the table as given
+    cost = tk.cost_grid_banded(params.points[prep.perm.long()], sp, g,
+                               prep.grid.band[1], prep.cost_groups,
+                               block_np=128, pxm=prep.grid.band[3])
+    assert torch.isfinite(cost)
