@@ -125,17 +125,31 @@ Phases (any failure raises and exits non-zero):
      ``solve_ba`` on the flagship (DENSE_SCHUR, 3 iterations): the same
      bits, iterations, status and PCG iterations; at least one
      conditional node in the graph (counted through the driver API); the
-     case's hand kernels among the profiler's kernels after the first
-     graph launch; s per LM iteration of both drivers (the graph's over
-     its blocks' replays and reads), warm-up and capture + instantiate
-     time, device busy and idle share of both; no private pool (a graph's
-     or a loop body's) outlives its case;
+     case's hand kernels among the graph's kernel nodes (read through the
+     driver API); s per LM iteration of both drivers (the graph's over
+     its blocks' replays and reads), peak memory, warm-up and capture +
+     instantiate time, device busy and idle share of both over the LM
+     loop on the device's clock (the indexed Python driver's twice); no
+     private pool (a graph's or a loop body's) outlives its case; (e)
+     each grid solve again with the fused-trial step (``fuse_trial=
+     True``): both drivers' bits, the classic solve's iterations and its
+     cost within 1e-9 relative, one classic and one fused step split by
+     the profiler into linearize / cost / select / Schur / the rest, the
+     select's bytes; (f) ``solve_ba_grid_sharded`` and ``solve_ba_sharded``
+     on the flagship and ``solve_ba_tiles_sharded`` on phase 13d's scene
+     at one NCCL rank, both drivers, checked as above;
 then one JSON line with the probes' entry points' results, one with
 phases 10-14's records, one with the nine kernels' records (errors,
 milliseconds, the bound, launches on the main paths, on phase 13's
 sharded paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}``.
+
+Every idle share printed is 1 - device busy / window with both on the
+device's clock (busy the union of the device's activities clipped to the
+window: a step's window lies between two marker kernels launched around
+it, an LM loop's is mapped onto the device's clock through its runtime
+calls' correlation ids); a share outside [0, 1] raises.
 
 Times are medians of CUDA-event timings. A kernel's bound is the larger of
 its bytes (each input read once, each output written once) over 3.35 TB/s
@@ -154,6 +168,9 @@ import time
 from deeparc_tpu_torch.scripts import (
     OPS_PER_SLOT,
     bound,
+    busy_in,
+    idle_share,
+    loop_window,
     nvidia_smi,
     time_ms,
 )
@@ -644,13 +661,54 @@ def device_ms(fn):
     return times
 
 
-def print_split(label, wall, parts, busy):
+# cycles of the marker kernels (torch.cuda._sleep's spin_kernel) that
+# bracket a profiled step: about a microsecond
+MARKER_CYCLES = 1000
+
+
+def step_profile(fn):
+    """One call of ``fn`` under the profiler, between two marker kernels
+    launched right before and right after it (the device idle before the
+    first): ({activity name: device ms}, device busy ms, window ms). The
+    window runs from the first activity's end to the last one's start on
+    the device's clock (the markers, found by their place: the profiler
+    may misname a kernel), so it holds the host's launch work and reads
+    inside the call; busy is the union of the device's activities in it
+    (``scripts.busy_in``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(MARKER_CYCLES)
+        fn()
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+    acts = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    if len(acts) < 3:
+        raise AssertionError("the profile holds no device work of the step")
+    lo, hi = acts[0][1], acts[-1][0]
+    times: dict = {}
+    work = acts[1:-1]
+    for a, b, name in work:
+        times[name] = times.get(name, 0.0) + (b - a) / 1e3
+    return (times, busy_in([(a, b) for a, b, _ in work], lo, hi) / 1e3,
+            (hi - lo) / 1e3)
+
+
+def print_split(label, wall, parts, busy, window):
+    """One step's split; the idle share is over the profiled call
+    (:func:`step_profile`) and must lie in [0, 1]."""
     rest = wall - sum(parts.values())
     print(f"  {label}: wall {wall:.3f} ms (median of 3); "
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-          + f", the rest {rest:.3f} ms; device busy {busy:.3f} ms, idle "
-          + (f"share {1 - busy / wall:.3f}" if busy else
-             "share not measured (the profiler saw no device time)"))
+          + f", the rest {rest:.3f} ms; device busy {busy:.3f} of "
+          f"{window:.3f} ms of the profiled step, idle share "
+          f"{idle_share(busy, window):.4f}")
 
 
 def grid_step_split(data):
@@ -660,7 +718,7 @@ def grid_step_split(data):
     time around the synchronised step; the linearize
     (``assemble_grid_system``) and the trial cost (``grid_cost``) timed
     alone with CUDA events; the Schur solve is the rest; the idle share
-    from the profiler's device time over one step; the step run twice
+    over one profiled step (:func:`step_profile`); the step run twice
     must give the same bits. Returns the kernels' launches in one step."""
     import torch
 
@@ -704,7 +762,7 @@ def split_grid_step(label, run, kernels, lin, cost):
     """One grid LM step ``run`` split on the card: host wall time around
     the synchronised step; the linearize ``lin`` and the trial cost
     ``cost`` timed alone with CUDA events; the Schur solve is the rest;
-    the idle share from the profiler's device time over one step. The
+    the idle share over one profiled step (:func:`step_profile`). The
     step run twice from one state must give the same bits. Returns the
     ``kernels``' launches in one step."""
     import torch
@@ -718,7 +776,7 @@ def split_grid_step(label, run, kernels, lin, cost):
     wall = wall_ms(run, 3)
     parts = {"linearize": time_ms(lin, 3), "trial cost": time_ms(cost, 3)}
     print_split(f"{label}, Schur solve = the rest", wall, parts,
-                sum(device_ms(run).values()))
+                *step_profile(run)[1:])
     print(f"  launches in one step: {per_step}")
     check_step_repeats(run, label)
     print("  the step run twice: the same bits")
@@ -732,8 +790,8 @@ def banded_step_split(data):
     wall time around the synchronised step; the linearize
     (``assemble_grid_system`` with the band) and the trial cost
     (``grid_cost`` with the band) timed alone with CUDA events; the Schur
-    solve is the rest; the idle share from the profiler's device time over
-    one step (:func:`split_grid_step`); the banded kernels' launches in one
+    solve is the rest; the idle share over one profiled step
+    (:func:`split_grid_step`); the banded kernels' launches in one
     step. The step run twice from one state must give the same bits."""
     import dataclasses
 
@@ -889,15 +947,14 @@ def tile_step_breakdown(layout):
     parts = ("linearize_rows", "linearize_bins", "gsweep_rows",
              "lsweep_bins", "edot_rows", "sort_planes", "gather_cells")
     split = dict.fromkeys(parts + ("other",), 0.0)
-    for key, ms in device_ms(run).items():
+    times, busy, window = step_profile(run)
+    for key, ms in times.items():
         split[next((p for p in parts if p in key), "other")] += ms
-    busy = sum(split.values())
     print(f"  one LM step (f64, {info.cg_iters} PCG iterations): wall "
           f"{wall:.3f} ms (median of 3); device time by part (ms): "
           + ", ".join(f"{p} {v:.3f}" for p, v in split.items())
-          + f"; device busy {busy:.3f} ms, idle share "
-          + (f"{1 - busy / wall:.3f}" if busy else "not measured (the "
-             "profiler saw no device time)"))
+          + f"; device busy {busy:.3f} of {window:.3f} ms of the profiled "
+          f"step, idle share {idle_share(busy, window):.4f}")
 
     sys_, lin_planes = linearize_tiles_mixed(params_t.points, packed, tiles,
                                              free_t, cam_free.numel())
@@ -940,10 +997,11 @@ def tile_global_step_split(layout):
     (``linearize_tiles_mixed``), the sweep set-up (``_make_kernel_sweeps``:
     the transposed planes and each bucket's cell-sorted jcam copy) and the
     step's sweeps (rhs, one matvec per PCG iteration, edot) timed alone
-    with CUDA events; the idle share from the profiler's device time over
-    one step; the whole step run twice must give the same bits (its
-    linearize is the torch chunk path, summing each row piece into the
-    cells in fixed order). Returns tile_sweep's launches in one step."""
+    with CUDA events; the idle share over one profiled step
+    (:func:`step_profile`); the whole step run twice must give the same
+    bits (its linearize is the torch chunk path, summing each row piece
+    into the cells in fixed order). Returns tile_sweep's launches in one
+    step."""
     import torch
 
     from deeparc_tpu_torch import kernels as k
@@ -987,7 +1045,7 @@ def tile_global_step_split(layout):
     parts = {"linearize": time_ms(lin, 3), "sweep set-up": time_ms(setup, 3),
              f"sweeps (2 + {info.cg_iters})": time_ms(sweeps, 3)}
     print_split(f"one LM step (f64, {info.cg_iters} PCG iterations, peak "
-                f"{peak:.3f} GiB)", wall, parts, sum(device_ms(run).values()))
+                f"{peak:.3f} GiB)", wall, parts, *step_profile(run)[1:])
     check_step_repeats(run, "tile step on the locality=False layout")
     print("  the whole step run twice: the same bits")
     return per_step
@@ -1461,9 +1519,10 @@ def indexed_step_split(data, reps):
     time around the synchronised step; the Jacobian blocks
     (``jacobian_blocks_flat``), ``build_system``, ``solve_schur`` and the
     trial cost (``robust_cost``) timed alone with CUDA events (the rest:
-    J dx, the step's update); the idle share from the profiler's device
-    time; ``sum_rows`` launches in one step; the step run twice must give
-    the same bits. Then one ITERATIVE_SCHUR step (30 PCG iterations).
+    J dx, the step's update); the idle share over one profiled step
+    (:func:`step_profile`); ``sum_rows`` launches in one step; the step run
+    twice must give the same bits. Then one ITERATIVE_SCHUR step (30 PCG
+    iterations).
     Returns the record."""
     import torch
 
@@ -1529,15 +1588,15 @@ def indexed_step_split(data, reps):
             "trial cost": time_ms(lambda: robust_cost(params, index, opts),
                                   3)}
         del blocks, sys
-        busy = sum(device_ms(run).values())
+        _, busy, window = step_profile(run)
         label = f"one indexed LM step ({solver}{f', {cg} PCG' if cg else ''})"
-        print_split(label, wall, parts, busy)
+        print_split(label, wall, parts, busy, window)
         print(f"  sum_rows launches in one step: {launches}; peak device "
               f"memory {peak:.2f} GiB")
         check_state_repeats(run, label)
         print("  the step run twice: the same bits")
-        rec[solver] = dict(wall_ms=wall, device_ms=busy,
-                           idle_share=1 - busy / wall if busy else None,
+        rec[solver] = dict(wall_ms=wall, device_ms=busy, window_ms=window,
+                           idle_share=idle_share(busy, window),
                            sum_rows_launches=launches, peak_gib=peak, **parts)
         del state
         torch.cuda.empty_cache()
@@ -2141,26 +2200,54 @@ def phase_sharded(args, flagship, uniform=None, tile_data=None):
 # ---------------------------------------------------------------------------
 
 # LM iterations and the block of phase 14's solves: (max_iterations,
-# while_block) per case
-DEVICE_LOOP_ITERATIONS = {"grid": (10, 5), "tiles": (6, 3), "indexed": (3, 3)}
-# hand kernels each case's replay must run (profiler names); set_condition
-# is the WHILE node's condition kernel
+# while_block) per case; the fused-trial solves take the grid's, the
+# sharded ones theirs ("sharded tiles": phase 13d's 5 iterations)
+DEVICE_LOOP_ITERATIONS = {"grid": (10, 5), "tiles": (6, 3), "indexed": (3, 3),
+                          "sharded tiles": (5, 5)}
+# hand kernels each case's graph must hold among its kernel nodes (and so
+# launch in every replay); set_condition is the WHILE node's condition
+# kernel. A fused-trial step launches no cost kernel: its trial evaluation
+# is the linearize.
 REPLAY_KERNELS = {
     "banded flagship": ("linearize_band", "cost_band", "set_condition"),
     "monolithic uniform rig": ("linearize_mono", "cost_band",
                                "set_condition"),
+    "banded flagship, fused": ("linearize_band", "set_condition"),
+    "monolithic uniform rig, fused": ("linearize_mono", "set_condition"),
     "windowed BAL scene": ("linearize_rows", "linearize_bins", "lsweep_bins",
                            "sort_planes", "gather_cells", "set_condition"),
     "indexed flagship": ("gather_cells", "set_condition"),
+    "grid-sharded": ("linearize_mono", "cost_band", "set_condition"),
+    "tiles-sharded": ("gsweep_rows", "gsweep_bins", "sort_rows", "edot_rows",
+                      "gather_cells", "set_condition"),
+    "sharded indexed": ("gather_cells", "set_condition"),
 }
+# the parts of a grid LM step by kernel name: the linearize kernels, the
+# cost pass, the select (torch.where; the classic step's small selects
+# too), the Schur solve's cuBLAS / cuSOLVER calls (products, Cholesky,
+# triangular solves); every other kernel is "rest"
+STEP_PARTS = (("linearize", ("linearize", "reduce_slots")),
+              ("cost", ("cost_band", "reduce_cost")),
+              ("select", ("where",)),
+              ("schur", ("gemm", "gemv", "cutlass", "trsv", "trf",
+                         "dot_kernel", "splitKreduce", "reduce_1Block",
+                         "potrf", "trsm")))
+# a fused-trial solve against the classic one: the same iterations, the
+# final cost within this relative difference (their costs come from the
+# linearize and the cost kernel, which sum in other orders)
+FUSED_COST_RTOL = 1e-9
 
 
 def busy_window(prof, graph):
     """(device busy ms, window ms, kernel names, gaps) over a solve's LM
-    loop (the solvers' ``LM_LOOP`` range in the profile; for the graph
-    driver from its first graph launch there): busy is the union of the
-    kernels' intervals, gaps the window's largest idle stretches with the
-    kernels on either side; None when the profile holds no such range."""
+    loop (the solvers' ``LM_LOOP`` range in the profile), all on the
+    device's clock: the window runs from the first device activity that a
+    runtime call of the loop launched (for the graph driver, its first
+    graph launch) to the last one's end (``scripts.loop_window``, through
+    the calls' correlation ids), busy is the union of the device's
+    activities clipped to it (``scripts.busy_in``), gaps the window's
+    largest idle stretches with the activities on either side; None when
+    the profile holds no such range or launch."""
     from torch.autograd import DeviceType
 
     from deeparc_tpu_torch.solver.ba import LM_LOOP
@@ -2170,30 +2257,45 @@ def busy_window(prof, graph):
              if e.name == LM_LOOP and e.device_type == DeviceType.CPU]
     if not loops:
         return None
-    lo, hi = loops[-1].start, loops[-1].end
-    if graph:
-        starts = [e.time_range.start for e in events
-                  if e.name == "cudaGraphLaunch"
-                  and lo <= e.time_range.start <= hi]
-        if not starts:
-            return None
-        lo = min(starts)
-    kern = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in events if e.device_type == DeviceType.CUDA
-                  and lo <= e.time_range.start <= hi)
-    if not kern:
-        return 0.0, (hi - lo) / 1e3, set(), []
-    busy, cur_lo, cur_hi = 0.0, kern[0][0], kern[0][1]
-    for a, b, _ in kern[1:]:
-        if a > cur_hi:
-            busy += cur_hi - cur_lo
-            cur_lo, cur_hi = a, b
-        else:
-            cur_hi = max(cur_hi, b)
-    busy += cur_hi - cur_lo
+    runtime = [(e.time_range.start, e.id, e.name) for e in events
+               if e.device_type == DeviceType.CPU and e.name.startswith("cu")]
+    acts = [(e.time_range.start, e.time_range.end, e.id, e.name)
+            for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name != LM_LOOP]
+    window = loop_window((loops[-1].start, loops[-1].end), runtime,
+                         [a[:3] for a in acts],
+                         "cudaGraphLaunch" if graph else None)
+    if window is None:
+        return None
+    lo, hi = window
+    busy = busy_in([(a, b) for a, b, _, _ in acts], lo, hi)
+    kern = sorted((max(a, lo), min(b, hi), name) for a, b, _, name in acts
+                  if b > lo and a < hi)
     gaps = sorted(((b[0] - a[1]) / 1e3, a[2][:40], b[2][:40])
                   for a, b in zip(kern, kern[1:]))[-3:][::-1]
     return busy / 1e3, (hi - lo) / 1e3, {n for _, _, n in kern}, gaps
+
+
+def replay_report(prof, names):
+    """What a graph driver's profile holds where it does not name the
+    case's hand kernels: each name's activities (count, first starts and
+    correlation ids) and the names the LM loop's window holds most."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    launches = [(e.time_range.start, e.id) for e in events
+                if e.name == "cudaGraphLaunch"]
+    print(f"      graph launches (host start, id): {launches}")
+    for name in names:
+        acts = sorted((e.time_range.start, e.id) for e in events
+                      if e.device_type == DeviceType.CUDA and name in e.name)
+        print(f"      {name}: {len(acts)} activities, first {acts[:3]}")
+    window = busy_window(prof, True)
+    seen = collections.Counter(n[:50] for n in window[2]) if window else {}
+    print(f"      names in the window: {sorted(seen)[:40]}")
 
 
 def private_pool_bytes():
@@ -2208,16 +2310,21 @@ def private_pool_bytes():
                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
-def device_loop_case(label, solve):
+def device_loop_case(label, solve, repeat_python=False, profiled=True):
     """One case of phase 14: ``solve(driver)`` with ``driver="while_loop"``
     and the Python driver (s per LM iteration: the graph's blocks'
-    replays and reads, the Python driver's LM loop); then each again under
-    the profiler (device busy and idle share over the LM loop, for the
-    graph from its first replay, where the case's hand kernels must
-    show). The two drivers must give the same bits, iterations and PCG
-    iterations, the graph at least one conditional node, and no private
-    pool may outlive the case's graphs (each graph's and its loop
-    bodies')."""
+    replays and reads, the Python driver's LM loop; peak device memory of
+    each); then, unless ``profiled`` is False, each again under the
+    profiler (device busy and idle share over the LM loop on the device's
+    clock, :func:`busy_window`; for the graph from its first replay; with
+    ``repeat_python`` the Python driver's profile is taken twice and both
+    shares kept). The two
+    drivers must give the same bits, iterations and PCG iterations, the
+    graph at least one conditional node and the case's hand kernels among
+    its kernel nodes (read from the graph), the profiler some device time
+    in the replay, every idle share lie in [0, 1], and no private pool
+    may outlive the case's graphs (each graph's and its loop bodies')."""
+    t_case = time.time()
     import dataclasses
 
     import torch
@@ -2228,41 +2335,44 @@ def device_loop_case(label, solve):
     pools0 = private_pool_bytes()
     loops = []
     device_loop.capture_hooks.append(loops.append)
+
+    last = {}
+
+    def profiled_run(driver):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve(driver)
+            torch.cuda.synchronize()
+        loops.clear()
+        last[driver] = prof
+        return busy_window(prof, driver == "while_loop")
+
     try:
-        runs = {}
+        runs, peak = {}, {}
         # the graph first: its warm-up step leaves no first-call work in
         # the Python driver's loop
         for driver in ("while_loop", "python"):
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
             res = solve(driver)
             torch.cuda.synchronize()
             runs[driver] = (res, time.time() - t0)
+            peak[driver] = torch.cuda.max_memory_allocated() / 2**30
         # read the graph before its loop goes: each held loop holds its
         # graph's memory
         loop = loops.pop()
         nodes = loop.while_nodes()
+        graph_kernels = loop.kernel_names()
         block_s = sum(loop.block_seconds)
         took = dict(warmup_s=loop.warmup_seconds,
                     capture_instantiate_s=loop.capture_seconds,
                     blocks=len(loop.block_seconds))
         del loop
-        # the profiler may drop kernels of a long run: up to three tries
-        # until the replay shows every hand kernel of the case
-        profiled = {}
-        for _ in range(3):
-            for driver in ("python", "while_loop"):
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    solve(driver)
-                    torch.cuda.synchronize()
-                loops.clear()
-                profiled[driver] = busy_window(prof, driver == "while_loop")
-            names = (profiled["while_loop"] or (0, 0, set()))[2]
-            missing = [h for h in REPLAY_KERNELS[label]
-                       if not any(h in n for n in names)]
-            if not missing:
-                break
+        profiles = {driver: profiled_run(driver) for driver in
+                    (("python", "while_loop") if profiled else ())}
+        if repeat_python:
+            profiles["python again"] = profiled_run("python")
     finally:
         device_loop.capture_hooks.remove(loops.append)
     py, wl = runs["python"][0], runs["while_loop"][0]
@@ -2282,19 +2392,26 @@ def device_loop_case(label, solve):
         cg_iterations={"python": py.cg_iterations,
                        "while_loop": wl.cg_iterations},
         s_per_iteration={"python": py.seconds / n, "while_loop": block_s / n},
-        private_pools_kept_mib=kept_mib,
+        peak_gib=peak, private_pools_kept_mib=kept_mib,
         conditional_nodes=nodes, **took)
-    for driver, got in profiled.items():
+    for driver, got in profiles.items():
         if got is None:
             raise AssertionError(f"{label}, {driver}: the profile holds no "
                                  f"LM loop (or no graph launch in it)")
-        busy, window, names, gaps = got
+        busy, window, _, gaps = got
         rec[driver] = dict(device_busy_ms=busy, window_ms=window,
-                           idle_share=1 - busy / window if window else None,
+                           idle_share=idle_share(busy, window),
                            largest_gaps=gaps)
-    rec["replay_kernels"] = sorted(
-        n for n in profiled["while_loop"][2]
-        if any(h in n for h in REPLAY_KERNELS[label]))
+    # the hand kernels of the case among the graph's kernel nodes (read
+    # from the graph: the profiler may name a replay's kernels after those
+    # of an earlier graph of the process, PERF.md section 7)
+    missing = [h for h in REPLAY_KERNELS[label]
+               if not any(h in n for n in graph_kernels)]
+    rec["replay_kernels"] = {
+        h: sum(h in n for n in graph_kernels) for h in REPLAY_KERNELS[label]}
+    rec["profiler_names_hand_kernels"] = profiled and not [
+        h for h in REPLAY_KERNELS[label]
+        if not any(h in n for n in profiles["while_loop"][2])]
     print(f"  {label}: {py.iterations} iterations (status {py.status}), "
           f"cost {py.cost:.12e}, same bits as the Python driver: {same}; "
           f"s/iteration python {rec['s_per_iteration']['python']:.6f}, "
@@ -2302,16 +2419,23 @@ def device_loop_case(label, solve):
           f"({rec['blocks']} blocks, replay and read); warm-up "
           f"{took['warmup_s']:.3f} s, capture + instantiate "
           f"{took['capture_instantiate_s']:.3f} s; conditional nodes (top, "
-          f"bodies) {nodes}; PCG {rec['cg_iterations']}; private pools "
-          f"kept after the case {kept_mib:.1f} MiB")
-    for driver in ("python", "while_loop"):
+          f"bodies) {nodes}; hand kernel nodes {rec['replay_kernels']} "
+          f"(the profiler names them too: "
+          f"{rec['profiler_names_hand_kernels']}); PCG "
+          f"{rec['cg_iterations']}; peak memory "
+          f"python {peak['python']:.2f} GiB, while_loop "
+          f"{peak['while_loop']:.2f} GiB; private pools kept after the "
+          f"case {kept_mib:.1f} MiB")
+    for driver in ("python", "python again", "while_loop"):
+        if driver not in rec:
+            continue
         r = rec[driver]
         print(f"    {driver}, profiled LM loop: device busy "
               f"{r['device_busy_ms']:.3f} of {r['window_ms']:.3f} ms, idle "
               f"share {r['idle_share']:.4f}; largest gaps "
               f"{r['largest_gaps']}")
-    if missing:
-        print(f"    replay kernels seen: {sorted(profiled['while_loop'][2])}")
+    if profiled and not rec["profiler_names_hand_kernels"]:
+        replay_report(last["while_loop"], REPLAY_KERNELS[label])
     if not same:
         raise AssertionError(f"{label}: driver='while_loop' did not give "
                              f"the Python driver's bits")
@@ -2320,35 +2444,209 @@ def device_loop_case(label, solve):
                              f"{rec['cg_iterations']}")
     if not nodes or nodes[0] < 1:
         raise AssertionError(f"{label}: the graph holds no conditional node")
-    if not rec["while_loop"]["device_busy_ms"]:
+    if profiled and not rec["while_loop"]["device_busy_ms"]:
         raise AssertionError(f"{label}: the profiler saw no replay kernel")
     if missing:
-        raise AssertionError(f"{label}: no kernel of the replay is named "
-                             f"{missing}")
+        raise AssertionError(f"{label}: no kernel node of the graph is "
+                             f"named {missing}")
     if kept_mib > 0:
         raise AssertionError(f"{label}: {kept_mib:.1f} MiB of private pools "
                              f"outlived the case's graphs")
+    rec["case_seconds"] = time.time() - t_case
+    print(f"    the case took {rec['case_seconds']:.1f} s")
     return rec
+
+
+def fused_step_split(label, data):
+    """Phase 14 (e): one classic and one fused-trial LM step (float64, the
+    pipeline's full-BA free mask) on the route ``solve_ba_grid`` takes
+    for the scene (banded when the band prep finds locality, else the
+    monolithic kernels with the solve's plane stack). Each is timed on
+    the host around the synchronised step (median of 3) and split by the
+    profiler's device time (:func:`step_profile`) by kernel name
+    (``STEP_PARTS``): the linearize, the cost pass, the select of the next
+    system, the Schur solve's library products and factorisation, and the
+    rest (the step's torch ops).
+    Prints the bytes one fused iteration's select moves (it reads the
+    trial system and the stored one and writes the stored one) and their
+    time at 3.35 TB/s. The fused step writes its select into its state's
+    system, so the timed runs leave that system at another iterate than
+    the state's points (their time, not their values, is what is kept).
+    Returns the record."""
+    import dataclasses
+
+    import torch
+
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.scripts import HBM_BYTES_PER_S
+    from deeparc_tpu_torch.solver.rig_band import band_grid
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_from_scene,
+        init_grid_state,
+        init_grid_state_fused,
+        make_grid_step,
+        mono_stack,
+    )
+
+    scene = from_deeparc(data, dtype=torch.float64, device="cuda")
+    grid, free = grid_from_scene(scene), freeze_masks(scene)
+    params, pf = scene.params, free.points
+    cam_free = flatten_camera(free)
+    prep = band_grid(grid)
+    if prep is not None:
+        perm = prep.perm.long()
+        grid = prep.grid
+        params = dataclasses.replace(params, points=params.points[perm])
+        pf = pf[perm]
+        R = params.ext_rot.shape[0]
+        bws, bbs = prep.widths
+        kw = dict(band_widths=bws, band_blocks=bbs)
+        fkw = dict(kw, band_intr_frozen=not bool(torch.any(
+            cam_free[6 * R:] != 0)))
+    else:
+        kw = fkw = dict(pxm=mono_stack(grid, (256, 1024)))
+    opts = SolverOptions()
+    rec = {}
+    for name in ("classic", "fused"):
+        fused = name == "fused"
+        step = make_grid_step(opts, params, fuse_trial=fused, **fkw)
+        state = (init_grid_state_fused(params, grid, opts, cam_free, pf,
+                                       **fkw) if fused
+                 else init_grid_state(params, grid, opts, **kw))
+        run = lambda: step(state, grid, cam_free, pf)
+        wall = wall_ms(run, 3)
+        times, busy, window = step_profile(run)
+        split = dict(linearize=0.0, cost=0.0, select=0.0, schur=0.0,
+                     rest=0.0)
+        for kname, ms in times.items():
+            part = next((p for p, keys in STEP_PARTS if any(
+                key in kname for key in keys)), "rest")
+            split[part] += ms
+        rec[name] = dict(wall_ms=wall, device_ms=busy, window_ms=window,
+                         idle_share=idle_share(busy, window), **split)
+        if fused:
+            sys_bytes = sum(t.numel() * t.element_size() for t in state.sys)
+            rec["select_bytes"] = 3 * sys_bytes
+            rec["select_bound_ms"] = 3 * sys_bytes / HBM_BYTES_PER_S * 1e3
+            rec["E_shape"] = list(state.sys.E.shape)
+        print(f"    one {name} step, {label}: wall {wall:.3f} ms (median of "
+              f"3); device ms by part: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in split.items())
+              + f"; device busy {busy:.3f} of {window:.3f} ms of the "
+              f"profiled step, idle share {rec[name]['idle_share']:.4f}")
+        del step, state, run
+        torch.cuda.empty_cache()
+    print(f"    the fused select moves {rec['select_bytes'] / 1e9:.3f} GB "
+          f"(E {rec['E_shape']}: the trial and stored systems read, the "
+          f"stored one written), {rec['select_bound_ms']:.3f} ms at 3.35 "
+          f"TB/s")
+    return rec
+
+
+def nccl_capture_probe():
+    """Phase 14 (f), first: does an NCCL ``all_reduce`` (the sharded steps'
+    ``Reducer.sum``) capture inside a conditional WHILE node's body? Five
+    passes of x <- (sum(2 x)) / 2 + 1 over the current group (one rank
+    here: the communicator made by an eager call first), captured as one
+    graph and replayed once; the body's node types (``CUgraphNodeType``:
+    0 kernel, 1 memcpy, 2 memset, 13 conditional) and the result. Raises
+    if the graph does not instantiate or gives another result."""
+    import torch
+
+    from deeparc_tpu_torch.kernels import graph_loop
+    from deeparc_tpu_torch.parallel.multihost import Reducer, start_group
+
+    start_group("cuda")
+    red = Reducer()
+    x = torch.arange(4, dtype=torch.float64, device="cuda")
+    k = torch.zeros((), dtype=torch.int64, device="cuda")
+    red.sum(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+
+    def body():
+        x.copy_(red.sum(x * 2.0) * 0.5 + 1.0)
+        k.add_(1)
+
+    with graph_loop.capture(k.device) as rec:
+        try:
+            with torch.cuda.graph(graph):
+                graph_loop.while_loop(lambda: k < 5, body)
+            kinds = [graph_loop.node_types(b) for b in rec.bodies]
+            graph.instantiate()
+            graph.replay()
+            torch.cuda.synchronize()
+        finally:
+            rec.release()
+    got = x.tolist()
+    print(f"    NCCL all_reduce inside a WHILE body ({red.size} rank, "
+          f"{red.backend}): captured and instantiated; body node types "
+          f"{kinds}; after the replay k = {int(k)}, x = {got}")
+    if int(k) != 5 or got != [5.0, 6.0, 7.0, 8.0]:
+        raise AssertionError("the captured all_reduce loop gave another "
+                             "result")
+    return dict(body_node_types=kinds, k=int(k), x=got)
+
+
+def sharded_result(res, template):
+    """``solve_ba_sharded``'s result as a ``BAResult`` (points of every
+    shard, the camera tables of ``template``'s layout)."""
+    import dataclasses
+
+    from deeparc_tpu_torch.residuals.reprojection import unflatten_camera
+    from deeparc_tpu_torch.solver.ba import BAResult
+
+    params = dataclasses.replace(unflatten_camera(res.cam_vec, template),
+                                 points=res.points.reshape(-1, 3))
+    return BAResult(params=params, cost=float(res.cost),
+                    iterations=res.iterations, status=res.status,
+                    seconds=res.seconds)
 
 
 def phase_device_loop(args, flagship, uniform=None, tile_layout_=None):
     """Phase 14: ``driver="while_loop"`` on the card at full size, against
-    ``driver="python"``: ``solve_ba_grid`` on the banded occlusion
-    flagship and on the monolithic uniform-random rig, ``solve_tiles_
-    prepared`` on the windowed BAL scene (ITERATIVE_SCHUR, 30 PCG at the
-    pipeline's tolerance) and ``solve_ba`` (DENSE_SCHUR, 3 iterations) on
-    the flagship (:func:`device_loop_case`); returns the records."""
+    ``driver="python"`` (:func:`device_loop_case`): ``solve_ba_grid`` on
+    the banded occlusion flagship and on the monolithic uniform-random
+    rig, each with the classic step and then (e) with the fused-trial step
+    (``fuse_trial=True``, not profiled: the same iterations and the
+    classic final cost within ``FUSED_COST_RTOL``, and one step of each
+    split, :func:`fused_step_split`); ``solve_tiles_prepared`` on the windowed
+    BAL scene (ITERATIVE_SCHUR, 30 PCG at the pipeline's tolerance);
+    ``solve_ba`` (DENSE_SCHUR, 3 iterations) on the flagship, its Python
+    driver profiled twice; then (f) the sharded solves at one NCCL rank
+    (in a one-rank group that :func:`nccl_capture_probe` starts, first
+    checking that an ``all_reduce`` captures inside a WHILE body;
+    destroyed after):
+    ``solve_ba_grid_sharded`` on the flagship, ``solve_ba_sharded`` on the
+    flagship (DENSE_SCHUR, one block) and ``solve_ba_tiles_sharded`` on
+    phase 13d's scene (``locality=False``, 30 PCG). Returns the
+    records."""
     import torch
+    import torch.distributed as dist
 
     from deeparc_tpu_torch.config import SolverOptions
     from deeparc_tpu_torch.io import make_bal_windowed_host
+    from deeparc_tpu_torch.parallel.sharded_ba import (
+        shard_scene,
+        solve_ba_sharded,
+    )
+    from deeparc_tpu_torch.parallel.sharded_grid import solve_ba_grid_sharded
+    from deeparc_tpu_torch.parallel.sharded_tiles import (
+        solve_ba_tiles_sharded,
+    )
+    from deeparc_tpu_torch.residuals.reprojection import flatten_camera
     from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
     from deeparc_tpu_torch.solver.ba import solve_ba
     from deeparc_tpu_torch.solver.rig_grid import (
         grid_from_scene,
         solve_ba_grid,
     )
-    from deeparc_tpu_torch.solver.tiles import solve_tiles_prepared
+    from deeparc_tpu_torch.solver.tiles import (
+        solve_tiles_prepared,
+        tiles_from_scene,
+    )
 
     print("[phase 14] the on-device LM driver (driver='while_loop': one "
           "CUDA graph a solve, WHILE nodes for the LM block and PCG), "
@@ -2366,13 +2664,29 @@ def phase_device_loop(args, flagship, uniform=None, tile_layout_=None):
         scene = from_deeparc(data, dtype=torch.float64, device="cuda")
         grid, free = grid_from_scene(scene), freeze_masks(scene)
         reuse: dict = {}
-        rec[label] = device_loop_case(label, lambda driver: solve_ba_grid(
-            scene.params, grid, free, opts, driver=driver,
-            while_block=block, band_reuse=reuse))
-        if (reuse["prep"] is None) != (label != "banded flagship"):
-            raise AssertionError(f"{label}: the band prep took the other "
-                                 f"route")
+        for fused in (False, True):
+            name = f"{label}, fused" if fused else label
+            # the fused solves' steps are split below, not profiled here
+            rec[name] = device_loop_case(name, lambda driver: solve_ba_grid(
+                scene.params, grid, free, opts, driver=driver,
+                while_block=block, band_reuse=reuse, fuse_trial=fused),
+                profiled=not fused)
+            if (reuse["prep"] is None) != (label != "banded flagship"):
+                raise AssertionError(f"{label}: the band prep took the "
+                                     f"other route")
+        classic, fused = rec[label], rec[f"{label}, fused"]
+        rel = abs(fused["cost"] - classic["cost"]) / abs(classic["cost"])
+        fused["rel_cost_to_classic"] = rel
+        print(f"  {label}: fused-trial against classic: {fused['iterations']}"
+              f" and {classic['iterations']} iterations, relative cost "
+              f"difference {rel:.3e} (tol {FUSED_COST_RTOL:g})")
+        if (fused["iterations"] != classic["iterations"]
+                or not rel <= FUSED_COST_RTOL):
+            raise AssertionError(f"{label}: the fused-trial solve strays "
+                                 f"from the classic one")
         del scene, grid, free, reuse
+        torch.cuda.empty_cache()
+        fused["step_split"] = fused_step_split(label, data)
         torch.cuda.empty_cache()
     if tile_layout_ is None:
         tile_layout_ = tile_layout(make_bal_windowed_host(
@@ -2395,8 +2709,45 @@ def phase_device_loop(args, flagship, uniform=None, tile_layout_=None):
                           linear_solver="dense_schur")
     rec["indexed flagship"] = device_loop_case(
         "indexed flagship", lambda driver: solve_ba(
-            scene.params, scene.index, free, iopts, driver=driver))
-    del scene, free
+            scene.params, scene.index, free, iopts, driver=driver),
+        repeat_python=True)
+    torch.cuda.empty_cache()
+
+    print("  (f) the sharded solves at one NCCL rank, both drivers (on the "
+          "card each rank's block is one CUDA graph with the all_reduce "
+          "calls in its WHILE bodies)")
+    rec["nccl_capture_probe"] = nccl_capture_probe()
+    grid = grid_from_scene(scene)
+    iters, block = DEVICE_LOOP_ITERATIONS["grid"]
+    rec["grid-sharded"] = device_loop_case(
+        "grid-sharded", lambda driver: solve_ba_grid_sharded(
+            scene.params, grid, free, opts, driver=driver,
+            while_block=block))
+    print(f"    process group: {dist.get_world_size()} rank, "
+          f"{dist.get_backend()}")
+    del grid
+    torch.cuda.empty_cache()
+    sharded = shard_scene(scene, free, 1)
+    rec["sharded indexed"] = device_loop_case(
+        "sharded indexed", lambda driver: sharded_result(solve_ba_sharded(
+            sharded, iopts, device="cuda", driver=driver), scene.params))
+    del scene, free, sharded
+    torch.cuda.empty_cache()
+    tscene = from_deeparc(make_bal_windowed_host(
+        n_points=args.global_points, seed=1, **TILE_SCENE),
+        dtype=torch.float64, device="cuda")
+    tfree = freeze_masks(tscene)
+    tiles, params_t, free_t = tiles_from_scene(tscene, tfree, locality=False)
+    iters, block = DEVICE_LOOP_ITERATIONS["sharded tiles"]
+    sopts = SolverOptions(max_iterations=iters, **run_on,
+                          linear_solver="iterative_schur",
+                          cg_max_iterations=30)
+    rec["tiles-sharded"] = device_loop_case(
+        "tiles-sharded", lambda driver: solve_ba_tiles_sharded(
+            params_t, tiles, free_t, flatten_camera(tfree), sopts,
+            driver=driver, while_block=block))
+    del tscene, tfree, tiles, params_t, free_t
+    dist.destroy_process_group()
     torch.cuda.empty_cache()
     print(f"  phase 14 took {time.time() - t_phase:.1f} s")
     return rec

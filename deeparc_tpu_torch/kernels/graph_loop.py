@@ -193,11 +193,11 @@ def _capture_while(rec: LoopCapture, flag, cond, body) -> None:
 KERNEL_NODE, CONDITIONAL_NODE = 0, 13
 
 
-def node_types(graph: int) -> list:
-    """The types (``CUgraphNodeType`` values) of the nodes of ``graph``, a
-    ``cudaGraph_t`` as an int, read through the driver API: the runtime
-    that the kernel library links statically refuses graphs that
-    PyTorch's runtime made."""
+def _nodes(graph: int) -> list:
+    """The nodes (``CUgraphNode`` as ints) of ``graph``, a ``cudaGraph_t``
+    as an int, read through the driver API: the runtime that the kernel
+    library links statically refuses graphs that PyTorch's runtime
+    made."""
     cuda = ctypes.CDLL("libcuda.so.1")
     n = ctypes.c_size_t(0)
     rc = cuda.cuGraphGetNodes(ctypes.c_void_p(graph), None, ctypes.byref(n))
@@ -205,16 +205,64 @@ def node_types(graph: int) -> list:
     if not rc:
         rc = cuda.cuGraphGetNodes(ctypes.c_void_p(graph), nodes,
                                   ctypes.byref(n))
-    types = []
-    for i in range(n.value if not rc else 0):
-        t = ctypes.c_int()
-        rc = rc or cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
-                                           ctypes.byref(t))
-        types.append(t.value)
     if rc:
-        raise RuntimeError(f"cuGraphGetNodes/cuGraphNodeGetType: CUresult "
-                           f"{rc}")
+        raise RuntimeError(f"cuGraphGetNodes: CUresult {rc}")
+    return [nodes[i] for i in range(n.value)]
+
+
+def node_types(graph: int) -> list:
+    """The types (``CUgraphNodeType`` values) of the nodes of ``graph``, a
+    ``cudaGraph_t`` as an int (see :func:`_nodes`)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    types = []
+    for node in _nodes(graph):
+        t = ctypes.c_int()
+        rc = cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        if rc:
+            raise RuntimeError(f"cuGraphNodeGetType: CUresult {rc}")
+        types.append(t.value)
     return types
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` (cuda.h)."""
+
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("gridDimX", "gridDimY", "gridDimZ",
+                                     "blockDimX", "blockDimY", "blockDimZ",
+                                     "sharedMemBytes")] + [
+        ("kernelParams", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def kernel_names(graph: int) -> list:
+    """The (mangled) function names of the kernel nodes of ``graph``, a
+    ``cudaGraph_t`` as an int: what a replay of it launches, read from the
+    graph itself through the driver API."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    names = []
+    for node in _nodes(graph):
+        kind = ctypes.c_int()
+        rc = cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind))
+        if rc:
+            raise RuntimeError(f"cuGraphNodeGetType: CUresult {rc}")
+        if kind.value != KERNEL_NODE:
+            continue
+        params = _KernelNodeParams()
+        rc = cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if not rc and params.func:
+            rc = cuda.cuFuncGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(params.func))
+        elif not rc:
+            rc = cuda.cuKernelGetName(ctypes.byref(name),
+                                      ctypes.c_void_p(params.kern))
+        if rc:
+            raise RuntimeError(f"a kernel node's name: CUresult {rc}")
+        names.append(name.value.decode())
+    return names
 
 
 def count_conditional(graph: int) -> int:

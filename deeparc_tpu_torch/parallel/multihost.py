@@ -299,14 +299,17 @@ def solve_ba_grid_multihost(params, grid, free, options=None, mesh=None,
                             chunk_size: int = 8192,
                             checkpoint_path: str | None = None,
                             checkpoint_every: int = 10, resume: bool = False,
-                            logger=None):
+                            logger=None, driver: str = "python",
+                            while_block: int = 10):
     """Grid-engine LM solve sharded over a (hosts, chips) mesh.
 
     The math of :func:`sharded_grid.solve_ba_grid_sharded`, to which this
     delegates, with the camera system's sums over the ("host", "chip")
     PAIR, i.e. over every rank. Its guarantees carry over: the wall-clock
     cap ``options.max_seconds`` (``src/sfm.cc:71``), checkpoints written by
-    rank 0, one log line per iteration."""
+    rank 0, one log line per iteration (``driver="python"``) or per block
+    of ``while_block`` iterations (``driver="while_loop"``, as the
+    reference runs it)."""
     from deeparc_tpu_torch.config import SolverOptions
     from deeparc_tpu_torch.parallel.sharded_grid import solve_ba_grid_sharded
 
@@ -317,4 +320,5 @@ def solve_ba_grid_multihost(params, grid, free, options=None, mesh=None,
     return solve_ba_grid_sharded(
         params, grid, free, options, mesh=mesh, axis=data_axes(),
         chunk_size=chunk_size, checkpoint_path=checkpoint_path,
-        checkpoint_every=checkpoint_every, resume=resume, logger=logger)
+        checkpoint_every=checkpoint_every, resume=resume, logger=logger,
+        driver=driver, while_block=while_block)

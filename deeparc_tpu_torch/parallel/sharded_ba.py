@@ -15,6 +15,7 @@ rank takes the same decisions.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +37,8 @@ from deeparc_tpu_torch.residuals.reprojection import (
 )
 from deeparc_tpu_torch.scene import BAParams, Scene, SceneIndex, _np
 from deeparc_tpu_torch.solver import trust_region as tr_mod
+from deeparc_tpu_torch.solver.ba import LM_LOOP, StepInfo
+from deeparc_tpu_torch.solver.device_loop import BlockLoop, run_blocks
 from deeparc_tpu_torch.solver.linalg import masked_spd_solve
 from deeparc_tpu_torch.solver.schur import (
     _augmented_point_blocks,
@@ -146,6 +149,20 @@ class ShardedResult(NamedTuple):
     cost: torch.Tensor
     iterations: int
     status: int
+    seconds: float = 0.0     # the LM loop's wall clock
+
+
+class ShardedState(NamedTuple):
+    """The loop-carried state of a rank: its shard's points, the
+    replicated camera vector, cost and trust region, ``k`` and
+    ``status``."""
+
+    points: torch.Tensor
+    cam_vec: torch.Tensor
+    cost: torch.Tensor
+    tr: tr_mod.TRState
+    k: int
+    status: torch.Tensor
 
 
 def _local(sharded: ShardedScene, s: int, dtype, device):
@@ -168,14 +185,24 @@ def _local(sharded: ShardedScene, s: int, dtype, device):
 
 def solve_ba_sharded(sharded: ShardedScene,
                      options: SolverOptions = SolverOptions(), mesh=None,
-                     axis=None, device="cuda",
-                     dtype=torch.float64) -> ShardedResult:
+                     axis=None, device="cuda", dtype=torch.float64,
+                     driver: str = "python") -> ShardedResult:
     """The LM loop with rank r of the group (``mesh`` / ``axis`` as
     ``multihost.reducer_for``; by default the whole world, a one-rank group
     started here if none is) solving shard r of ``sharded``, whose shard
     count must be the group's size. DENSE_SCHUR on the summed reduced
     camera system, at most ``options.max_iterations`` steps; the refined
-    points of every shard come back on every rank."""
+    points of every shard come back on every rank.
+
+    The step reads nothing on the host (its ``status`` is a device
+    tensor). ``driver="python"`` reads the status once an iteration;
+    ``driver="while_loop"`` runs the whole solve as one block with no host
+    read until it ends (``solver/device_loop.py``; on the card with NCCL
+    one CUDA graph, the step's ``all_reduce`` calls inside its WHILE
+    node's body; on the CPU, gloo, the same program eagerly), as the
+    reference runs it in one ``lax.while_loop``."""
+    if driver not in ("python", "while_loop"):
+        raise ValueError(f"unknown driver {driver!r}")
     device = check_device(device)
     red = reducer_for(device, mesh, axis)
     if sharded.points.shape[0] != red.size:
@@ -195,7 +222,9 @@ def solve_ba_sharded(sharded: ShardedScene,
     def total_cost(points, cam_vec):
         return red.sum(cost_fn(params_of(points, cam_vec), index))
 
-    def step(points, cam_vec, cost, tr):
+    def step(state: ShardedState):
+        points, cam_vec, cost, tr = (state.points, state.cam_vec, state.cost,
+                                     state.tr)
         blocks = jacobian_blocks_flat(params_of(points, cam_vec), index)
         sys = build_system(blocks.r, blocks.jp, blocks.jc, index, n_local,
                            n_ext_rows, n_intr, cam_free, point_free, maps)
@@ -236,20 +265,40 @@ def solve_ba_sharded(sharded: ShardedScene,
                          * (x_norm + options.parameter_tolerance))
         gtol = grad_max <= options.gradient_tolerance
         radius_min = tr_next.radius <= options.min_radius
-        status = (3 if bool(gtol) else 2 if bool(ftol) else 4 if bool(ptol)
-                  else 5 if bool(radius_min) else 0)
-        return (torch.where(accept, new_points, points),
-                torch.where(accept, new_cam, cam_vec),
-                torch.where(accept, new_cost, cost), tr_next, status)
+        zero = torch.zeros((), dtype=torch.int64, device=device)
+        status = torch.where(gtol, 3, torch.where(ftol, 2, torch.where(
+            ptol, 4, torch.where(radius_min, 5, zero))))
+        cost_next = torch.where(accept, new_cost, cost)
+        info = StepInfo(cost=cost_next, cost_change=cost_change,
+                        grad_max=grad_max, step_norm=step_norm,
+                        radius=tr.radius, rho=rho, accepted=accept)
+        return ShardedState(
+            points=torch.where(accept, new_points, points),
+            cam_vec=torch.where(accept, new_cam, cam_vec), cost=cost_next,
+            tr=tr_next, k=state.k + 1, status=status), info
 
     points, cam_vec = cam_template.points, flatten_camera(cam_template)
-    cost = total_cost(points, cam_vec)
-    tr = tr_mod.init_tr(options.initial_radius, dtype, device)
-    k = status = 0
-    while status == 0 and k < options.max_iterations:
-        points, cam_vec, cost, tr, status = step(points, cam_vec, cost, tr)
-        k += 1
-    gathered = red.gather_rows(points).reshape(
-        (red.size,) + tuple(points.shape))
-    return ShardedResult(points=gathered, cam_vec=cam_vec, cost=cost,
-                         iterations=k, status=status)
+    state = ShardedState(
+        points=points, cam_vec=cam_vec, cost=total_cost(points, cam_vec),
+        tr=tr_mod.init_tr(options.initial_radius, dtype, device), k=0,
+        status=torch.zeros((), dtype=torch.int64, device=device))
+    if driver == "while_loop":
+        loop = BlockLoop(step, ())
+        loop.load(state)
+        # one block, the whole solve
+        k, status, _, seconds = run_blocks(
+            loop, 0, options.max_iterations, max(options.max_iterations, 1),
+            float("inf"))
+        state = loop.state
+    else:
+        k, t0 = 0, time.time()
+        with torch.profiler.record_function(LM_LOOP):
+            while int(state.status) == 0 and k < options.max_iterations:
+                state, _ = step(state)
+                k += 1
+        status, seconds = int(state.status), time.time() - t0
+    gathered = red.gather_rows(state.points).reshape(
+        (red.size,) + tuple(state.points.shape))
+    return ShardedResult(points=gathered, cam_vec=state.cam_vec.clone(),
+                         cost=state.cost.clone(), iterations=k,
+                         status=status, seconds=seconds)

@@ -1,7 +1,8 @@
 """Measurement entry points of the port, and what they share with
 ``chip_smoke.py``: the card's published peaks, the operations a kernel does
-per slot, the bound of a piece of work, CUDA-event timing and the card's
-``nvidia-smi`` line.
+per slot, the bound of a piece of work, CUDA-event timing, the device's
+idle share over a window of its own clock, and the card's ``nvidia-smi``
+line.
 
     python -m deeparc_tpu_torch.scripts.vpu_roofline            # the card
     python -m deeparc_tpu_torch.scripts.microbench_sweep_payload
@@ -40,6 +41,68 @@ def bound(nbytes_moved, ops, dtype_name):
     t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def busy_in(intervals, lo: float, hi: float) -> float:
+    """The time of the window [lo, hi] that the (start, end) intervals
+    cover: their union, each clipped to the window. The intervals and the
+    window must come from one clock (the device's)."""
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in intervals):
+        if b <= a:
+            continue
+        if cur_hi is not None and a <= cur_hi:
+            cur_hi = max(cur_hi, b)
+            continue
+        if cur_hi is not None:
+            busy += cur_hi - cur_lo
+        cur_lo, cur_hi = a, b
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    return busy
+
+
+def idle_share(busy: float, window: float) -> float:
+    """The device's idle share 1 - busy / window of a window it was busy
+    ``busy`` of; a share outside [0, 1] (past float rounding) means the two
+    were not measured over one window on one clock, and raises."""
+    if not window > 0:
+        raise ValueError(f"an idle share over an empty window ({window})")
+    share = 1.0 - busy / window
+    if not -1e-9 <= share <= 1.0:
+        raise ValueError(f"idle share {share} outside [0, 1]: device busy "
+                         f"{busy} of a {window} window")
+    return max(share, 0.0)
+
+
+def loop_window(loop, runtime, device, first_launch=None):
+    """The device-clock window of a loop that the host ran over ``loop`` =
+    (start, end) on the host's clock: ``runtime`` holds the host's runtime
+    calls (host start, correlation id, name), ``device`` the device's
+    activities (start, end, correlation id) on the device's clock. The
+    calls made inside the loop select, by correlation id, the activities
+    they launched; the window runs from the first of those to start to
+    the last to end. With ``first_launch`` (e.g. "cudaGraphLaunch") it
+    starts instead with the first activity after the work that the loop's
+    calls before its first such call launched (a graph's warm-up step),
+    so it needs no correlation id of a graph's own kernels. None when no
+    call of the loop launched an activity."""
+    inside = [(t, cid, name) for t, cid, name in runtime
+              if loop[0] <= t <= loop[1]]
+    ids = {cid for _, cid, _ in inside}
+    ends = [b for _, b, cid in device if cid in ids]
+    if not ends:
+        return None
+    hi = max(ends)
+    if first_launch is None:
+        return min(a for a, _, cid in device if cid in ids), hi
+    launches = [t for t, _, name in inside if name == first_launch]
+    if not launches:
+        return None
+    before = {cid for t, cid, _ in inside if t < min(launches)}
+    after = max((b for _, b, cid in device if cid in before), default=None)
+    starts = [a for a, _, _ in device if after is None or a >= after]
+    return (min(starts), hi) if starts else None
 
 
 def nvidia_smi() -> str:

@@ -24,6 +24,12 @@ fallback on the card: the driver captures or raises.
 
 On the CPU (the plain version) the same program runs eagerly, its loops
 in their plain form (one flag read a pass).
+
+The sharded engines run a block on every rank of their process group:
+the step's collectives sit inside the block (on the card, NCCL's inside
+the WHILE nodes' bodies), every rank takes the same decisions from the
+summed values, and between blocks :func:`run_blocks` takes rank 0's
+wall-clock decision (``agree``).
 """
 
 from __future__ import annotations
@@ -213,6 +219,14 @@ class BlockLoop:
         return [graph_loop.count_conditional(g) for g in
                 [self.graph.raw_cuda_graph()] + self.record.bodies]
 
+    def kernel_names(self) -> list:
+        """The function names of the captured graph's kernel nodes, its
+        loop bodies' included: what a replay launches."""
+        if self.graph is None:
+            return []
+        return [name for g in [self.graph.raw_cuda_graph()]
+                + self.record.bodies for name in graph_loop.kernel_names(g)]
+
     def run(self, k_stop: int) -> tuple:
         """One block: step while status == 0 and k < k_stop. Returns
         (k, status, PCG iterations since :meth:`load`), the block's one
@@ -231,19 +245,21 @@ class BlockLoop:
 
 
 def run_blocks(loop: BlockLoop, k: int, max_iterations: int,
-               while_block: int, max_seconds: float, on_block=None):
+               while_block: int, max_seconds: float, on_block=None,
+               agree=bool):
     """The host's loop between blocks, as the JAX package drives its
-    ``jit_block``: the wall-clock cap is tested before each block, blocks
-    end at ``min(k + while_block, max_iterations)``, and ``on_block(k)``
-    (the checkpoint) runs after each. Returns (k, status, PCG iterations,
-    seconds)."""
+    ``jit_block``: the wall-clock cap is tested before each block (through
+    ``agree``, which a sharded solve makes ``Reducer.agree``: rank 0's
+    clock decides for every rank), blocks end at ``min(k + while_block,
+    max_iterations)``, and ``on_block(k)`` (the checkpoint) runs after
+    each. Returns (k, status, PCG iterations, seconds)."""
     if while_block < 1:
         raise ValueError(f"while_block must be >= 1, not {while_block}")
     t0 = time.time()
     status, cg = 0, 0
     with torch.profiler.record_function(LM_LOOP):
         while status == 0 and k < max_iterations:
-            if time.time() - t0 > max_seconds:
+            if agree(time.time() - t0 > max_seconds):
                 break
             k, status, cg = loop.run(min(k + while_block, max_iterations))
             if on_block is not None:
@@ -252,25 +268,40 @@ def run_blocks(loop: BlockLoop, k: int, max_iterations: int,
 
 
 def solve_blocks(loop: BlockLoop, state, options, while_block: int,
-                 checkpoint_path: str | None, original):
+                 checkpoint_path: str | None, original, reducer=None,
+                 logger=None, result=None):
     """The ``driver="while_loop"`` solve of the grid and tile engines:
     :func:`run_blocks` from ``state`` with the solver-state checkpoint
     after each block (``original(state)`` gives the parameters in their
-    original point order); returns a ``BAResult`` whose parameters are
-    copies, not views of the loop's buffers."""
+    original point order); returns a ``BAResult`` whose parameters
+    (``result(state)``, by default ``original(state)``) are copies, not
+    views of the loop's buffers.
+
+    With ``reducer`` (a sharded solve; ``original`` then gathers the
+    points, a collective every rank runs): rank 0's clock decides the
+    wall-clock cap, and after each block rank 0 writes the checkpoint and
+    one ``lm_block`` line to ``logger`` (iteration, cost, radius,
+    status), as the JAX package's sharded solves do."""
     from deeparc_tpu_torch.solver.ba import BAResult, save_checkpoint
 
     loop.load(state)
+    lead = reducer is None or reducer.rank == 0
 
     def on_block(k):
+        st = loop.state
         if checkpoint_path:
-            st = loop.state
-            save_checkpoint(checkpoint_path, original(st), st.tr, k, st.cost)
+            params = original(st)
+            if lead:
+                save_checkpoint(checkpoint_path, params, st.tr, k, st.cost)
+        if reducer is not None and lead and logger is not None:
+            logger.log("lm_block", iter=k, cost=float(st.cost),
+                       radius=float(st.tr.radius), status=int(st.status))
 
     k, status, cg, seconds = run_blocks(
         loop, int(state.k), options.max_iterations, while_block,
-        options.max_seconds, on_block)
+        options.max_seconds, on_block,
+        bool if reducer is None else reducer.agree)
     st = loop.state
-    return BAResult(params=tree_map(torch.clone, original(st)),
+    return BAResult(params=tree_map(torch.clone, (result or original)(st)),
                     cost=float(st.cost), iterations=k, status=status,
                     seconds=seconds, cg_iterations=cg)

@@ -266,6 +266,20 @@ class GridState(NamedTuple):
     status: torch.Tensor
 
 
+class GridStateF(NamedTuple):
+    """The fused-trial step's state (``make_grid_step(fuse_trial=True)``):
+    it carries the linearized system at its iterate, and ``cost ==
+    sys.cost`` always (two buffers of one value)."""
+
+    points: torch.Tensor
+    cam_vec: torch.Tensor
+    cost: torch.Tensor
+    sys: GridSystem
+    tr: tr_mod.TRState
+    k: int
+    status: torch.Tensor
+
+
 def _params_from(cam_vec, points, template: BAParams) -> BAParams:
     return dataclasses.replace(unflatten_camera(cam_vec, template),
                                points=points)
@@ -284,7 +298,7 @@ def make_grid_step(options: SolverOptions, template: BAParams,
                    chunk_size: int = 8192, band_widths: tuple = (0, 0),
                    band_blocks: tuple = (0, 0),
                    band_intr_frozen: bool = False, pxm=None,
-                   reducer=None):
+                   reducer=None, fuse_trial: bool = False):
     """LM step over the grid layout:
     step(state, grid, cam_free, point_free) -> (state, info).
 
@@ -301,7 +315,16 @@ def make_grid_step(options: SolverOptions, template: BAParams,
     for; the grid must then carry the matching ``band`` tables. ``pxm`` is
     the monolithic kernels' plane stack of the grid the step is given
     (:func:`mono_stack`), handed to both kernels; without it each kernel
-    call builds its own."""
+    call builds its own.
+
+    ``fuse_trial=True`` returns the fused-trial step over a
+    :class:`GridStateF` (:func:`init_grid_state_fused`): the state carries
+    the system at its iterate and the trial evaluation is the linearize
+    kernel at the trial iterate, so an accepted step needs no cost pass
+    and a rejected one re-solves from the stored system. Its select of
+    the next system writes into ``state.sys``'s buffers (one pass over E
+    a step, and none more under the on-device driver, whose buffers they
+    are): the step consumes its state's system."""
     from deeparc_tpu_torch.kernels.rig_grid import (
         flat_of_native,
         native_of_flat,
@@ -334,15 +357,25 @@ def make_grid_step(options: SolverOptions, template: BAParams,
 
     allsum, allmax, allsum_sym = reductions(reducer)
 
-    def step(state: GridState, grid: GridIndex, cam_free, point_free):
-        params = _params_from(state.cam_vec, state.points, template)
+    def linearize_at(points, cam_vec, grid, cam_free, point_free):
+        """The system at (points, cam_vec), its camera side summed over
+        the ranks (its cost is the rank's own)."""
+        params = _params_from(cam_vec, points, template)
         sys = assemble_grid_system(
-            state.points, slot_params(params, grid), grid, cam_free,
-            point_free, chunk_size, options.loss, options.loss_scale,
+            points, slot_params(params, grid), grid, cam_free, point_free,
+            chunk_size, options.loss, options.loss_scale,
             band_width=band_widths[0], band_block=band_blocks[0],
             band_intr_frozen=band_intr_frozen, pxm=pxm)
         if reducer is not None:
             sys = sys._replace(g_c=allsum(sys.g_c), hcc=allsum_sym(sys.hcc))
+        return sys
+
+    def solve_and_decide(sys, state, cam_free, point_free, trial_eval):
+        """The LM core both steps share: solve the augmented system from
+        ``sys``, evaluate the trial iterate with ``trial_eval(points, cam)
+        -> (cost, payload)`` and take Ceres' accept and radius decision.
+        Returns (accept, trial points, trial camera, payload, the next
+        trust region, status, info)."""
         dtype = state.points.dtype
 
         # augmented per-point blocks, eliminated in closed form
@@ -378,11 +411,7 @@ def make_grid_step(options: SolverOptions, template: BAParams,
 
         new_points = state.points + dp
         new_cam = state.cam_vec + dc
-        trial = _params_from(new_cam, new_points, template)
-        new_cost = allsum(grid_cost(
-            new_points, slot_params(trial, grid), grid, loss=options.loss,
-            loss_scale=options.loss_scale, band_width=band_widths[1],
-            band_block=band_blocks[1], pxm=pxm))
+        new_cost, payload = trial_eval(new_points, new_cam)
 
         rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
         accept = (mcc > 0) & (rho > options.min_relative_decrease)
@@ -409,13 +438,49 @@ def make_grid_step(options: SolverOptions, template: BAParams,
                         cost_change=cost_change, grad_max=grad_max,
                         step_norm=step_norm, radius=state.tr.radius, rho=rho,
                         accepted=accept)
+        return accept, new_points, new_cam, payload, tr_next, status, info
+
+    def step(state: GridState, grid: GridIndex, cam_free, point_free):
+        sys = linearize_at(state.points, state.cam_vec, grid, cam_free,
+                           point_free)
+
+        def trial_cost(points, cam_vec):
+            trial = _params_from(cam_vec, points, template)
+            return allsum(grid_cost(
+                points, slot_params(trial, grid), grid, loss=options.loss,
+                loss_scale=options.loss_scale, band_width=band_widths[1],
+                band_block=band_blocks[1], pxm=pxm)), None
+
+        accept, new_points, new_cam, _, tr_next, status, info = \
+            solve_and_decide(sys, state, cam_free, point_free, trial_cost)
         next_state = GridState(
             points=torch.where(accept, new_points, state.points),
             cam_vec=torch.where(accept, new_cam, state.cam_vec),
             cost=info.cost, tr=tr_next, k=state.k + 1, status=status)
         return next_state, info
 
-    return step
+    def step_fused(state: GridStateF, grid: GridIndex, cam_free,
+                   point_free):
+        def trial_system(points, cam_vec):
+            sys = linearize_at(points, cam_vec, grid, cam_free, point_free)
+            cost = allsum(sys.cost)
+            return cost, sys._replace(cost=cost)
+
+        accept, new_points, new_cam, sys_trial, tr_next, status, info = \
+            solve_and_decide(state.sys, state, cam_free, point_free,
+                             trial_system)
+        # the next system: the trial's where the step was accepted, the
+        # stored one where not, written over the stored one
+        sys_next = GridSystem(*(torch.where(accept, t, s, out=s)
+                                for t, s in zip(sys_trial, state.sys)))
+        next_state = GridStateF(
+            points=torch.where(accept, new_points, state.points),
+            cam_vec=torch.where(accept, new_cam, state.cam_vec),
+            cost=info.cost, sys=sys_next, tr=tr_next, k=state.k + 1,
+            status=status)
+        return next_state, info
+
+    return step_fused if fuse_trial else step
 
 
 def init_grid_state(params: BAParams, grid: GridIndex, options: SolverOptions,
@@ -437,6 +502,34 @@ def init_grid_state(params: BAParams, grid: GridIndex, options: SolverOptions,
                      tr=tr_mod.init_tr(options.initial_radius, dtype, dev),
                      k=0, status=torch.zeros((), dtype=torch.int64,
                                              device=dev))
+
+
+def init_grid_state_fused(params: BAParams, grid: GridIndex,
+                          options: SolverOptions, cam_free, point_free,
+                          chunk_size: int = 8192,
+                          band_widths: tuple = (0, 0),
+                          band_blocks: tuple = (0, 0),
+                          band_intr_frozen: bool = False, pxm=None,
+                          reducer=None) -> GridStateF:
+    """The fused-trial step's start state: one linearize at the start
+    iterate, whose cost doubles as the start cost (the same kernel as
+    every trial evaluation); with ``reducer`` its camera side and cost are
+    summed over the ranks' rows, as in the step."""
+    dtype, dev = params.points.dtype, params.points.device
+    sys = assemble_grid_system(
+        params.points, slot_params(params, grid), grid, cam_free, point_free,
+        chunk_size, options.loss, options.loss_scale,
+        band_width=band_widths[0], band_block=band_blocks[0],
+        band_intr_frozen=band_intr_frozen, pxm=pxm)
+    if reducer is not None:
+        sys = sys._replace(g_c=reducer.sum(sys.g_c),
+                           hcc=reducer.sum_sym(sys.hcc),
+                           cost=reducer.sum(sys.cost))
+    return GridStateF(points=params.points, cam_vec=flatten_camera(params),
+                      cost=sys.cost.clone(), sys=sys,
+                      tr=tr_mod.init_tr(options.initial_radius, dtype, dev),
+                      k=0, status=torch.zeros((), dtype=torch.int64,
+                                              device=dev))
 
 
 def mono_stack(grid: GridIndex, block_nps: tuple) -> torch.Tensor:
@@ -465,7 +558,8 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
                   logger=None,
                   band_reuse: dict | None = None,
                   driver: str = "python",
-                  while_block: int = 10) -> BAResult:
+                  while_block: int = 10,
+                  fuse_trial: bool | None = None) -> BAResult:
     """LM to convergence on the grid engine.
 
     ``driver="python"``: one Python-driven step per iteration with
@@ -485,7 +579,17 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
     monolithic ones.
     ``band_reuse`` is a caller-held dict that carries the prep across the
     pipeline's solve/filter rounds (the filter only removes observations,
-    so the stored covers stay valid)."""
+    so the stored covers stay valid).
+
+    ``fuse_trial=True`` solves with the fused-trial step
+    (``make_grid_step(fuse_trial=True)``: the linearize at the trial
+    iterate is the trial evaluation, its system kept for the next step),
+    under either driver; a resume linearizes at the checkpoint's iterate.
+    ``None`` means False: the JAX package takes the fused step only off
+    its Pallas kernels, having measured on the TPU that the select of the
+    whole system costs more than the kernel cost pass it saves, and this
+    port runs only the kernel path. Its costs come from the linearize
+    kernel, so a fused solve is close to a classic one, not bit-equal."""
     from deeparc_tpu_torch.solver.rig_band import (
         band_grid,
         band_grid_update,
@@ -529,12 +633,21 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
 
     cam_free = flatten_camera(free)
     point_free = free.points
+    fuse_trial = bool(fuse_trial)
     step = make_grid_step(options, params, chunk_size,
                           band_widths=band_widths, band_blocks=band_blocks,
-                          band_intr_frozen=intr_frozen, pxm=pxm)
-    init = lambda p: init_grid_state(p, grid, options,
-                                     band_widths=band_widths,
-                                     band_blocks=band_blocks, pxm=pxm)
+                          band_intr_frozen=intr_frozen, pxm=pxm,
+                          fuse_trial=fuse_trial)
+
+    def init(p: BAParams):
+        if fuse_trial:
+            return init_grid_state_fused(
+                p, grid, options, cam_free, point_free, chunk_size,
+                band_widths=band_widths, band_blocks=band_blocks,
+                band_intr_frozen=intr_frozen, pxm=pxm)
+        return init_grid_state(p, grid, options, band_widths=band_widths,
+                               band_blocks=band_blocks, pxm=pxm)
+
     state = init(params)
     ck = load_checkpoint(checkpoint_path, resume, params)
     if ck is not None:

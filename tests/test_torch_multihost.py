@@ -3,7 +3,8 @@
 spawned CPU ranks that join it from torchrun's environment (two a host,
 so a (2 hosts, 2 chips) mesh), against the
 single-device solve of tests/test_multihost.py (cost rtol 1e-9, the same
-iterations); and ``dryrun_multichip`` on one rank."""
+iterations), its ``driver="while_loop"`` form against its Python driver
+(the same bits); and ``dryrun_multichip`` on one rank."""
 
 import numpy as np
 import pytest
@@ -50,6 +51,16 @@ def test_multihost_solve_matches_single_device(four_ranks):
     np.testing.assert_allclose(res["points"],
                                np.asarray(single.params.points), rtol=1e-7,
                                atol=1e-9)
+
+
+def test_multihost_while_loop_gives_the_python_drivers_bits(four_ranks):
+    """``driver="while_loop"`` (blocks of 3) passed through to the sharded
+    grid solve: the Python driver's bits on the (2, 2) mesh."""
+    got, _ = four_ranks
+    a, b = got["result_while_loop"], got["result"]
+    assert (a["iterations"], a["cost"]) == (b["iterations"], b["cost"])
+    for key in ("points", "cam_vec"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
 def test_dryrun_multichip_one_rank_on_cpu(capsys):

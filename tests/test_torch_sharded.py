@@ -4,7 +4,8 @@ groups of spawned CPU ranks, the kernels' plain versions) against
 
 Tolerances are tests/test_dist.py's: iterations equal, cost rtol 1e-9,
 points and camera vector rtol 1e-7 / atol 1e-9 (both sum the same terms
-over the shards in another order). The host-side layout helpers are the
+over the shards in another order). The port's ``driver="while_loop"``
+solves run the Python driver's step in blocks: the same bits. The host-side layout helpers are the
 same numpy arithmetic: equal element for element. The pipelines: the same
 filter rounds and points alive, final cost rtol 1e-9.
 
@@ -163,6 +164,31 @@ def test_sharded_grid_matches_port_monolithic(runs, n):
     _close(solves["grid"], solves["grid_single"])
 
 
+SOLVES = ("grid", "indexed", "tiles")
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("name", SOLVES)
+def test_sharded_while_loop_gives_the_python_drivers_bits(runs, n, name):
+    """``driver="while_loop"`` runs the same step as the Python driver, in
+    blocks (the indexed solve in one): the same bits on every rank count."""
+    solves = runs[0][n]["sharded_solves"]
+    got, want = solves[f"{name}_while_loop"], solves[name]
+    assert got["iterations"] == want["iterations"]
+    assert got["cost"] == want["cost"]
+    for key in ("points", "cam_vec"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("name", SOLVES)
+def test_sharded_while_loop_matches_jax(runs, n, name):
+    """Against the reference's sharded solves, which run only as
+    ``lax.while_loop`` blocks."""
+    got, want, _ = runs
+    _close(got[n]["sharded_solves"][f"{name}_while_loop"], want[n][name])
+
+
 @pytest.mark.parametrize("engine", ENGINES)
 def test_sharded_pipeline_matches_jax(runs, engine):
     got, want, tmp = runs
@@ -197,6 +223,33 @@ def test_sharded_operational_parity(runs, engine):
         os.path.getsize(work / f"{engine}_log_1.jsonl") == 0
     assert rec["b_iterations"] >= rec["a_iterations"]
     np.testing.assert_allclose(rec["b_cost"], rec["full_cost"], rtol=1e-12)
+
+
+@pytest.mark.parametrize("engine", ["grid", "tiles"])
+def test_sharded_while_loop_operational(runs, engine):
+    """``driver="while_loop"`` in blocks of 2: a zero wall-clock budget runs
+    no iteration on any rank; rank 0 alone writes the checkpoint after
+    every block and one ``lm_block`` log line a block (iteration, cost,
+    radius, status; no ``lm_iteration`` lines); a solve resumed from the
+    checkpoint of iteration 3 ends on the uninterrupted 5-iteration
+    solve's bits."""
+    got, _, tmp = runs
+    rec = got[2]["operational"][f"{engine}_while_loop"]
+    assert rec["zero_budget"] == 0
+    assert rec["wrote_checkpoint"]
+    assert (rec["a_iterations"], rec["b_iterations"]) == (3, 5)
+    assert [r["event"] for r in rec["log"]] == ["lm_block"] * 2
+    assert [r["iter"] for r in rec["log"]] == [2, 3]
+    assert all({"cost", "radius", "status"} <= set(r) for r in rec["log"])
+    work, tag = tmp / "work", f"{engine}_while_loop"
+    assert os.path.exists(work / f"{tag}_ck_0.npz")
+    assert not os.path.exists(work / f"{tag}_ck_1.npz")
+    assert not os.path.exists(work / f"{tag}_log_1.jsonl") or \
+        os.path.getsize(work / f"{tag}_log_1.jsonl") == 0
+    full, resumed = rec["full"], rec["b"]
+    assert resumed["cost"] == full["cost"]
+    for key in ("points", "cam_vec"):
+        np.testing.assert_array_equal(resumed[key], full[key], err_msg=key)
 
 
 def _layouts(n, helper):
@@ -298,6 +351,28 @@ def test_one_rank_sharded_step_gives_the_unsharded_bits(one_rank_group,
     for field in ("points", "cam_vec", "cost"):
         assert torch.equal(getattr(a, field), getattr(b, field)), field
     assert red.calls > 0 and red.bytes > 0
+
+
+def test_one_rank_sharded_indexed_while_loop(one_rank_group):
+    """``solve_ba_sharded(driver="while_loop")`` on a one-rank gloo group:
+    the whole solve as one block gives the Python driver's bits; an
+    unknown driver raises."""
+    from deeparc_tpu_torch.parallel.multihost import start_group
+    from deeparc_tpu_torch.parallel.sharded_ba import solve_ba_sharded
+
+    start_group("cpu")
+    scene, free = td._scene(td.rig_data())
+    sharded = shard_scene(scene, free, 1)
+    py = solve_ba_sharded(sharded, td.INDEXED_OPTS, device="cpu")
+    wl = solve_ba_sharded(sharded, td.INDEXED_OPTS, device="cpu",
+                          driver="while_loop")
+    assert (wl.iterations, wl.status) == (py.iterations, py.status)
+    assert 0 < py.iterations <= td.INDEXED_OPTS.max_iterations
+    for field in ("points", "cam_vec", "cost"):
+        assert torch.equal(getattr(wl, field), getattr(py, field)), field
+    with pytest.raises(ValueError, match="unknown driver"):
+        solve_ba_sharded(sharded, td.INDEXED_OPTS, device="cpu",
+                         driver="scan")
 
 
 def test_cli_grid_sharded_runs_on_one_rank(one_rank_group, tmp_path, capsys):

@@ -152,8 +152,9 @@ def _tile_layout(data):
 
 
 def sharded_solves(rank, n):
-    """The three sharded solves, and on rank 0 the single-device grid solve
-    on the monolithic route."""
+    """The three sharded solves under both drivers (``<name>_while_loop``:
+    ``driver="while_loop"``, grid and tiles in blocks of 3), and on rank 0
+    the single-device grid solve on the monolithic route."""
     from deeparc_tpu_torch.parallel.sharded_ba import (
         make_mesh,
         shard_scene,
@@ -172,20 +173,29 @@ def sharded_solves(rank, n):
     out = {}
     scene, free = _scene(rig_data())
     grid = grid_from_scene(scene)
+    blocks = dict(driver="while_loop", while_block=3)
     out["grid"] = result_of(solve_ba_grid_sharded(
         scene.params, grid, free, GRID_OPTS))
+    out["grid_while_loop"] = result_of(solve_ba_grid_sharded(
+        scene.params, grid, free, GRID_OPTS, **blocks))
     if rank == 0:
         out["grid_single"] = result_of(solve_ba_grid(
             scene.params, grid, free, GRID_OPTS, band_reuse={"prep": None}))
     # over a 1-D mesh, as the reference's tests call it
-    res = solve_ba_sharded(shard_scene(scene, free, n), INDEXED_OPTS,
-                           mesh=make_mesh(n, device="cpu"), device="cpu")
-    out["indexed"] = dict(points=np_of(res.points), cam_vec=np_of(res.cam_vec),
-                          cost=float(res.cost), iterations=res.iterations)
+    mesh = make_mesh(n, device="cpu")
+    for driver in ("python", "while_loop"):
+        res = solve_ba_sharded(shard_scene(scene, free, n), INDEXED_OPTS,
+                               mesh=mesh, device="cpu", driver=driver)
+        key = "indexed" if driver == "python" else "indexed_while_loop"
+        out[key] = dict(points=np_of(res.points), cam_vec=np_of(res.cam_vec),
+                        cost=float(res.cost), iterations=res.iterations)
     scene, free, tiles, params_t, free_t = _tile_layout(bal_data())
     out["tiles"] = result_of(solve_ba_tiles_sharded(
         params_t, tiles, free_t, flatten_camera(free), TILE_OPTS,
         chunk_obs=TILE_CHUNK))
+    out["tiles_while_loop"] = result_of(solve_ba_tiles_sharded(
+        params_t, tiles, free_t, flatten_camera(free), TILE_OPTS,
+        chunk_obs=TILE_CHUNK, **blocks))
     return out
 
 
@@ -235,8 +245,9 @@ def pipelines(rank, n, engines, out_dir):
 
 def operational(rank, n, work):
     """The wall-clock cap, checkpoints, resume and log lines of both sharded
-    solves; each rank passes its own checkpoint and log paths, so the files
-    show which rank wrote them."""
+    solves under both drivers (``<name>_while_loop``: blocks of 2); each
+    rank passes its own checkpoint and log paths, so the files show which
+    rank wrote them."""
     from deeparc_tpu_torch.parallel.sharded_grid import solve_ba_grid_sharded
     from deeparc_tpu_torch.parallel.sharded_tiles import (
         solve_ba_tiles_sharded,
@@ -279,7 +290,39 @@ def operational(rank, n, work):
                    full_cost=full.cost, log_events=[r["event"] for r in lines],
                    wrote_checkpoint=os.path.exists(ck))
         out[name] = rec
+        out[f"{name}_while_loop"] = _operational_blocks(
+            lambda o, **kw: solve(o, driver="while_loop", while_block=2,
+                                  **kw),
+            opts, work, f"{name}_while_loop", rank)
     return out
+
+
+def _operational_blocks(solve, opts, work, tag, rank):
+    """The while_loop driver's operational record: a zero budget, an
+    uninterrupted 5-iteration solve, a 3-iteration solve with a checkpoint
+    and a log (blocks end at 2 and 3) and its resume to 5."""
+    from deeparc_tpu_torch.utils.logging import JsonlLogger
+
+    # no convergence test ends these solves before their iterations
+    opts = dataclasses.replace(opts, function_tolerance=0.0,
+                               parameter_tolerance=0.0,
+                               gradient_tolerance=0.0)
+    ck = os.path.join(work, f"{tag}_ck_{rank}.npz")
+    log = os.path.join(work, f"{tag}_log_{rank}.jsonl")
+    rec = {"zero_budget": solve(dataclasses.replace(
+        opts, max_iterations=100, max_seconds=0.0)).iterations}
+    full = solve(dataclasses.replace(opts, max_iterations=5))
+    with JsonlLogger(log) as logger:
+        a = solve(dataclasses.replace(opts, max_iterations=3),
+                  checkpoint_path=ck, logger=logger)
+    b = solve(dataclasses.replace(opts, max_iterations=5),
+              checkpoint_path=ck, resume=True)
+    lines = [json.loads(line) for line in open(log)] \
+        if os.path.exists(log) else []
+    rec.update(a_iterations=a.iterations, b_iterations=b.iterations,
+               full=result_of(full), b=result_of(b), log=lines,
+               wrote_checkpoint=os.path.exists(ck))
+    return rec
 
 
 def several(rank, n, calls):
@@ -318,7 +361,11 @@ def multihost(rank, n):
     res = solve_ba_grid_multihost(scene.params, grid_from_scene(scene), free,
                                   SolverOptions(max_iterations=4), mesh=mesh,
                                   chunk_size=16)
+    blocks = solve_ba_grid_multihost(
+        scene.params, grid_from_scene(scene), free,
+        SolverOptions(max_iterations=4), mesh=mesh, chunk_size=16,
+        driver="while_loop", while_block=3)
     return dict(mesh_shape=tuple(mesh.mesh.shape),
                 dim_names=tuple(mesh.mesh_dim_names), rows=rows,
                 gathered=gather_global(local), table=table,
-                result=result_of(res))
+                result=result_of(res), result_while_loop=result_of(blocks))
