@@ -5,9 +5,10 @@
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
     python3 chip_smoke.py --cost-only        # the two cost wrappers alone
-    python3 chip_smoke.py --new-paths-only   # phases 10-14 alone
+    python3 chip_smoke.py --new-paths-only   # phases 10-15 alone
     python3 chip_smoke.py --new-paths-only 13   # the sharded engines alone
     python3 chip_smoke.py --new-paths-only 14   # the on-device LM driver
+    python3 chip_smoke.py --new-paths-only 15   # the generated scenes
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -138,8 +139,30 @@ Phases (any failure raises and exits non-zero):
      select's bytes; (f) ``solve_ba_grid_sharded`` and ``solve_ba_sharded``
      on the flagship and ``solve_ba_tiles_sharded`` on phase 13d's scene
      at one NCCL rank, both drivers, checked as above;
+  15. the device-side scene generators at ``bench.py``'s sizes, float64,
+     each called twice for the same bits, timed beside the host scenes of
+     that size that phases 3 and 6 build, with the layout's device bytes,
+     live observations and peak memory, and solved with the Python driver
+     (10 LM iterations, up to 20 where the RMSE needs them; the cost must
+     fall and the RMSE sit under twice the pixel noise): (a)
+     ``make_grid_rig_device`` (8 x 24 cells, 400k points, occlusion
+     rings 6), ``band_grid``, ``solve_ba_grid``: the banded kernels must
+     launch; (b) ``make_tile_rig_device`` (track 10), (c)
+     ``make_bal_tile_device`` (2000 cameras, 1M points, ``window=None``)
+     and (d) ``make_bal_heavytail_device`` (2000 cameras, 1M points, mean
+     track 8, buckets from W = 4 to at least 128), each through
+     ``solve_tiles_prepared`` (ITERATIVE_SCHUR, 30 PCG): (b) and (d)
+     launch ``tile_linearize_local`` and ``tile_sweep_local``, (c)
+     ``tile_sweep``, and (d)'s wide buckets run the torch paths (their
+     calls counted); (e) 15a's banded solve with ``nan_debugging`` on and
+     off (the same bits, s/iteration of each, no check while off), a
+     point on camera (0, 0)'s z = 0 plane in a small generated rig (on:
+     ``FloatingPointError`` naming an operator or kernel; off: a NaN
+     cost, silently), and ``trace_to`` around two iterations of the
+     monolithic grid solve, whose Chrome trace must name
+     ``linearize_grid``'s kernel;
 then one JSON line with the probes' entry points' results, one with
-phases 10-14's records, one with the nine kernels' records (errors,
+phases 10-15's records, one with the nine kernels' records (errors,
 milliseconds, the bound, launches on the main paths, on phase 13's
 sharded paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
@@ -281,18 +304,26 @@ def measure(records, name, dtype_name, kern, plain, labels, reps,
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(data, dtype, banded):
+def kernel_inputs(data, dtype, banded, timings=None):
     """Arguments for the four grid wrappers on the main path's shapes: the
-    pipeline's full-BA free mask (gauge extrinsic and intrinsics frozen)."""
+    pipeline's full-BA free mask (gauge extrinsic and intrinsics frozen).
+    With ``timings`` (a dict), ``timings["grid_s"]`` gets the seconds of
+    the upload and the densify (``from_deeparc`` + ``grid_from_scene``)."""
     import dataclasses
+
+    import torch
 
     from deeparc_tpu_torch.residuals.reprojection import flatten_camera
     from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
     from deeparc_tpu_torch.solver.rig_band import band_grid
     from deeparc_tpu_torch.solver.rig_grid import grid_from_scene, slot_params
 
+    t0 = time.time()
     scene = from_deeparc(data, dtype=dtype, device="cuda")
     grid = grid_from_scene(scene)
+    torch.cuda.synchronize()
+    if timings is not None:
+        timings["grid_s"] = time.time() - t0
     free = freeze_masks(scene)
     params = scene.params
     if banded:
@@ -348,7 +379,9 @@ def mono_route(grid, dtype):
 
 def phase_grid_kernels(args, records):
     """Phase 3; returns the rigs {occluded: data}: the occlusion rig of the
-    main path (True) and the uniform-random one (False). Two rigs of 8x26
+    main path (True) and the uniform-random one (False), and the seconds
+    the occlusion rig took to build on the host and densify into its
+    float64 grid (phase 15a's host counterpart). Two rigs of 8x26
     cells, 42 extrinsic plus intrinsic rows (one past what the float64 E
     tiles hold), check the other routes: a uniform one for linearize_grid,
     an occlusion one, band-prepped, for linearize_grid_banded with the
@@ -360,8 +393,11 @@ def phase_grid_kernels(args, records):
     from deeparc_tpu_torch.solver.rig_grid import mono_stack
 
     print("[phase 3] grid kernels vs plain versions on the card")
-    rigs = {True: flagship_rig(args.n_points, 6, 0),
-            False: flagship_rig(args.n_points, None, 1)}
+    t0 = time.time()
+    rigs = {True: flagship_rig(args.n_points, 6, 0)}
+    flagship_s = time.time() - t0
+    timings: dict = {}
+    rigs[False] = flagship_rig(args.n_points, None, 1)
     wide = {occ: make_hemisphere_rig(
         n_arc=8, n_ring=26, n_points=args.n_points, visibility=10 / 48,
         occlusion_rings=occ, pixel_noise=PIXEL_NOISE, point_noise=0.02,
@@ -372,8 +408,9 @@ def phase_grid_kernels(args, records):
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for banded, data, tag in cases:
-            pts, pf, sp, grid, tables, prep = kernel_inputs(data, dtype,
-                                                            banded)
+            flagship = banded and tag is None and dtype == torch.float64
+            pts, pf, sp, grid, tables, prep = kernel_inputs(
+                data, dtype, banded, timings if flagship else None)
             if banded and tag:
                 # free intrinsics, so that their Jacobian columns are live
                 tables = (*tables[:2], torch.ones_like(tables[2]))
@@ -495,7 +532,7 @@ def phase_grid_kernels(args, records):
             pxm = None
             torch.cuda.empty_cache()
     del wide
-    return rigs
+    return rigs, flagship_s + timings["grid_s"]
 
 
 def cost_band_bytes(pts, stacks, n_rows):
@@ -1145,7 +1182,10 @@ def step_sums(layouts, key, dtype, sums, reps):
 
 
 def phase_tile_kernels(args, records):
-    """Phase 6; returns the scene for the main path."""
+    """Phase 6; returns the scene for the main path, the per-step launches,
+    the row sums' records, the locality layout, and the seconds of the
+    scene's host build, upload and layout (phase 15c/d's host
+    counterpart)."""
     import torch
 
     from deeparc_tpu_torch.io import make_bal_windowed_host
@@ -1156,10 +1196,14 @@ def phase_tile_kernels(args, records):
     t0 = time.time()
     data = make_bal_windowed_host(n_points=args.tile_points, seed=0,
                                   **TILE_SCENE)
+    scene_s = time.time() - t0
     print(f"  windowed BAL scene: {data.n_points} points, {data.n_obs} "
           f"observations, {data.n_extrinsics} cameras "
-          f"({time.time() - t0:.1f} s)")
-    layouts = {True: tile_layout(data, True), False: tile_layout(data, False)}
+          f"({scene_s:.1f} s)")
+    t0 = time.time()
+    layouts = {True: tile_layout(data, True)}
+    bal_s = scene_s + time.time() - t0
+    layouts[False] = tile_layout(data, False)
     sums: dict = {}
     lin_labels = ("cost", "pout", "r_t", "jx_t", "jcam_t", "gc", "hc")
     rng = torch.Generator(device="cuda").manual_seed(0)
@@ -1309,7 +1353,7 @@ def phase_tile_kernels(args, records):
     local = layouts[True]
     del layouts
     torch.cuda.empty_cache()
-    return data, per_step, sums, local
+    return data, per_step, sums, local, bal_s
 
 
 def phase_tile_global(args):
@@ -2753,12 +2797,569 @@ def phase_device_loop(args, flagship, uniform=None, tile_layout_=None):
     return rec
 
 
-def new_paths(args, data, phases=(10, 11, 12, 13, 14), uniform=None,
-              tile_data=None, layout=None):
-    """Phases 10-14 (those in ``phases``) on the occlusion flagship
+# ---------------------------------------------------------------------------
+# The device-side scene generators, the NaN toggle and the trace (phase 15)
+# ---------------------------------------------------------------------------
+
+# LM iterations of each phase 15 solve (the Python driver), at most
+# GEN_MAX_ITERATIONS where the RMSE needs them
+GEN_ITERATIONS = 10
+GEN_MAX_ITERATIONS = 20
+
+
+def layout_bytes(layout) -> int:
+    """Device bytes of a layout's tensors (planes, tables, bins, maps)."""
+    from deeparc_tpu_torch.solver.device_loop import tree_leaves
+
+    seen, total = set(), 0
+    for t in tree_leaves(layout):
+        key = (t.data_ptr(), t.numel())
+        if key not in seen:
+            seen.add(key)
+            total += nbytes(t)
+    return total
+
+
+def generated(label, gen):
+    """``gen()`` twice, timed (synchronised): the two results must hold
+    the same bits. Returns (the first result, its seconds)."""
+    import torch
+
+    from deeparc_tpu_torch.solver.device_loop import tree_leaves
+
+    times = []
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs.append(gen())
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        if len(outs) == 2:
+            a, b = tree_leaves(outs[0]), tree_leaves(outs[1])
+            if len(a) != len(b) or not all(
+                    x.shape == y.shape and torch.equal(x, y)
+                    for x, y in zip(a, b)):
+                raise AssertionError(f"{label}: two calls with one seed gave "
+                                     f"different bits")
+            del outs[1], a, b
+    print(f"  {label}: generated in {times[0]:.3f} s (again {times[1]:.3f} "
+          f"s, the same bits)")
+    return outs[0], times[0]
+
+
+def solve_generated(label, solve, cost0, n_obs):
+    """``solve(max_iterations)`` with the Python driver: the cost must fall
+    and the RMSE (sqrt(2 cost / observations)) sit under twice the pixel
+    noise; GEN_ITERATIONS iterations, again up to GEN_MAX_ITERATIONS when
+    the RMSE needs them. Returns its record."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = solve(GEN_ITERATIONS)
+    rmse = (2.0 * res.cost / n_obs) ** 0.5
+    more = not rmse < 2 * PIXEL_NOISE
+    if more:
+        res = solve(GEN_MAX_ITERATIONS)
+        rmse = (2.0 * res.cost / n_obs) ** 0.5
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_iter = res.seconds / max(res.iterations, 1)
+    print(f"  {label}: cost {cost0:.6e} -> {res.cost:.6e} in "
+          f"{res.iterations} LM iterations"
+          + (f" ({res.cg_iterations} CG)" if res.cg_iterations else "")
+          + f", {per_iter:.6f} s/iteration (Python driver, at most "
+          f"{GEN_MAX_ITERATIONS if more else GEN_ITERATIONS} iterations"
+          + (": the RMSE needed more than " + str(GEN_ITERATIONS)
+             if more else "") + f"), RMSE {rmse:.6f} px, peak memory "
+          f"{peak:.2f} GiB")
+    if not res.cost < cost0:
+        raise AssertionError(f"{label}: the solve did not lower the cost")
+    if not rmse < 2 * PIXEL_NOISE:
+        raise AssertionError(f"{label}: RMSE {rmse} px not under "
+                             f"{2 * PIXEL_NOISE} px")
+    return dict(cost0=cost0, cost=res.cost, iterations=res.iterations,
+                cg_iterations=res.cg_iterations, s_per_iteration=per_iter,
+                rmse_px=rmse, solve_peak_gib=peak,
+                iterations_cap=GEN_MAX_ITERATIONS if more
+                else GEN_ITERATIONS)
+
+
+def grid_free(params):
+    """The pipeline's full-BA free mask of a generated rig: the points and
+    the extrinsics but record 0 (the gauge) and the identity row."""
+    import dataclasses
+
+    import torch
+
+    ext = torch.ones_like(params.ext_rot)
+    ext[0] = ext[-1] = 0.0
+    z = torch.zeros_like
+    return dataclasses.replace(
+        params, points=torch.ones_like(params.points), ext_rot=ext,
+        ext_trans=ext.clone(), center=z(params.center),
+        focal=z(params.focal), dist=z(params.dist))
+
+
+def gen_grid(args, rec, host):
+    """15a: the occlusion rig of bench.py in the grid layout, band-prepped
+    and solved with the banded kernels; ``host`` is phase 3's seconds for
+    the host flagship and its grid (None when phase 3 did not run).
+    Returns (params, grid, free)."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.io import make_grid_rig_device
+    from deeparc_tpu_torch.solver.rig_band import band_grid
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_cost,
+        init_grid_state,
+        slot_params,
+        solve_ba_grid,
+    )
+
+    n = args.n_points
+    print(f"[phase 15a] make_grid_rig_device(8, 24, {n}, visibility=10/48, "
+          f"occlusion_rings=6), band_grid, solve_ba_grid")
+    torch.cuda.reset_peak_memory_stats()
+    (params, grid, gt), gen_s = generated("15a grid rig", lambda:
+        make_grid_rig_device(
+            n_arc=8, n_ring=24, n_points=n, visibility=10 / 48,
+            occlusion_rings=6, pixel_noise=PIXEL_NOISE, point_noise=0.02,
+            seed=0, dtype=torch.float64))
+    gen_peak = torch.cuda.max_memory_allocated() / 2**30
+    del gt
+    live = int(grid.mask.sum())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    prep = band_grid(grid)
+    torch.cuda.synchronize()
+    band_s = time.time() - t0
+    if prep is None:
+        raise AssertionError("15a: band_grid declined the generated rig")
+    free = grid_free(params)
+    cost0 = float(init_grid_state(params, grid, SolverOptions()).cost)
+    k.reset_launch_counts()
+    opts = dict(progress_to_stdout=False)
+    r = solve_generated("15a solve", lambda it: solve_ba_grid(
+        params, grid, free, SolverOptions(max_iterations=it, **opts),
+        band_reuse={"prep": prep}), cost0, live)
+    launches = {fn.__name__: fn.launches
+                for fn in (k.linearize_grid_banded, k.cost_grid_banded)}
+    host_txt = ("host flagship (make_hemisphere_rig + grid_from_scene) "
+                + (f"{host:.3f} s" if host is not None else
+                   "not measured in this run"))
+    print(f"  15a: {n} points, {live} live observations, layout "
+          f"{layout_bytes(grid) / 1e9:.3f} GB, generation peak "
+          f"{gen_peak:.2f} GiB; band_grid {band_s:.3f} s (widths "
+          f"{prep.widths}); {host_txt}; launches {launches}")
+    for name, n_l in launches.items():
+        if n_l <= 0:
+            raise AssertionError(f"15a: {name} did not launch")
+    rec["grid"] = dict(points=n, live_observations=live,
+                       layout_bytes=layout_bytes(grid), generate_s=gen_s,
+                       host_scene_s=host, band_grid_s=band_s,
+                       generate_peak_gib=gen_peak, launches=launches, **r)
+    return params, grid, free
+
+
+def count_calls(module, names):
+    """Wrap ``module``'s functions ``names`` to count their calls (the tile
+    step's torch paths); returns (counts, restore)."""
+    counts = {n: 0 for n in names}
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def counted(*a, **kw):
+            counts[n] += 1
+            return saved[n](*a, **kw)
+        return counted
+
+    for n in names:
+        setattr(module, n, wrap(n))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return counts, restore
+
+
+def hold_buckets(label, params, tiles, cam_free):
+    """Each bucket of a generated layout that a kernel takes, held against
+    the plain versions on the same inputs at the float64 tolerance:
+    ``tile_linearize_local`` (on the buckets :func:`bucket_fused_ok`
+    passes), then the bucket's sweep kernel (``tile_sweep_local`` with
+    local tables, else ``tile_sweep``) in its three modes on the planes
+    the solver would sweep (the kernel's, or the torch chunk path's on a
+    wider bucket) and a random cell vector. Returns {width: {kernel:
+    worst relative error}}; raises over tolerance."""
+    import torch
+
+    from deeparc_tpu_torch.kernels import tile as k
+    from deeparc_tpu_torch.solver import tiles as tmod
+    from deeparc_tpu_torch.solver.linalg import inv3x3
+    from deeparc_tpu_torch.solver.rig_grid import slot_params
+
+    dtype = params.points.dtype
+    packed = tmod.pack_cells(slot_params(params, tiles.cells), tiles.cells,
+                             cam_free)
+    V = packed.shape[0]
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    lin_labels = ("cost", "pout", "r_t", "jx_t", "jcam_t", "gc", "hc")
+    out: dict = {}
+    off = 0
+    for b in tiles.buckets:
+        Nb, W = b.cell.shape
+        pts_b = params.points[off:off + Nb]
+        off += Nb
+        if not b.bins:
+            continue            # the torch paths only
+        errs = out.setdefault(W, {})
+        pf_b = torch.ones_like(pts_b)
+        print(f"  {label}: bucket W = {W}, {Nb} rows, "
+              + (f"{b.loc[1].shape[1]}-cell local tables" if b.loc else
+                 "global cell ids"))
+        rows = None
+        if tmod.bucket_fused_ok(b):
+            la = lin_args(b, pts_b, pf_b, packed, dtype, True)
+            got = k.tile_linearize_local(*la, bins=b.bins)
+            errs["tile_linearize_local"] = compare(
+                "tile_linearize_local", "float64", got,
+                k.tile_linearize_local_plain(*la), lin_labels)[0]
+            _, pout, _, jx_t, jcam_t, _, _ = got
+            gp_t = pout[0:3].contiguous()
+            hpp = pout[3:12].T.reshape(Nb, 3, 3)
+            cell_t = b.loc[0].T.contiguous()
+            del got, la
+        else:
+            _, blk, gp_b, hpp, _, _ = tmod._linearize_bucket_torch(
+                pts_b, pf_b, b, packed, "trivial", 0.5)
+            cell_t, jcam_t, jx_t = k.pack_bucket_planes(
+                blk.j_x, blk.j_cam, b.loc[0] if b.loc else b.cell)
+            gp_t = gp_b.T.contiguous()
+            rows = blk.j_cam
+        binv_t = inv3x3(hpp + 0.1 * torch.eye(3, dtype=dtype, device="cuda"))
+        binv_t = binv_t.reshape(Nb, 9).T.contiguous()
+        v_cells = torch.randn((V, 18), dtype=dtype, device="cuda",
+                              generator=rng)
+        if b.loc:
+            cc = b.loc[1].long()
+            v_arg = v_cells[cc].transpose(1, 2).contiguous()
+            name, kern, plain = ("tile_sweep_local", k.tile_sweep_local,
+                                 k.tile_sweep_local_plain)
+            srt = k.sort_jcam_planes(jcam_t, b.bins, cc.shape[0])
+        else:
+            v_arg = v_cells
+            name, kern, plain = "tile_sweep", k.tile_sweep, k.tile_sweep_plain
+            srt = k.sort_jcam(rows, b.bins, jcam_t.dtype)
+        sw = (cell_t, jcam_t, jx_t, binv_t, gp_t, v_arg)
+        errs[name] = max(
+            compare(name, "float64",
+                    kern(*sw, mode=mode, bins=b.bins, sorted_jcam=srt),
+                    plain(*sw, mode=mode), (mode,))[0]
+            for mode in ("rhs", "matvec", "edot"))
+        del sw, srt, rows, jcam_t, jx_t
+        torch.cuda.empty_cache()
+    return out
+
+
+def gen_tiles(label, tag, make, rec, kernels, torch_paths=False):
+    """15b-d: a generated tile layout solved by ``solve_tiles_prepared``
+    (ITERATIVE_SCHUR, 30 PCG); the wrappers ``kernels`` must launch, and
+    after the solve each bucket they take is held against the plain
+    versions (:func:`hold_buckets`). With ``torch_paths`` the tile step's
+    torch paths (the chunk-path linearize of the wide or table-less
+    buckets, the torch sweeps of the wide ones) are counted and must
+    run."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.solver import tiles as tmod
+
+    torch.cuda.reset_peak_memory_stats()
+    (params, tiles, gt, cam_free), gen_s = generated(label, make)
+    gen_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_rows = gt.shape[0]
+    del gt
+    live = int(sum(float(b.mask.sum()) for b in tiles.buckets))
+    widths = [b.cell.shape[1] for b in tiles.buckets]
+    rows = [b.cell.shape[0] for b in tiles.buckets]
+    routes = [("kernel" if tmod.bucket_fused_ok(b) else "torch")
+              + "/" + ("kernel" if b.bins else "torch")
+              for b in tiles.buckets]
+    print(f"  {label}: widths {widths}, rows {rows}, local tables "
+          f"{[b.loc[1].shape[1] if b.loc else None for b in tiles.buckets]}, "
+          f"linearize/sweep routes {routes}, {live} live observations, "
+          f"layout {layout_bytes(tiles) / 1e9:.3f} GB, generation peak "
+          f"{gen_peak:.2f} GiB")
+    pf = torch.ones_like(params.points)
+    opts = dict(linear_solver="iterative_schur", cg_max_iterations=30,
+                progress_to_stdout=False)
+    cost0 = float(tmod.init_tile_state(params, tiles, SolverOptions(**opts),
+                                       cam_free).cost)
+    k.reset_launch_counts()
+    counts = restore = None
+    if torch_paths:
+        counts, restore = count_calls(
+            tmod, ("_linearize_bucket_torch", "_e_sweep", "_e_dot_cells"))
+    try:
+        r = solve_generated(f"{label} solve", lambda it:
+                            tmod.solve_tiles_prepared(
+                                params, tiles, pf, cam_free,
+                                SolverOptions(max_iterations=it, **opts)),
+                            cost0, live)
+    finally:
+        if restore is not None:
+            restore()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"  {label}: launches {launches}"
+          + (f"; torch paths' calls {counts}" if counts else ""))
+    for name, n_l in launches.items():
+        if n_l <= 0:
+            raise AssertionError(f"{label}: {name} did not launch")
+    if torch_paths:
+        wide_lin = sum(not tmod.bucket_fused_ok(b) for b in tiles.buckets)
+        wide_sweep = sum(not b.bins for b in tiles.buckets)
+        if wide_lin and counts["_linearize_bucket_torch"] < wide_lin:
+            raise AssertionError(f"{label}: the torch linearize did not run "
+                                 f"on the {wide_lin} wide buckets")
+        if wide_sweep and not (counts["_e_sweep"]
+                               and counts["_e_dot_cells"]):
+            raise AssertionError(f"{label}: the torch sweeps did not run on "
+                                 f"the {wide_sweep} widest buckets")
+    held = hold_buckets(label, params, tiles, cam_free)
+    rec[tag] = dict(points=n_rows, live_observations=live, widths=widths,
+                    rows=rows, routes=routes,
+                    layout_bytes=layout_bytes(tiles), generate_s=gen_s,
+                    generate_peak_gib=gen_peak, launches=launches,
+                    torch_path_calls=counts, max_rel_err_vs_plain=held, **r)
+    return rec[tag]
+
+
+def nan_and_trace(args, params, grid, free, rec):
+    """15e: the banded solve of 15a's scene with the NaN toggle on and off
+    (the same bits; s/iteration of each), a point moved onto camera (0,
+    0)'s z = 0 plane in a small generated rig (on: FloatingPointError
+    naming an operator; off: NaNs, silently), the same on a small tile rig
+    solved with driver="while_loop", and ``trace_to`` around two
+    LM iterations of the monolithic grid solve, whose trace must name
+    linearize_grid's kernel."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.io import make_grid_rig_device, make_tile_rig_device
+    from deeparc_tpu_torch.solver.rig_grid import solve_ba_grid
+    from deeparc_tpu_torch.solver.tiles import solve_tiles_prepared
+    from deeparc_tpu_torch.utils import debug, trace_to
+
+    print("[phase 15e] --debug-nans and trace_to on the card")
+    run_on = dict(function_tolerance=0.0, parameter_tolerance=0.0,
+                  gradient_tolerance=0.0, progress_to_stdout=False)
+    out = {}
+    res = {}
+    for on in (False, True):
+        checks0 = debug.checks
+        with debug.nan_debugging(on):
+            r = solve_ba_grid(params, grid, free, SolverOptions(
+                max_iterations=GEN_ITERATIONS, **run_on))
+        res[on] = r
+        out[f"s_per_iteration_{'on' if on else 'off'}"] = \
+            r.seconds / max(r.iterations, 1)
+        out[f"checks_{'on' if on else 'off'}"] = debug.checks - checks0
+    same = (res[True].cost == res[False].cost and all(
+        torch.equal(getattr(res[True].params, f.name),
+                    getattr(res[False].params, f.name))
+        for f in dataclasses.fields(res[True].params)))
+    print(f"  banded solve of 15a's rig, {GEN_ITERATIONS} iterations: "
+          f"toggle off {out['s_per_iteration_off']:.6f} s/iteration "
+          f"({out['checks_off']} checks), on "
+          f"{out['s_per_iteration_on']:.6f} s/iteration "
+          f"({out['checks_on']} checks); the same bits: {same}")
+    if not same or out["checks_off"] != 0 or out["checks_on"] <= 0:
+        raise AssertionError("15e: the NaN toggle changed the solve's bits, "
+                             "or checked with the toggle off")
+
+    p, g, _ = make_grid_rig_device(n_arc=8, n_ring=24, n_points=2000,
+                                   visibility=10 / 48, occlusion_rings=6,
+                                   pixel_noise=PIXEL_NOISE, seed=3,
+                                   dtype=torch.float64)
+    seen = torch.nonzero(g.mask[:, 0] > 0.5)
+    if seen.numel() == 0:
+        raise AssertionError("15e: no point of the small rig is seen from "
+                             "camera (0, 0)")
+    pts = p.points.clone()
+    i = int(seen[0, 0])
+    pts[i, 2] = 0.0    # camera (0, 0)'s frame is the world frame
+    bad = dataclasses.replace(p, points=pts)
+    opts = SolverOptions(max_iterations=2, progress_to_stdout=False)
+    silent = solve_ba_grid(bad, g, grid_free(bad), opts)
+    if silent.cost == silent.cost:
+        raise AssertionError("15e: the toggle off: the degenerate point "
+                             "gave no NaN")
+    try:
+        with debug.nan_debugging(True):
+            solve_ba_grid(bad, g, grid_free(bad), opts)
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise AssertionError("15e: the toggle on did not raise")
+    if "produced by" not in message:
+        raise AssertionError(f"15e: the error names no operator: {message}")
+    print(f"  point {i} on camera (0, 0)'s z = 0 plane: off, cost "
+          f"{silent.cost} (silent); on, FloatingPointError: {message}")
+    out["nan_message"] = message
+
+    # the same on the tile engine under driver="while_loop": the block's
+    # state is read back with a NaN, and its steps (whose ITERATIVE_SCHUR
+    # PCG is a device loop) re-run eagerly to name the operator
+    p, t, _, cf = make_tile_rig_device(3, 6, 2000, track_length=5,
+                                       pixel_noise=PIXEL_NOISE, seed=3,
+                                       dtype=torch.float64)
+    b = t.buckets[0]
+    # cell 0 is outer record 0 and the identity inner row: its camera's
+    # frame is the world frame
+    seen = torch.nonzero(((b.cell == 0) & (b.mask > 0.5)).any(1))
+    if seen.numel() == 0:
+        raise AssertionError("15e: no point of the small tile rig is seen "
+                             "in cell 0")
+    i = int(seen[0, 0])
+    pts = p.points.clone()
+    pts[i, 2] = 0.0
+    bad = dataclasses.replace(p, points=pts)
+    topts = SolverOptions(max_iterations=2, linear_solver="iterative_schur",
+                          cg_max_iterations=10, progress_to_stdout=False)
+    solve = lambda: solve_tiles_prepared(bad, t, torch.ones_like(pts), cf,
+                                         topts, driver="while_loop")
+    silent = solve()
+    if silent.cost == silent.cost:
+        raise AssertionError("15e: the toggle off: the degenerate point "
+                             "gave the tile solve no NaN")
+    try:
+        with debug.nan_debugging(True):
+            solve()
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise AssertionError("15e: the toggle on did not raise in the tile "
+                             "while_loop solve")
+    if "produced by" not in message or "while_loop" not in message:
+        raise AssertionError(f"15e: the tile while_loop error names no "
+                             f"operator: {message}")
+    print(f"  tile rig, driver='while_loop', ITERATIVE_SCHUR: point {i} on "
+          f"cell 0's z = 0 plane: off, cost {silent.cost} (silent); on, "
+          f"FloatingPointError: {message}")
+    out["nan_message_tiles_while_loop"] = message
+
+    p, g, _ = make_grid_rig_device(n_arc=8, n_ring=24, n_points=args.n_points,
+                                   visibility=10 / 192,
+                                   pixel_noise=PIXEL_NOISE, seed=1,
+                                   dtype=torch.float64)
+    route, _ = mono_route(g, torch.float64)
+    kname = route.split()[0]
+    logdir = os.path.join("build", "chip_smoke_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    opts = SolverOptions(max_iterations=2, progress_to_stdout=False,
+                         **{k_: v for k_, v in run_on.items()
+                            if k_ != "progress_to_stdout"})
+    with trace_to(logdir) as prof:
+        r = solve_ba_grid(p, g, grid_free(p), opts)
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        trace = f.read()
+    size = os.path.getsize(prof.trace_path)
+    shutil.rmtree(logdir, ignore_errors=True)
+    print(f"  trace_to around {r.iterations} LM iterations of the monolithic "
+          f"grid solve ({args.n_points} points, visibility 10/192): "
+          f"{size / 1e6:.1f} MB Chrome trace; holds {kname}: "
+          f"{kname in trace}")
+    if kname not in trace:
+        raise AssertionError(f"15e: the trace does not name {kname}")
+    out.update(trace_bytes=size, trace_kernel=kname)
+    rec["nan_and_trace"] = out
+
+
+def phase_generated(args, host_s):
+    """Phase 15: bench.py's four generated scenes built on the card by the
+    device-side generators (each twice for the same bits) and solved with
+    the Python driver (15a-d), then the NaN toggle and the trace (15e).
+    ``host_s`` holds the seconds the same run spent on the host scenes of
+    these sizes: ``flagship`` (phase 3) and ``bal`` (phase 6), where those
+    phases ran. Returns the records."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.io import (
+        make_bal_heavytail_device,
+        make_bal_tile_device,
+        make_tile_rig_device,
+    )
+
+    print("[phase 15] the device-side scene generators at bench.py's sizes, "
+          "float64")
+    t_phase = time.time()
+    rec: dict = {}
+    params, grid, free = gen_grid(args, rec, host_s.get("flagship"))
+    nan_and_trace(args, params, grid, free, rec)
+    del params, grid, free
+    torch.cuda.empty_cache()
+
+    f64 = dict(pixel_noise=PIXEL_NOISE, point_noise=0.02, seed=0,
+               dtype=torch.float64)
+    print(f"[phase 15b] make_tile_rig_device(8, 24, {args.n_points}, "
+          f"track_length=10), solve_tiles_prepared")
+    gen_tiles("15b tile rig", "tile_rig", lambda: make_tile_rig_device(
+        8, 24, args.n_points, track_length=10, **f64), rec,
+        (k.tile_linearize_local, k.tile_sweep_local))
+    torch.cuda.empty_cache()
+
+    host = host_s.get("bal")
+    host_txt = (f"{host:.3f} s" if host is not None
+                else "not measured in this run")
+    print(f"[phase 15c] make_bal_tile_device(2000, {args.tile_points}, "
+          f"track_length=8, window=None), solve_tiles_prepared; the host's "
+          f"windowed BAL scene + tiles_from_scene of phase 6: {host_txt}")
+    r = gen_tiles("15c BAL, uniform tracks", "bal_uniform",
+                  lambda: make_bal_tile_device(
+                      n_cameras=2000, n_points=args.tile_points,
+                      track_length=8, window=None, **f64), rec,
+                  (k.tile_sweep,))
+    r["host_scene_s"] = host
+    torch.cuda.empty_cache()
+
+    print(f"[phase 15d] make_bal_heavytail_device(2000, {args.tile_points}, "
+          f"mean_track=8.0, window=128), solve_tiles_prepared; the host's "
+          f"scene of phase 6: {host_txt}")
+    r = gen_tiles("15d BAL, heavy-tailed tracks", "bal_heavytail",
+                  lambda: make_bal_heavytail_device(
+                      n_cameras=2000, n_points=args.tile_points,
+                      mean_track=8.0, window=128, **f64), rec,
+                  (k.tile_linearize_local, k.tile_sweep_local),
+                  torch_paths=True)
+    r["host_scene_s"] = host
+    if max(r["widths"]) < 128 or min(r["widths"]) != 4:
+        raise AssertionError(f"15d: widths {r['widths']} do not span W = 4 "
+                             f"to at least 128")
+    torch.cuda.empty_cache()
+    rec["phase_seconds"] = time.time() - t_phase
+    print(f"  phase 15 took {rec['phase_seconds']:.1f} s")
+    return rec
+
+
+def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15), uniform=None,
+              tile_data=None, layout=None, host_s=None):
+    """Phases 10-15 (those in ``phases``) on the occlusion flagship
     ``data`` (phase 13 also on ``uniform`` and ``tile_data``, phase 14 on
     ``uniform`` and phase 6's locality ``layout``, made here when not
-    given); their records, and the sharded paths' launches."""
+    given; phase 15 on its generated scenes, beside the host scenes'
+    seconds ``host_s``); their records, and the sharded paths'
+    launches."""
     import torch
 
     out, sharded = {}, {}
@@ -2781,6 +3382,9 @@ def new_paths(args, data, phases=(10, 11, 12, 13, 14), uniform=None,
         t0 = time.time()
         out["device_loop"] = phase_device_loop(args, data, uniform, layout)
         out["device_loop"]["phase_seconds"] = time.time() - t0
+    if 15 in phases:
+        torch.cuda.empty_cache()
+        out["generated"] = phase_generated(args, host_s or {})
     return out, sharded
 
 
@@ -2825,12 +3429,14 @@ def main(argv=None) -> int:
     ap.add_argument("--cost-only", action="store_true",
                     help="after the build, time only the two cost wrappers "
                          "(an A/B or ablation of cost_band) and exit")
-    ap.add_argument("--new-paths-only", nargs="?", const="10,11,12,13,14",
-                    default=None, metavar="PHASES",
-                    help="after the build, run only these of phases 10-14 "
+    ap.add_argument("--new-paths-only", nargs="?",
+                    const="10,11,12,13,14,15", default=None,
+                    metavar="PHASES",
+                    help="after the build, run only these of phases 10-15 "
                          "(indexed engine, incremental BA, checkpoint/"
                          "resume, the sharded engines, the on-device LM "
-                         "driver; default all five) and exit")
+                         "driver, the generated scenes; default all six) "
+                         "and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -2864,8 +3470,10 @@ def main(argv=None) -> int:
         phase_cost_only(args)
         return 0
     if args.new_paths_only:
-        data = flagship_rig(args.n_points, 6, 0)
         phases = [int(p) for p in args.new_paths_only.split(",")]
+        # phase 15 builds its own scenes
+        data = (flagship_rig(args.n_points, 6, 0)
+                if set(phases) - {15} else None)
         paths, sharded = new_paths(args, data, phases)
         print(json.dumps({"paths": paths}))
         print(json.dumps({"sharded_launches": sharded}))
@@ -2875,7 +3483,7 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     records: dict = {}
-    rigs = phase_grid_kernels(args, records)
+    rigs, flagship_s = phase_grid_kernels(args, records)
     print("[phase 3b] one LM step on the uniform-random rig (the "
           "linearize_grid path)")
     per_step = grid_step_split(rigs[False])
@@ -2912,7 +3520,8 @@ def main(argv=None) -> int:
                      for fn in (k.linearize_grid, k.cost_grid)})
     print(f"  launches on the grid paths: {launches}")
 
-    tile_data, tile_per_step, sums, layout = phase_tile_kernels(args, records)
+    tile_data, tile_per_step, sums, layout, bal_s = phase_tile_kernels(
+        args, records)
     per_step.update(tile_per_step)
     print("  launches per LM step at each kernel's timing scene: "
           + ", ".join(f"{kname} {n:.2f}" for kname, n in per_step.items()))
@@ -2944,7 +3553,8 @@ def main(argv=None) -> int:
     probe_launches, probe_results = phase_probes(args, records)
     launches.update(probe_launches)
     paths, sharded = new_paths(args, data, uniform=uniform,
-                               tile_data=tile_data, layout=layout)
+                               tile_data=tile_data, layout=layout,
+                               host_s=dict(flagship=flagship_s, bal=bal_s))
     del tile_data, uniform, layout
     for kname, n in {**launches, **helpers}.items():
         if n <= 0:

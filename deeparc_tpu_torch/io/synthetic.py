@@ -14,6 +14,25 @@ own copy of the host-side generators of ``deeparc_tpu.io.synthetic``.
                           cameras and shuffled camera ids.
 
 The same seed gives the same arrays as the reference package's generators.
+
+The device-side generators build a benchmark-scale problem directly in a
+solver's layout on the device; only the small camera tables cross from the
+host:
+
+  make_grid_rig_device       the turntable rig as a dense (N, T) grid;
+  make_tile_rig_device       the rig as one (N, W) tile bucket, each point
+                             seeing ``track_length`` random cells;
+  make_bal_tile_device       BAL-style cameras, one (N, W) bucket, tracks
+                             from a sliding camera window (or uniform);
+  make_bal_heavytail_device  BAL-style cameras with log-normal track
+                             lengths laid out in buckets of several widths.
+
+Their draws on the device come from a ``torch.Generator`` seeded with
+``seed``, so they are not the reference's numbers (its threefry streams
+cannot be matched); everything drawn on the host (the camera tables, the
+heavy-tailed track lengths) and every layout table is the reference's.
+They import torch and the solver lazily, so this module stays numpy-only
+to import.
 """
 
 from __future__ import annotations
@@ -487,3 +506,621 @@ def make_bal_windowed_host(
         points=init_pts,
         colors=rng.integers(0, 256, size=(n_points, 3)).astype(np.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Device-side generators
+# ---------------------------------------------------------------------------
+
+
+def _device_setup(device, seed, dtype):
+    """(device, generator, dtype) of a device-side generator: the device as
+    ``check_device`` gives it (no fall-back), a generator of its own seeded
+    with ``seed``, float32 by default."""
+    import torch
+
+    from deeparc_tpu_torch.device import check_device
+
+    device = check_device(device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return device, gen, dtype or torch.float32
+
+
+def _sphere_points(gen, n, object_radius, center, dtype, device):
+    """``n`` points uniform in a ball of ``object_radius`` about ``center``,
+    and their unit directions."""
+    import torch
+
+    direction = torch.randn((n, 3), generator=gen, dtype=dtype, device=device)
+    direction = direction / torch.clamp(
+        torch.linalg.norm(direction, dim=1, keepdim=True), min=1e-9)
+    radii = object_radius * torch.pow(
+        torch.rand((n, 1), generator=gen, dtype=dtype, device=device),
+        1.0 / 3.0)
+    c = torch.tensor(center, dtype=dtype, device=device)
+    return c + direction * radii, direction
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << int(np.ceil(np.log2(max(n, 1))))
+
+
+def _rig_tables(n_arc, n_ring, rho, object_radius, focal, image_size, seed):
+    """The turntable rig's host tables (as :func:`make_hemisphere_rig`
+    builds them) and its cells' slot rules: (data, outer, inner, intr)."""
+    d = make_hemisphere_rig(
+        n_arc=n_arc, n_ring=n_ring, n_points=8, rho=rho,
+        object_radius=object_radius, focal=focal, image_size=image_size,
+        seed=seed).data
+    arc = np.repeat(np.arange(n_arc), n_ring)
+    ring = np.tile(np.arange(n_ring), n_arc)
+    ring_rec = np.where(ring == 0, 0, ring + n_arc - 1)
+    identity = d.n_extrinsics
+    outer = np.where(ring == 0, arc, np.where(arc == 0, ring_rec, arc))
+    inner = np.where((ring == 0) | (arc == 0), identity, ring_rec)
+    return d, outer, inner, arc
+
+
+def _params_of(ext_rot, ext_trans, center, focal, dist, n_points, dtype,
+               device):
+    """BAParams with zero points and the camera tables, each extrinsic
+    table with its identity row appended."""
+    import torch
+
+    from deeparc_tpu_torch.scene import BAParams
+
+    f = lambda a: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+    pad = np.zeros((1, 3))
+    return BAParams(
+        points=torch.zeros((n_points, 3), dtype=dtype, device=device),
+        ext_rot=f(np.concatenate([ext_rot, pad])),
+        ext_trans=f(np.concatenate([ext_trans, pad])),
+        center=f(center), focal=f(focal), dist=f(dist))
+
+
+def _cell_table(outer, inner, intr, focal_shared, dist_m1, dist_m2, R_rows,
+                C, dtype, device):
+    """The tile layout's CellTable of cells (outer, inner, intr), with its
+    flat camera columns and the maps of its sums (``cell_maps``)."""
+    import torch
+
+    from deeparc_tpu_torch.solver.tiles import CellTable, cell_maps
+
+    six = np.arange(6)
+    cols = np.concatenate(
+        [outer[:, None] * 6 + six, inner[:, None] * 6 + six,
+         6 * R_rows + intr[:, None] * 6 + six], axis=1).astype(np.int32)
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=device)
+    f = lambda a: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+    cols_t = i32(cols)
+    return CellTable(slot_outer=i32(outer), slot_inner=i32(inner),
+                     slot_intr=i32(intr), focal_shared=f(focal_shared),
+                     dist_m1=f(dist_m1), dist_m2=f(dist_m2), cols=cols_t,
+                     maps=cell_maps(cols_t, C))
+
+
+def _project_slots(gt, packed, cell, mask):
+    """Predicted pixels (N, W, 2) of the points ``gt`` in the slots' cells
+    (global ids into ``packed``), through the tile engine's chunk path with
+    xy = 0; masked slots give 0."""
+    import torch
+
+    from deeparc_tpu_torch.solver.tiles import (
+        _project_chunk,
+        _row_pieces,
+        _unpack,
+    )
+
+    N, W = cell.shape
+    pred = torch.empty((N, W, 2), dtype=gt.dtype, device=gt.device)
+    for r0, r1 in _row_pieces(N, W):
+        m = mask[r0:r1]
+        zeros = torch.zeros_like(m)
+        pred[r0:r1] = _project_chunk(gt[r0:r1],
+                                     _unpack(packed[cell[r0:r1].long()]),
+                                     zeros, zeros, m)["r"]
+    return pred
+
+
+def _observe(gen, pred, mask, pixel_noise):
+    """Observed pixel planes (xy0, xy1): the predictions plus Gaussian
+    pixel noise, 0 on masked slots."""
+    import torch
+
+    noise = torch.randn(pred.shape, generator=gen, dtype=pred.dtype,
+                        device=pred.device)
+    xy = (pred + pixel_noise * noise) * mask[..., None]
+    return xy[..., 0].contiguous(), xy[..., 1].contiguous()
+
+
+def _perturbed(gen, gt, point_noise):
+    import torch
+
+    return gt + point_noise * torch.randn(gt.shape, generator=gen,
+                                          dtype=gt.dtype, device=gt.device)
+
+
+def _distinct_ids(gen, n_rows, n_live, width, hi, device):
+    """(n_rows, width) int64 ids, the first ``n_live`` of each row distinct
+    in [0, hi): sorted draws from [0, hi - n_live] plus their rank, so
+    strictly increasing (a shift of duplicates modulo ``hi`` could wrap
+    onto an id the row already holds). The slots after ``n_live`` hold
+    0."""
+    import torch
+
+    if n_live > hi:
+        raise ValueError(f"{n_live} distinct ids do not fit in [0, {hi})")
+    draw = torch.randint(0, hi - n_live + 1, (n_rows, n_live), generator=gen,
+                         device=device)
+    ids = torch.zeros((n_rows, width), dtype=torch.int64, device=device)
+    ids[:, :n_live] = (torch.sort(draw, dim=1).values
+                       + torch.arange(n_live, device=device))
+    return ids
+
+
+def _bucket(cell, xy0, xy1, mask, loc, V):
+    """A TileBucket with its slot bins and row-piece maps (``with_bins``),
+    as the solvers take it."""
+    import torch
+
+    from deeparc_tpu_torch.solver.tiles import TileBucket, with_bins
+
+    return with_bins(TileBucket(cell=cell.to(torch.int32), xy0=xy0, xy1=xy1,
+                                mask=mask, loc=loc), V)
+
+
+def make_grid_rig_device(
+    n_arc: int = 8,
+    n_ring: int = 24,
+    n_points: int = 400_000,
+    rho: float = 2.0,
+    object_radius: float = 0.4,
+    focal: float = 1000.0,
+    image_size: tuple = (1600, 1200),
+    pixel_noise: float = 1.0,
+    point_noise: float = 0.02,
+    visibility: float = None,
+    occlusion_rings: int | None = None,
+    seed: int = 0,
+    dtype=None,
+    device="cuda",
+):
+    """The turntable rig of :func:`make_hemisphere_rig` built directly in
+    the dense-grid layout on ``device``: only the camera tables cross from
+    the host; the (N, T) planes are drawn and projected there, through the
+    port's own ``grid_residuals`` with xy = 0 and mask = 1.
+
+    ``occlusion_rings`` models self-occlusion: a point is seen only while
+    the turntable faces it toward the camera meridian, from a contiguous
+    cyclic window of that many of the ``n_ring`` steps (all arcs inside
+    the window, subject to the image bounds and ``visibility``). ``None``
+    keeps visibility uniform over all cells. ``visibility`` keeps each
+    remaining observation with that probability, so the mean track is
+    about ``visibility * occlusion_rings * n_arc``.
+
+    Returns (params: BAParams, grid: GridIndex, gt_points (N, 3))."""
+    import dataclasses as _dc
+
+    import torch
+
+    from deeparc_tpu_torch.solver.rig_grid import (
+        GridIndex,
+        grid_residuals,
+        slot_params,
+    )
+
+    device, gen, dtype = _device_setup(device, seed, dtype)
+    d, outer, inner, intr = _rig_tables(n_arc, n_ring, rho, object_radius,
+                                        focal, image_size, seed)
+    params_gt = _params_of(d.ext_rot, d.ext_trans, d.center, d.focal, d.dist,
+                           n_points, dtype, device)
+    T = n_arc * n_ring
+    identity = d.n_extrinsics
+
+    def onehot(ids, n):
+        out = np.zeros((T, n))
+        out[np.arange(T), ids] = 1.0
+        return torch.tensor(out, dtype=dtype, device=device)
+
+    f = lambda a: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=device)
+    plane = lambda: torch.empty((n_points, T), dtype=dtype, device=device)
+    grid = GridIndex(
+        xy0=plane(), xy1=plane(), mask=plane(),
+        point_mask=torch.ones((n_points,), dtype=dtype, device=device),
+        slot_outer=i32(outer), slot_inner=i32(inner), slot_intr=i32(intr),
+        onehot_outer=onehot(outer, identity + 1),
+        onehot_inner=onehot(inner, identity + 1),
+        onehot_intr=onehot(intr, d.n_intrinsics),
+        focal_shared=f((d.focal_size == 1)[intr]),
+        dist_m1=f((d.dist_size >= 1)[intr]),
+        dist_m2=f((d.dist_size == 2)[intr]))
+
+    gt_points, direction = _sphere_points(gen, n_points, object_radius,
+                                          (0.0, 0.0, rho), dtype, device)
+    keep = (torch.rand((n_points, T), generator=gen, dtype=dtype,
+                       device=device) < visibility
+            if visibility is not None else None)
+    sp = slot_params(params_gt, grid)
+    w, h = image_size
+    if occlusion_rings is not None:
+        # the point's azimuth about the turntable's vertical axis; it is
+        # seen while the ring rotation turns it within half the window of
+        # facing the camera meridian
+        alpha = torch.atan2(direction[:, 0], direction[:, 2])
+        phis = (2.0 * np.pi / n_ring) * f(np.tile(np.arange(n_ring), n_arc))
+        cos_half = float(np.cos(np.pi * occlusion_rings / n_ring))
+    # the projection's (rows, T) temporaries bounded to ~2^22 values each
+    step = max(1, (1 << 22) // T)
+    for r0 in range(0, n_points, step):
+        r1 = min(n_points, r0 + step)
+        ones = torch.ones((r1 - r0, T), dtype=dtype, device=device)
+        zeros = torch.zeros_like(ones)
+        sub = _dc.replace(grid, xy0=zeros, xy1=zeros, mask=ones,
+                          point_mask=grid.point_mask[r0:r1])
+        pred = grid_residuals(gt_points[r0:r1], sp, sub)
+        m = ((pred[..., 0] >= 0) & (pred[..., 0] < w)
+             & (pred[..., 1] >= 0) & (pred[..., 1] < h))
+        if occlusion_rings is not None:
+            facing = torch.cos(alpha[r0:r1, None] + phis[None, :] - np.pi)
+            m &= facing > cos_half
+        if keep is not None:
+            m &= keep[r0:r1]
+        grid.mask[r0:r1] = m.to(dtype)
+        grid.xy0[r0:r1] = pred[..., 0]
+        grid.xy1[r0:r1] = pred[..., 1]
+    del keep
+    noise = torch.randn((n_points, T, 2), generator=gen, dtype=dtype,
+                        device=device)
+    grid.xy0.add_(pixel_noise * noise[..., 0]).mul_(grid.mask)
+    grid.xy1.add_(pixel_noise * noise[..., 1]).mul_(grid.mask)
+    del noise
+    params = _dc.replace(params_gt,
+                         points=_perturbed(gen, gt_points, point_noise))
+    return params, grid, gt_points
+
+
+def make_tile_rig_device(
+    n_arc: int = 8,
+    n_ring: int = 24,
+    n_points: int = 400_000,
+    track_length: int = 10,
+    rho: float = 2.0,
+    object_radius: float = 0.4,
+    focal: float = 1000.0,
+    image_size: tuple = (1600, 1200),
+    pixel_noise: float = 1.0,
+    point_noise: float = 0.02,
+    seed: int = 0,
+    chunk_obs: int = None,
+    dtype=None,
+    device="cuda",
+):
+    """The turntable rig of :func:`make_grid_rig_device` built directly in
+    the TILE layout on ``device``: each point observes ``track_length``
+    distinct random cells, laid out as one dense (N_pad, W) bucket with W
+    = next_pow2(track_length) (every live slot first in its row), N_pad
+    the points rounded up to whole chunks of rows (the rows past
+    ``n_points`` are real points too). Visibility is uniform over all T
+    cells, but T is small, so the bucket carries identity per-chunk local
+    tables (local id == global id; each chunk's table the whole cell list,
+    padded with cell 0 to a multiple of 8), which routes it through the
+    fused ``tile_linearize_local`` and ``tile_sweep_local``.
+
+    Returns (params_t: BAParams (rows == points), tiles: TileIndex,
+    gt_points (N_pad, 3), cam_free (C,))."""
+    import dataclasses as _dc
+
+    import torch
+
+    from deeparc_tpu_torch.solver.rig_grid import slot_params
+    from deeparc_tpu_torch.solver.tiles import (
+        CHUNK_OBS,
+        TileIndex,
+        pack_cells,
+        rows_per_chunk,
+    )
+
+    device, gen, dtype = _device_setup(device, seed, dtype)
+    chunk_obs = chunk_obs or CHUNK_OBS
+    d, outer, inner, intr = _rig_tables(n_arc, n_ring, rho, object_radius,
+                                        focal, image_size, seed)
+    T = n_arc * n_ring
+    if track_length > T:
+        raise ValueError(f"track_length {track_length} > {T} cells")
+    W = _next_pow2(track_length)
+    rpc = rows_per_chunk(W, chunk_obs)
+    N_pad = -(-n_points // rpc) * rpc
+    params_gt = _params_of(d.ext_rot, d.ext_trans, d.center, d.focal, d.dist,
+                           N_pad, dtype, device)
+    R_rows = d.n_extrinsics + 1
+    C = 6 * R_rows + 6 * d.n_intrinsics
+    cells = _cell_table(outer, inner, intr, (d.focal_size == 1)[intr],
+                        (d.dist_size >= 1)[intr], (d.dist_size == 2)[intr],
+                        R_rows, C, dtype, device)
+    cam_free = torch.ones((C,), dtype=dtype, device=device)
+    packed = pack_cells(slot_params(params_gt, cells), cells, cam_free)
+
+    gt_points, _ = _sphere_points(gen, N_pad, object_radius, (0.0, 0.0, rho),
+                                  dtype, device)
+    # each point sees track_length distinct random cells
+    scores = torch.rand((N_pad, T), generator=gen, device=device)
+    cell = torch.zeros((N_pad, W), dtype=torch.int64, device=device)
+    cell[:, :track_length] = torch.topk(scores, track_length, dim=1).indices
+    del scores
+    mask = torch.zeros((N_pad, W), dtype=dtype, device=device)
+    mask[:, :track_length] = 1.0
+    pred = _project_slots(gt_points, packed, cell, mask)
+    xy0, xy1 = _observe(gen, pred, mask, pixel_noise)
+    del pred
+    nch = N_pad // rpc
+    ids = np.zeros(-(-T // 8) * 8, dtype=np.int32)
+    ids[:T] = np.arange(T, dtype=np.int32)
+    chunk_cells = torch.tensor(np.tile(ids, (nch, 1)), device=device)
+    cell = cell.to(torch.int32)
+    bucket = _bucket(cell, xy0, xy1, mask, (cell, chunk_cells), T)
+    tiles = TileIndex(cells=cells, buckets=(bucket,),
+                      row_of_point=torch.arange(N_pad, dtype=torch.int32,
+                                                device=device))
+    params = _dc.replace(params_gt,
+                         points=_perturbed(gen, gt_points, point_noise))
+    return params, tiles, gt_points, cam_free
+
+
+def _bal_camera_tables(n_cameras, rho, focal, image_size, rng,
+                       order_by_azimuth):
+    """Host-side BAL camera tables: poses on a view sphere + intrinsics.
+
+    Shared by the device-side BAL generators. ``order_by_azimuth`` sorts
+    cameras along the sphere so consecutive ids are physically adjacent
+    (windowed co-visibility is then geometric)."""
+    ext_rot = np.zeros((n_cameras, 3))
+    ext_trans = np.zeros((n_cameras, 3))
+    dirs = rng.normal(size=(n_cameras, 3))
+    dirs[:, 1] = np.clip(dirs[:, 1], -0.9, 0.9)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    if order_by_azimuth:
+        dirs = dirs[np.argsort(np.arctan2(dirs[:, 2], dirs[:, 0]))]
+    for c in range(n_cameras):
+        R, t = _look_at(rho * dirs[c], np.zeros(3))
+        ext_rot[c] = _rotmat_to_aa(R)
+        ext_trans[c] = t
+    cx, cy = image_size[0] / 2.0, image_size[1] / 2.0
+    center = np.tile([cx, cy], (n_cameras, 1))
+    focal_arr = np.zeros((n_cameras, 2))
+    focal_arr[:, 0] = focal * (1.0 + 0.05 * rng.normal(size=n_cameras))
+    dist_arr = np.zeros((n_cameras, 2))
+    dist_arr[:, 0] = -0.02
+    dist_arr[:, 1] = 0.005
+    return ext_rot, ext_trans, center, focal_arr, dist_arr
+
+
+def _bal_setup(n_cameras, rho, focal, image_size, rng, order_by_azimuth,
+               n_points, dtype, device):
+    """The BAL generators' camera side: (params with zero points, the
+    CellTable of the n_cameras cells (one free camera each: outer = its
+    extrinsic, inner = the identity row, its own intrinsic), cam_free,
+    the packed cell table)."""
+    import torch
+
+    from deeparc_tpu_torch.solver.rig_grid import slot_params
+    from deeparc_tpu_torch.solver.tiles import pack_cells
+
+    ext_rot, ext_trans, center, focal_arr, dist_arr = _bal_camera_tables(
+        n_cameras, rho, focal, image_size, rng, order_by_azimuth)
+    params = _params_of(ext_rot, ext_trans, center, focal_arr, dist_arr,
+                        n_points, dtype, device)
+    R_rows = n_cameras + 1
+    C = 6 * R_rows + 6 * n_cameras
+    cam_ids = np.arange(n_cameras)
+    ones = np.ones(n_cameras)
+    cells = _cell_table(cam_ids, np.full(n_cameras, n_cameras), cam_ids,
+                        ones, ones, ones, R_rows, C, dtype, device)
+    cam_free = torch.ones((C,), dtype=dtype, device=device)
+    packed = pack_cells(slot_params(params, cells), cells, cam_free)
+    return params, cells, cam_free, packed
+
+
+def _window_starts(n_chunks, n_cameras, win):
+    """First camera of each chunk's sliding window of ``win`` cameras."""
+    return (np.arange(n_chunks) * max(n_cameras - win, 0)
+            // max(n_chunks - 1, 1)).astype(np.int32)
+
+
+def make_bal_tile_device(
+    n_cameras: int = 2000,
+    n_points: int = 1_000_000,
+    track_length: int = 8,
+    rho: float = 3.0,
+    object_radius: float = 1.0,
+    focal: float = 800.0,
+    image_size: tuple = (1024, 1024),
+    pixel_noise: float = 1.0,
+    point_noise: float = 0.02,
+    seed: int = 0,
+    chunk_obs: int = None,
+    dtype=None,
+    window: int | None = 128,
+    device="cuda",
+):
+    """A BAL-style (non-shared) problem built directly in the TILE layout
+    on ``device``: ``n_cameras`` free cameras on a view sphere (one
+    intrinsic and one extrinsic each; cells == cameras), every point
+    observing ``track_length`` distinct cameras, as one dense (N_pad, W)
+    bucket with W = next_pow2(track_length). Only the (C, .) camera tables
+    cross from the host.
+
+    ``window`` (default 128) models BAL co-visibility locality: cameras
+    are ordered by azimuth and each chunk of rows draws its tracks from
+    one sliding window of ``window`` consecutive cameras, so the bucket
+    carries exact per-chunk local tables (``TileBucket.loc``) by
+    construction. ``window=None`` draws tracks uniformly over all cameras
+    (no locality; the global tables, the ``tile_sweep`` path).
+
+    A row's camera ids are drawn as sorted values from [0, hi -
+    track_length] plus their rank (hi the window or the camera count), so
+    every row's live ids are distinct. (The reference's duplicate shift,
+    ``(sort + cumsum(dup)) % hi``, can wrap onto an id the row already
+    holds.) Masked slots hold local id 0.
+
+    Returns (params_t, tiles, gt_points (N_pad, 3), cam_free (C,))."""
+    import dataclasses as _dc
+
+    import torch
+
+    from deeparc_tpu_torch.solver.tiles import (
+        CHUNK_OBS,
+        TileIndex,
+        rows_per_chunk,
+    )
+
+    device, gen, dtype = _device_setup(device, seed, dtype)
+    chunk_obs = chunk_obs or CHUNK_OBS
+    rng = np.random.default_rng(seed)
+    if window is not None:
+        window = min(window, n_cameras)
+    W = _next_pow2(track_length)
+    rpc = rows_per_chunk(W, chunk_obs)
+    N_pad = -(-n_points // rpc) * rpc
+    params_gt, cells, cam_free, packed = _bal_setup(
+        n_cameras, rho, focal, image_size, rng, window is not None, N_pad,
+        dtype, device)
+    nch = N_pad // rpc
+
+    gt_points, _ = _sphere_points(gen, N_pad, object_radius, (0.0, 0.0, 0.0),
+                                  dtype, device)
+    hi = window if window is not None else n_cameras
+    local = _distinct_ids(gen, N_pad, track_length, W, hi, device)
+    mask = torch.zeros((N_pad, W), dtype=dtype, device=device)
+    mask[:, :track_length] = 1.0
+    if window is not None:
+        starts = _window_starts(nch, n_cameras, window)
+        chunk_cells = torch.tensor(
+            starts[:, None] + np.arange(window, dtype=np.int32)[None, :],
+            device=device)
+        row_start = torch.repeat_interleave(
+            torch.tensor(starts, dtype=torch.int64, device=device), rpc)
+        cell = local + row_start[:, None]
+        loc = (local.to(torch.int32), chunk_cells)
+    else:
+        cell, loc = local, ()
+    pred = _project_slots(gt_points, packed, cell, mask)
+    xy0, xy1 = _observe(gen, pred, mask, pixel_noise)
+    del pred
+    bucket = _bucket(cell, xy0, xy1, mask, loc, n_cameras)
+    tiles = TileIndex(cells=cells, buckets=(bucket,),
+                      row_of_point=torch.arange(N_pad, dtype=torch.int32,
+                                                device=device))
+    params = _dc.replace(params_gt,
+                         points=_perturbed(gen, gt_points, point_noise))
+    return params, tiles, gt_points, cam_free
+
+
+def make_bal_heavytail_device(
+    n_cameras: int = 2000,
+    n_points: int = 1_000_000,
+    mean_track: float = 8.0,
+    sigma: float = 0.8,
+    max_track: int = 512,
+    rho: float = 3.0,
+    object_radius: float = 1.0,
+    focal: float = 800.0,
+    image_size: tuple = (1024, 1024),
+    pixel_noise: float = 1.0,
+    point_noise: float = 0.02,
+    seed: int = 0,
+    chunk_obs: int = None,
+    dtype=None,
+    window: int = 128,
+    device="cuda",
+):
+    """A BAL problem with a HEAVY-TAILED track distribution, built in the
+    tile layout on ``device``: per-point track lengths from a clipped
+    log-normal with mean ``mean_track`` and log-``sigma`` (drawn on the
+    host with ``np.random.default_rng(seed)``, as the reference draws
+    them), the points laid out in buckets of widths W =
+    next_pow2(track) >= 4, as ``tiles_from_scene`` builds them from real
+    files, so one solve runs the kernels on the narrow buckets and the
+    torch paths on the wide ones.
+
+    Tracks up to ``window`` cameras draw from a sliding window of
+    ``window`` consecutive ids (chunk-exact local tables); wider ones from
+    a window of 2W (long tracks are seen from everywhere), and a bucket
+    whose window spans every camera carries no local tables. A row's W
+    ids are sorted draws from [0, win - W] plus their rank: distinct.
+
+    Returns (params_t, tiles, gt_points (rows, 3), cam_free (C,)); the
+    rows are the buckets' padded rows in order, ``tiles.row_of_point``
+    maps each of the ``n_points`` points to its row."""
+    import dataclasses as _dc
+
+    import torch
+
+    from deeparc_tpu_torch.solver.tiles import (
+        CHUNK_OBS,
+        TileIndex,
+        rows_per_chunk,
+    )
+
+    device, gen, dtype = _device_setup(device, seed, dtype)
+    chunk_obs = chunk_obs or CHUNK_OBS
+    rng = np.random.default_rng(seed)
+    window = min(window, n_cameras)
+    params_gt, cells, cam_free, packed = _bal_setup(
+        n_cameras, rho, focal, image_size, rng, True, 1, dtype, device)
+
+    # clipped log-normal track lengths with the requested mean
+    mu = np.log(mean_track) - 0.5 * sigma * sigma
+    track = np.clip(
+        np.rint(rng.lognormal(mu, sigma, size=n_points)).astype(np.int64),
+        2, min(max_track, n_cameras))
+    width = (1 << np.ceil(np.log2(track)).astype(np.int64)).clip(4)
+
+    row_of_point = np.zeros(n_points, np.int64)
+    gt_parts, buckets = [], []
+    offset = 0
+    for W in sorted(int(w) for w in np.unique(width)):
+        members = np.nonzero(width == W)[0]
+        Nb = members.size
+        rpc = rows_per_chunk(W, chunk_obs)
+        Nb_pad = -(-Nb // rpc) * rpc
+        n_ch = Nb_pad // rpc
+        win = window if W <= window else min(2 * W, n_cameras)
+        tracks_b = np.zeros(Nb_pad, np.int64)
+        tracks_b[:Nb] = track[members]
+
+        gt, _ = _sphere_points(gen, Nb_pad, object_radius, (0.0, 0.0, 0.0),
+                               dtype, device)
+        # W distinct window-local ids a row (when the window holds W; a
+        # wider bucket than the cameras keeps its live slots distinct)
+        n_ids = min(W, win)
+        local = _distinct_ids(gen, Nb_pad, n_ids, W, win, device)
+        iota = torch.arange(W, device=device)
+        mask = (iota[None, :] < torch.tensor(tracks_b, device=device)[:, None]
+                ).to(dtype)
+        starts = _window_starts(n_ch, n_cameras, win)
+        chunk_cells = starts[:, None] + np.arange(win, dtype=np.int32)[None, :]
+        row_start = torch.repeat_interleave(
+            torch.tensor(starts, dtype=torch.int64, device=device), rpc)
+        cell = local + row_start[:, None]
+        pred = _project_slots(gt, packed, cell, mask)
+        xy0, xy1 = _observe(gen, pred, mask, pixel_noise)
+        del pred
+        loc = ((local.to(torch.int32),
+                torch.tensor(chunk_cells, device=device))
+               if win < n_cameras else ())
+        buckets.append(_bucket(cell, xy0, xy1, mask, loc, n_cameras))
+        gt_parts.append(gt)
+        row_of_point[members] = offset + np.arange(Nb)
+        offset += Nb_pad
+
+    tiles = TileIndex(cells=cells, buckets=tuple(buckets),
+                      row_of_point=torch.tensor(row_of_point.astype(np.int32),
+                                                device=device))
+    gt_points = torch.cat(gt_parts)
+    params = _dc.replace(params_gt,
+                         points=_perturbed(gen, gt_points, point_noise))
+    return params, tiles, gt_points, cam_free

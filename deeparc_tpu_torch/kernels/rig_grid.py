@@ -40,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from deeparc_tpu_torch.utils.debug import kernel_boundary
+
 # slot-table columns (csrc/rig_slot.cuh holds the same constants)
 _RI, _RO, _ROI, _JRO, _JRI = 0, 9, 18, 27, 36
 _TI, _TO, _CX, _CY, _FX, _FY = 45, 48, 51, 52, 53, 54
@@ -796,6 +798,7 @@ def linearize_grid_banded_plain(
     return _plain_linearize(prep, loss, loss_scale)
 
 
+@kernel_boundary
 def linearize_grid_banded(
     points, point_free, sp, grid, free_outer, free_inner, free_intr, starts,
     w_band, loss="trivial", loss_scale=0.5, block_np=256, intr_frozen=False,
@@ -829,6 +832,7 @@ def cost_grid_banded_plain(points, sp, grid, starts, w_band, loss="trivial",
     return _plain_cost(prep, loss, loss_scale)
 
 
+@kernel_boundary
 def cost_grid_banded(points, sp, grid, starts, w_band, loss="trivial",
                      loss_scale=0.5, block_np=1024, pxm=None):
     """Banded robustified half-SSE (the trial-cost pass over live bands).
@@ -850,6 +854,7 @@ def linearize_grid_plain(points, point_free, sp, grid, free_outer, free_inner,
     return _plain_linearize(prep, loss, loss_scale)
 
 
+@kernel_boundary
 def linearize_grid(points, point_free, sp, grid, free_outer, free_inner,
                    free_intr, loss="trivial", loss_scale=0.5, block_np=256,
                    pxm=None):
@@ -873,6 +878,7 @@ def cost_grid_plain(points, sp, grid, loss="trivial", loss_scale=0.5,
                        loss_scale)
 
 
+@kernel_boundary
 def cost_grid(points, sp, grid, loss="trivial", loss_scale=0.5,
               block_np=1024, pxm=None):
     """Fused robustified half-SSE over the whole grid (trial-cost pass).

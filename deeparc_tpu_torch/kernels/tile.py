@@ -59,6 +59,7 @@ from deeparc_tpu_torch.kernels.rig_grid import (
     _dispatch,
     _slot_products,
 )
+from deeparc_tpu_torch.utils.debug import kernel_boundary
 
 # the sweep kernels take buckets up to this width; wider buckets (the heavy
 # tail of a track distribution) run the torch sweeps (solver/tiles._e_sweep)
@@ -227,6 +228,7 @@ def sort_jcam_plain(j_cam: torch.Tensor, bins: SlotBins,
     return out.copy_(rows.T)
 
 
+@kernel_boundary
 def sort_jcam(j_cam: torch.Tensor, bins: SlotBins, dtype=None) -> torch.Tensor:
     """A bucket's camera Jacobians in the bins' slot order, as (36, W*Nb)
     planes: column i holds the 36 values of slot ``order[i]`` (flat id
@@ -266,6 +268,7 @@ def sort_jcam_planes_plain(jcam_t: torch.Tensor, bins: SlotBins,
     return jcam_t.reshape(W, 36, Nb)[f // Nb, :, f % Nb].T.contiguous()
 
 
+@kernel_boundary
 def sort_jcam_planes(jcam_t: torch.Tensor, bins: SlotBins,
                      n_chunks: int) -> torch.Tensor:
     """A locality bucket's transposed jcam planes (36W, Nb) in its bins'
@@ -303,6 +306,7 @@ def sum_rows_plain(part: torch.Tensor, dst: torch.Tensor,
     return out.index_add_(0, dst.reshape(-1).long(), part)
 
 
+@kernel_boundary
 def sum_rows(part: torch.Tensor, dst: torch.Tensor, n_out: int,
              gather: tuple = ()) -> torch.Tensor:
     """The rows of ``part`` (n_src, ...) summed into (n_out, ...) by
@@ -696,6 +700,7 @@ def _cuda_global_sweep(lib, check, dt, pid, mode, cell_t, jcam_t, jx_t,
 # ---------------------------------------------------------------------------
 
 
+@kernel_boundary
 def tile_linearize_local(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables,
                          loss="trivial", loss_scale=0.5, block_n=256,
                          plane_dtype=None, bins=None):
@@ -719,6 +724,7 @@ def tile_linearize_local(pts_pack, cell_t, xy0_t, xy1_t, mask_t, tables,
                            loss, loss_scale, block_n, plane_dtype, bins)
 
 
+@kernel_boundary
 def tile_sweep_local(cell_t, jcam_t, jx_t, binv_t, gp_t, v_locals,
                      mode="matvec", block_n=256, bins=None, sorted_jcam=None):
     """Fused sweep over a locality-blocked bucket.
@@ -741,6 +747,7 @@ def tile_sweep_local(cell_t, jcam_t, jx_t, binv_t, gp_t, v_locals,
                        True, n_chunks, Vl, bins, tile_sweep_local, sorted_jcam)
 
 
+@kernel_boundary
 def tile_sweep(cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells, mode="matvec",
                block_n=256, bins=None, sorted_jcam=None):
     """Fused bucket sweep against the global cell vector ``v_cells`` (V,

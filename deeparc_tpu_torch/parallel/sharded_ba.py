@@ -51,6 +51,7 @@ from deeparc_tpu_torch.solver.schur import (
     schur_maps,
     sys_r,
 )
+from deeparc_tpu_torch.utils import debug
 
 
 class ShardedScene(NamedTuple):
@@ -288,9 +289,10 @@ def solve_ba_sharded(sharded: ShardedScene,
         # one block, the whole solve
         k, status, _, seconds = run_blocks(
             loop, 0, options.max_iterations, max(options.max_iterations, 1),
-            float("inf"))
+            float("inf"), reducer=red, engine="indexed-sharded")
         state = loop.state
     else:
+        step = debug.checked_step(step, "indexed-sharded", red)
         k, t0 = 0, time.time()
         with torch.profiler.record_function(LM_LOOP):
             while int(state.status) == 0 and k < options.max_iterations:

@@ -55,6 +55,7 @@ from deeparc_tpu_torch.solver.rig_grid import (
     make_grid_step,
     mono_stack,
 )
+from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
 
@@ -153,8 +154,10 @@ def solve_ba_grid_sharded(params: BAParams, grid: GridIndex, free: BAParams,
     if driver == "while_loop":
         return solve_blocks(
             BlockLoop(step, (local, cam_free, point_free)), state, options,
-            while_block, checkpoint_path, gathered, red, logger)
+            while_block, checkpoint_path, gathered, red, logger,
+            engine="grid-sharded")
 
+    step = debug.checked_step(step, "grid-sharded", red)
     t0 = time.time()
     k = state.k
     if options.progress_to_stdout and lead:

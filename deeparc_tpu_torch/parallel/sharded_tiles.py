@@ -59,6 +59,7 @@ from deeparc_tpu_torch.solver.tiles import (
     unpermute_points,
     with_bins,
 )
+from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
 
@@ -244,8 +245,9 @@ def solve_ba_tiles_sharded(params_t: BAParams, tiles: TileIndex,
         return solve_blocks(
             BlockLoop(step, (local, cam_free, point_free)), state, options,
             while_block, checkpoint_path, original, red, logger,
-            result=row_space)
+            result=row_space, engine="tiles-sharded")
 
+    step = debug.checked_step(step, "tiles-sharded", red)
     t0 = time.time()
     k, cg_total = state.k, 0
     if options.progress_to_stdout and lead:

@@ -61,6 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "PCG sweeps re-read in half the bytes (every sum "
                         "stays in the working dtype)")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="enable NaN debugging: fail loudly at the first NaN "
+                        "(e.g. a point crossing z=0 in the perspective divide)")
     # filter (defaults: sfm.cc:112,122; DeepArcManager.cc:347-349,387)
     p.add_argument("--error-boundary", type=float, default=5.0)
     p.add_argument("--parity-inverted", action="store_true",
@@ -116,6 +119,10 @@ def main(argv=None) -> int:
     from deeparc_tpu_torch.pipeline.driver import run_pipeline
 
     device = check_device(args.device)
+    if args.debug_nans:
+        from deeparc_tpu_torch.utils.debug import set_nan_debugging
+
+        set_nan_debugging(True)
     if args.synthetic:
         data = make_hemisphere_rig(
             n_arc=args.n_arc, n_ring=args.n_ring, n_points=args.n_points,

@@ -32,6 +32,7 @@ from deeparc_tpu_torch.geometry.projection import (
     project_observation,
 )
 from deeparc_tpu_torch.scene import BAParams, SceneIndex
+from deeparc_tpu_torch.utils import debug
 
 # Per-observation camera-side parameter count: rot_outer(3) + t_outer(3) +
 # rot_inner(3) + t_inner(3) + center(2) + focal(2) + dist(2); structure
@@ -72,16 +73,25 @@ def gather_slices(params: BAParams, index: SceneIndex, rows=None):
 
 
 def residuals(params: BAParams, index: SceneIndex) -> torch.Tensor:
-    """Masked residuals (M, 2); dead observations contribute exactly zero."""
+    """Masked residuals (M, 2); dead observations contribute exactly zero.
+    Under ``utils.debug.nan_debugging`` a NaN in them raises."""
     cam, masks = gather_slices(params, index)
     r = project_observation(cam, masks, index.obs_xy)
-    return r * index.obs_mask[:, None]
+    r = r * index.obs_mask[:, None]
+    if debug.enabled():
+        debug.check_call(residuals, (params, index), r,
+                         "reprojection.residuals")
+    return r
 
 
 def cost(params: BAParams, index: SceneIndex) -> torch.Tensor:
-    """0.5 * sum of squared residuals (Ceres' cost convention)."""
+    """0.5 * sum of squared residuals (Ceres' cost convention); checked
+    as :func:`residuals` is."""
     r = residuals(params, index)
-    return 0.5 * torch.sum(r * r)
+    c = 0.5 * torch.sum(r * r)
+    if debug.enabled():
+        debug.check_call(cost, (params, index), c, "reprojection.cost")
+    return c
 
 
 def _obs_jacobian(cam_slice: CameraSlice, masks: StructureMasks,

@@ -25,6 +25,7 @@ import torch
 from deeparc_tpu_torch.config import SolverOptions
 from deeparc_tpu_torch.scene import BAParams, SceneIndex
 from deeparc_tpu_torch.solver import trust_region as tr_mod
+from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
 # the profiler's name for a solve's LM loop, under either driver, every
@@ -265,10 +266,10 @@ def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
         # one block, the whole solve: no wall-clock cap, no checkpoint
         k, status, _, seconds = run_blocks(
             loop, 0, options.max_iterations, max(options.max_iterations, 1),
-            float("inf"))
+            float("inf"), engine="indexed")
         return BAResult(params=loop.state.params, cost=float(loop.state.cost),
                         iterations=k, status=status, seconds=seconds)
-    step = make_step(index, free, options)
+    step = debug.checked_step(make_step(index, free, options), "indexed")
     ck = load_checkpoint(checkpoint_path, resume, params)
     if ck is not None:
         ck_params, scal = ck

@@ -42,6 +42,7 @@ import torch
 
 from deeparc_tpu_torch.kernels import graph_loop
 from deeparc_tpu_torch.solver.ba import LM_LOOP
+from deeparc_tpu_torch.utils import debug
 
 # called with each BlockLoop right after its graph is captured (the card's
 # measurements read the graph's nodes and the capture's time there)
@@ -50,12 +51,14 @@ capture_hooks: list = []
 
 def tree_leaves(tree) -> list:
     """The tensors of a state or input tree (NamedTuples, tuples, lists,
-    dataclasses), in order."""
+    dicts' values, dataclasses), in order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [t for f in dataclasses.fields(tree)
                 for t in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
     if isinstance(tree, (tuple, list)):
         return [t for x in tree for t in tree_leaves(x)]
     return []
@@ -230,15 +233,17 @@ class BlockLoop:
     def run(self, k_stop: int) -> tuple:
         """One block: step while status == 0 and k < k_stop. Returns
         (k, status, PCG iterations since :meth:`load`), the block's one
-        read by the host."""
+        read by the host. No NaN check runs inside (the driver checks the
+        state between blocks)."""
         self.k_stop.fill_(k_stop)
-        if self.state.k.is_cuda and self.graph is None:
-            self._capture()
-        t0 = time.perf_counter()
-        if self.state.k.is_cuda:
-            self.graph.replay()
-        else:
-            self._program()
+        with debug.suspended():
+            if self.state.k.is_cuda and self.graph is None:
+                self._capture()
+            t0 = time.perf_counter()
+            if self.state.k.is_cuda:
+                self.graph.replay()
+            else:
+                self._program()
         k, status, cg = self.out.tolist()
         self.block_seconds.append(time.perf_counter() - t0)
         return k, status, cg
@@ -246,22 +251,30 @@ class BlockLoop:
 
 def run_blocks(loop: BlockLoop, k: int, max_iterations: int,
                while_block: int, max_seconds: float, on_block=None,
-               agree=bool):
+               agree=bool, reducer=None, *, engine: str):
     """The host's loop between blocks, as the JAX package drives its
     ``jit_block``: the wall-clock cap is tested before each block (through
     ``agree``, which a sharded solve makes ``Reducer.agree``: rank 0's
     clock decides for every rank), blocks end at ``min(k + while_block,
     max_iterations)``, and ``on_block(k)`` (the checkpoint) runs after
-    each. Returns (k, status, PCG iterations, seconds)."""
+    each. Under ``utils.debug.nan_debugging`` the state read back after
+    each block is checked (``debug.check_block``, naming the ``engine``;
+    with ``reducer``, a sharded solve, over all ranks). Returns (k,
+    status, PCG iterations, seconds)."""
     if while_block < 1:
         raise ValueError(f"while_block must be >= 1, not {while_block}")
+    check = debug.enabled()
     t0 = time.time()
     status, cg = 0, 0
     with torch.profiler.record_function(LM_LOOP):
         while status == 0 and k < max_iterations:
             if agree(time.time() - t0 > max_seconds):
                 break
+            k0 = k
+            saved = tree_map(torch.clone, loop.state) if check else None
             k, status, cg = loop.run(min(k + while_block, max_iterations))
+            if check:
+                debug.check_block(loop, saved, k0, k, engine, reducer)
             if on_block is not None:
                 on_block(k)
     return k, status, cg, time.time() - t0
@@ -269,7 +282,7 @@ def run_blocks(loop: BlockLoop, k: int, max_iterations: int,
 
 def solve_blocks(loop: BlockLoop, state, options, while_block: int,
                  checkpoint_path: str | None, original, reducer=None,
-                 logger=None, result=None):
+                 logger=None, result=None, *, engine: str):
     """The ``driver="while_loop"`` solve of the grid and tile engines:
     :func:`run_blocks` from ``state`` with the solver-state checkpoint
     after each block (``original(state)`` gives the parameters in their
@@ -300,7 +313,7 @@ def solve_blocks(loop: BlockLoop, state, options, while_block: int,
     k, status, cg, seconds = run_blocks(
         loop, int(state.k), options.max_iterations, while_block,
         options.max_seconds, on_block,
-        bool if reducer is None else reducer.agree)
+        bool if reducer is None else reducer.agree, reducer, engine=engine)
     st = loop.state
     return BAResult(params=tree_map(torch.clone, (result or original)(st)),
                     cost=float(st.cost), iterations=k, status=status,

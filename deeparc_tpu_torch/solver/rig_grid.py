@@ -41,6 +41,7 @@ from deeparc_tpu_torch.solver.ba import (
     tr_of,
 )
 from deeparc_tpu_torch.solver.linalg import inv3x3, masked_spd_solve
+from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
 
@@ -658,6 +659,7 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
                                             points=ck_params.points[perm])
         state = init(ck_params)._replace(tr=tr_of(scal, params.points),
                                          k=scal["iteration"])
+    engine = "grid (fused trial)" if fuse_trial else "grid"
     if driver == "while_loop":
         from deeparc_tpu_torch.solver.device_loop import (
             BlockLoop,
@@ -667,7 +669,9 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
         return solve_blocks(
             BlockLoop(step, (grid, cam_free, point_free)), state, options,
             while_block, checkpoint_path,
-            lambda st: _params_from(st.cam_vec, unperm(st.points), params))
+            lambda st: _params_from(st.cam_vec, unperm(st.points), params),
+            engine=engine)
+    step = debug.checked_step(step, engine)
     t0 = time.time()
     k = state.k
     if options.progress_to_stdout:

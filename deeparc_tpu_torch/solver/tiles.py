@@ -72,6 +72,7 @@ from deeparc_tpu_torch.solver.linalg import inv3x3, pcg, pcg_device
 from deeparc_tpu_torch.solver.loss import rho as loss_rho
 from deeparc_tpu_torch.solver.loss import weight as loss_weight
 from deeparc_tpu_torch.solver.rig_grid import reductions, slot_params
+from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
 # target observations per chunk: rows-per-chunk = CHUNK_OBS // W
@@ -1263,12 +1264,13 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
         else:
             loop.set_inputs(inputs)
         res = solve_blocks(loop, state, options, while_block,
-                           checkpoint_path, original)
+                           checkpoint_path, original, engine="tiles")
         if not unpermute:
             pts = loop.state.points.clone()
             res = res._replace(params=dataclasses.replace(res.params,
                                                           points=pts))
         return res
+    step = debug.checked_step(step, "tiles")
     t0 = time.time()
     k, cg_total = state.k, 0
     if options.progress_to_stdout:

@@ -1,6 +1,7 @@
-"""Operational helpers: solver-state checkpoints, the JSONL logger and the
-phase timers (the port of ``deeparc_tpu.utils``, without its
-``jax.profiler`` trace hook and its NaN-debug toggles)."""
+"""Operational helpers: solver-state checkpoints, the JSONL logger, the
+phase timers, the profiler trace (``trace_to``) and the NaN-debug toggle
+(``debug.set_nan_debugging`` / ``debug.nan_debugging``); the port of
+``deeparc_tpu.utils``."""
 
 from deeparc_tpu_torch.utils.checkpoint import (
     load_solver_state,
@@ -11,7 +12,8 @@ from deeparc_tpu_torch.utils.profiling import (
     phase_report,
     phase_timer,
     reset_phases,
+    trace_to,
 )
 
 __all__ = ["JsonlLogger", "load_solver_state", "phase_report", "phase_timer",
-           "reset_phases", "save_solver_state"]
+           "reset_phases", "save_solver_state", "trace_to"]

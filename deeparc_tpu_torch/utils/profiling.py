@@ -1,11 +1,15 @@
-"""Host-side phase timers, PyTorch port of ``deeparc_tpu.utils.profiling``
-(without its ``jax.profiler`` trace hook). On a CUDA device a phase's
-timer synchronises the card at both ends, so the time is the card's work
-for the phase and not only the time to queue it."""
+"""Host-side phase timers and a profiler trace, PyTorch port of
+``deeparc_tpu.utils.profiling``. On a CUDA device a phase's timer
+synchronises the card at both ends, so the time is the card's work for
+the phase and not only the time to queue it. :func:`trace_to` is the
+counterpart of the reference's ``jax.profiler`` trace: a
+``torch.profiler`` trace written as a Chrome trace."""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import time
 from collections import defaultdict
 
@@ -45,3 +49,24 @@ def phase_report() -> dict:
 def reset_phases() -> None:
     _PHASE_TOTALS.clear()
     _PHASE_COUNTS.clear()
+
+
+_TRACES = itertools.count()
+
+
+@contextlib.contextmanager
+def trace_to(logdir: str):
+    """Profile the block with ``torch.profiler`` (CPU activities, plus
+    CUDA activities when torch sees a card) and write a Chrome trace
+    (``chrome://tracing``, Perfetto) into ``logdir`` on exit. Yields the
+    profiler; its ``trace_path`` is set on exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.trace_path = os.path.join(
+        logdir, f"trace_{os.getpid()}_{next(_TRACES)}.json")
+    prof.export_chrome_trace(prof.trace_path)

@@ -220,3 +220,134 @@ def test_phase_timer():
     assert sink["stage_a"] == pytest.approx(rep["stage_a"]["total_s"])
     reset_phases()
     assert phase_report() == {}
+
+
+def _degenerate(scene):
+    """The scene's parameters with point 0 on camera (0, 0)'s z = 0 plane
+    (that camera's frame is the world frame): the unguarded perspective
+    divide, ``src/snavely_reprojection_error.hh:49-50``."""
+    import dataclasses
+
+    pts = scene.params.points.clone()
+    pts[0] = torch.tensor([0.3, 0.3, 0.0], dtype=pts.dtype)
+    return dataclasses.replace(scene.params, points=pts)
+
+
+def test_nan_debugging_fails_loudly_on_degenerate_point():
+    """tests/test_utils.py:90-118 on the port: under the toggle the
+    residuals raise, naming the operator that made the NaN; the toggle
+    restored, the same call gives NaNs silently."""
+    from deeparc_tpu_torch.residuals.reprojection import residuals
+    from deeparc_tpu_torch.utils.debug import nan_debugging
+
+    scene = from_deeparc(_problem(), device="cpu")
+    bad = _degenerate(scene)
+    with nan_debugging(True):
+        with pytest.raises(FloatingPointError,
+                           match=r"reprojection\.residuals: first produced "
+                                 r"by aten\.\w+"):
+            residuals(bad, scene.index)
+    r = residuals(bad, scene.index)
+    assert not bool(torch.isfinite(r).all())
+
+
+@pytest.mark.parametrize("engine, driver, where", [
+    ("grid", "python", "the grid LM step of iteration 1"),
+    ("grid", "while_loop", "the grid LM step of iteration 1 "
+                           "(driver='while_loop')"),
+    ("tiles", "python", "the tiles LM step of iteration 1"),
+    # ITERATIVE_SCHUR: the step's PCG is a device loop, re-run in its plain
+    # form
+    ("tiles", "while_loop", "the tiles LM step of iteration 1 "
+                            "(driver='while_loop')"),
+    # the start cost is the indexed solve's first checked boundary
+    ("indexed", "python", "reprojection.residuals"),
+])
+def test_nan_debugging_names_the_engine_and_iteration(engine, driver, where):
+    """A degenerate point in each engine's solve: on, FloatingPointError
+    naming the engine's step (or boundary), the iteration and an
+    operator; off, the solve returns a NaN cost and raises nothing."""
+    import dataclasses
+    import math
+
+    from deeparc_tpu_torch.solver.ba import solve_ba
+    from deeparc_tpu_torch.solver.rig_grid import grid_from_scene, solve_ba_grid
+    from deeparc_tpu_torch.solver.tiles import solve_ba_tiles
+    from deeparc_tpu_torch.utils.debug import nan_debugging
+
+    scene = from_deeparc(_problem(), device="cpu")
+    free = freeze_masks(scene)
+    bad = dataclasses.replace(scene, params=_degenerate(scene))
+    opts = SolverOptions(max_iterations=2, progress_to_stdout=False)
+    solve = {
+        "grid": lambda: solve_ba_grid(bad.params, grid_from_scene(bad), free,
+                                      opts, driver=driver),
+        "tiles": lambda: solve_ba_tiles(
+            bad, free, dataclasses.replace(opts, linear_solver=(
+                "iterative_schur" if driver == "while_loop" else
+                opts.linear_solver)), chunk_obs=16, driver=driver),
+        "indexed": lambda: solve_ba(bad.params, bad.index, free, opts),
+    }[engine]
+    with nan_debugging(True):
+        with pytest.raises(FloatingPointError) as err:
+            solve()
+    assert where in str(err.value)
+    assert "first produced by aten." in str(err.value)
+    assert math.isnan(solve().cost)
+
+
+@pytest.mark.parametrize("driver", ["python", "while_loop"])
+def test_nan_debugging_off_checks_nothing_and_changes_no_bit(driver):
+    """A grid solve with the toggle off runs no check; on, it checks every
+    step (or block) and ends on the same bits."""
+    from deeparc_tpu_torch.solver.rig_grid import grid_from_scene, solve_ba_grid
+    from deeparc_tpu_torch.utils import debug
+
+    scene = from_deeparc(_problem(), device="cpu")
+    free, grid = freeze_masks(scene), grid_from_scene(scene)
+    opts = SolverOptions(max_iterations=4, progress_to_stdout=False)
+    runs = {}
+    for on in (False, True):
+        before = debug.checks
+        with debug.nan_debugging(on):
+            runs[on] = (solve_ba_grid(scene.params, grid, free, opts,
+                                      driver=driver, while_block=2),
+                        debug.checks - before)
+    (off, n_off), (on, n_on) = runs[False], runs[True]
+    assert n_off == 0 and n_on >= 2
+    assert off.cost == on.cost and off.iterations == on.iterations
+    for name in ("points", "ext_rot", "ext_trans"):
+        assert torch.equal(getattr(off.params, name), getattr(on.params, name))
+
+
+def test_trace_to_writes_a_trace_naming_a_torch_operator(tmp_path):
+    from deeparc_tpu_torch.solver.rig_grid import grid_from_scene, solve_ba_grid
+    from deeparc_tpu_torch.utils import trace_to
+
+    scene = from_deeparc(_problem(), device="cpu")
+    free, grid = freeze_masks(scene), grid_from_scene(scene)
+    with trace_to(str(tmp_path / "trace")) as prof:
+        solve_ba_grid(scene.params, grid, free,
+                      SolverOptions(max_iterations=2,
+                                    progress_to_stdout=False))
+    assert prof.trace_path.startswith(str(tmp_path / "trace"))
+    with open(prof.trace_path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
+
+
+def test_cli_debug_nans_runs_to_the_end(tmp_path):
+    """``python -m deeparc_tpu_torch.pipeline.cli --synthetic --device cpu
+    --debug-nans`` (here in-process, smaller) runs to the end."""
+    from deeparc_tpu_torch.pipeline.cli import main
+    from deeparc_tpu_torch.utils import debug
+
+    try:
+        rc = main(["--synthetic", "--device", "cpu", "--debug-nans",
+                   "--n-arc", "3", "--n-ring", "6", "--n-points", "300",
+                   "--max-iterations", "5", "--hemisphere-iterations", "50",
+                   "--no-snapshots", "--quiet", "-o", str(tmp_path)])
+        assert debug.enabled()
+    finally:
+        debug.set_nan_debugging(False)
+    assert rc == 0
