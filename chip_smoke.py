@@ -5,10 +5,11 @@
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
     python3 chip_smoke.py --cost-only        # the two cost wrappers alone
-    python3 chip_smoke.py --new-paths-only   # phases 10-15 alone
+    python3 chip_smoke.py --new-paths-only   # phases 10-16 alone
     python3 chip_smoke.py --new-paths-only 13   # the sharded engines alone
     python3 chip_smoke.py --new-paths-only 14   # the on-device LM driver
     python3 chip_smoke.py --new-paths-only 15   # the generated scenes
+    python3 chip_smoke.py --new-paths-only 16   # the impl paths
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -161,8 +162,27 @@ Phases (any failure raises and exits non-zero):
      cost, silently), and ``trace_to`` around two iterations of the
      monolithic grid solve, whose Chrome trace must name
      ``linearize_grid``'s kernel;
+  16. the impl paths without hand kernels of their own, float64: (a) one
+     30-PCG tile step on phase 6's windowed BAL layout under ``pallas``
+     (the kernel path) and ``xla`` (the torch chunk linearize and
+     sweeps), each split into the linearize, the kernel path's sweep
+     set-up, the rhs sweep, one matvec sweep, edot and the trial cost
+     (CUDA events), with its wall time, idle share and peak memory; the
+     two next states within 1e-9 relative of each other, the same accept
+     decision, the xla step run twice bit for bit; (b) the torch paths
+     under both drivers, the same bits: ``solve_tiles_prepared(impl=
+     "xla")`` on that layout (2 iterations; its graph holds the
+     ``gather_cells`` sums) and ``solve_ba_grid(impl="planes")`` on the
+     occlusion flagship (3 iterations); (c) ``solve_ba_grid`` on the
+     flagship (3 iterations) with ``impl="planes"`` (the fused step by
+     default), ``"einsum"`` (the same torch path: the same bits) and
+     ``band="none"`` (the monolithic kernels, their launches counted)
+     against the kernel path's banded solve: s/iteration, peak memory,
+     the same iterations, costs within 1e-9 relative; (d) the CLI with
+     ``--impl planes`` on a synthetic rig and ``--impl xla`` on a
+     ``.bal`` file: exit 0 and the outputs written;
 then one JSON line with the probes' entry points' results, one with
-phases 10-15's records, one with the nine kernels' records (errors,
+phases 10-16's records, one with the nine kernels' records (errors,
 milliseconds, the bound, launches on the main paths, on phase 13's
 sharded paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
@@ -3352,13 +3372,329 @@ def phase_generated(args, host_s):
     return rec
 
 
-def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15), uniform=None,
+# ---------------------------------------------------------------------------
+# The remaining impl paths (phase 16)
+# ---------------------------------------------------------------------------
+
+# the tile impls' steps from one state: the same algebra, summed in other
+# orders, so their costs and iterates within this relative difference
+IMPL_RTOL = 1e-9
+# LM iterations of 16b's xla tile solve and its block; of 16b's and 16c's
+# grid solves
+XLA_ITERATIONS = (2, 2)
+GRID_IMPL_ITERATIONS = 3
+# 16c's torch-path and band="none" solves against the kernel path's: the
+# same iterates, costs within this relative difference (planes takes the
+# fused step, whose cost is the linearize's)
+GRID_IMPL_COST_RTOL = 1e-9
+# the hand kernels the torch paths' graphs must hold: the tile engine's
+# fixed-order sums (sum_rows); the grid's plain versions launch none
+REPLAY_KERNELS["xla, windowed BAL scene"] = ("gather_cells", "set_condition")
+REPLAY_KERNELS["planes, occlusion flagship"] = ("set_condition",)
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| / max |b| (0 where both are 0)."""
+    import torch
+
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    scale = float(torch.max(torch.abs(b)))
+    return float(torch.max(torch.abs(a - b))) / scale if scale else 0.0
+
+
+def impl_step_split(impl, layout, opts):
+    """Phase 16a, one impl: one 30-PCG tile step (float64) from the
+    layout's start state: host wall time around the synchronised step
+    (median of 3), peak memory of one step, the idle share over one
+    profiled step (:func:`step_profile`), and each part timed alone with
+    CUDA events: the linearize (the xla path bins in it), the kernel
+    path's sweep set-up (its planes and sorted copy), the rhs sweep, one
+    matvec sweep, edot and the trial cost. Returns (the next state, info,
+    record, the step's runner)."""
+    import torch
+
+    from deeparc_tpu_torch.solver.linalg import inv3x3
+    from deeparc_tpu_torch.solver.tiles import (
+        _e_dot_cells,
+        _e_sweep,
+        _make_kernel_sweeps,
+        init_tile_state,
+        linearize_tiles,
+        linearize_tiles_mixed,
+        make_tile_step,
+        tile_cost,
+    )
+
+    tiles, params_t, free_t, packed, cam_free = layout
+    C, V = cam_free.numel(), tiles.cells.cols.shape[0]
+    step = make_tile_step(opts, params_t, impl=impl)
+    state = init_tile_state(params_t, tiles, opts, cam_free)
+    run = lambda: step(state, tiles, cam_free, free_t)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nxt, info = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = wall_ms(run, 3)
+    _, busy, window = step_profile(run)
+
+    kernels = impl == "pallas"
+    if kernels:
+        lin = lambda: linearize_tiles_mixed(state.points, packed, tiles,
+                                            free_t, C)
+    else:
+        lin = lambda: linearize_tiles(state.points, packed, tiles, free_t, C)
+    parts = {"linearize": time_ms(lin, 3)}
+    sys_, planes = lin() if kernels else (lin(), None)
+    binv = inv3x3(sys_.hpp + torch.eye(3, dtype=sys_.hpp.dtype,
+                                       device="cuda"))
+    if kernels:
+        setup = lambda: _make_kernel_sweeps(tiles, sys_, binv, planes, None,
+                                            256)
+        parts["sweep set-up"] = time_ms(setup, 3)
+        sweep, edot = setup()
+    else:
+        sweep = lambda v, rhs: _e_sweep(tiles, sys_, binv, v, rhs)
+        edot = lambda v: _e_dot_cells(tiles, sys_, v)
+    v = torch.randn((V, 18), dtype=torch.float64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    parts["rhs sweep"] = time_ms(lambda: sweep(None, True), 3)
+    parts["matvec sweep"] = time_ms(lambda: sweep(v, False), 3)
+    # the matvec sweep's device time by kernel, its five largest
+    top = sorted(device_ms(lambda: sweep(v, False)).items(),
+                 key=lambda kv: -kv[1])[:5]
+    parts["edot"] = time_ms(lambda: edot(v), 3)
+    parts["trial cost"] = time_ms(lambda: tile_cost(state.points, packed,
+                                                    tiles), 3)
+    rec = dict(wall_ms=wall, parts_ms=parts, device_busy_ms=busy,
+               window_ms=window, idle_share=idle_share(busy, window),
+               peak_gib=peak, cg_iterations=int(info.cg_iters),
+               accepted=bool(info.accepted), matvec_kernels_ms=dict(top))
+    print(f"  {impl}: one LM step (f64, {info.cg_iters} PCG iterations, "
+          f"accepted {bool(info.accepted)}): wall {wall:.3f} ms (median of "
+          f"3); device ms by part (each alone): "
+          + ", ".join(f"{k} {x:.3f}" for k, x in parts.items())
+          + f"; device busy {busy:.3f} of {window:.3f} ms of the profiled "
+          f"step, idle share {rec['idle_share']:.4f}; peak memory "
+          f"{peak:.2f} GiB")
+    print(f"    its matvec sweep's largest kernels (device ms): "
+          + "; ".join(f"{n[:60]} {x:.3f}" for n, x in top))
+    del sys_, planes, binv
+    return nxt, info, rec, run
+
+
+def phase_impls(args, flagship, tile_layout_=None):
+    """Phase 16: the impl paths that no hand kernel of their own carries,
+    float64 on the card. (a) one 30-PCG tile step on phase 6's windowed
+    BAL layout under ``pallas`` (the kernel path) and ``xla`` (the torch
+    chunk linearize and sweeps), each split by :func:`impl_step_split`;
+    the two next states within ``IMPL_RTOL`` of each other in cost,
+    points and camera vector, with the same accept decision, and the xla
+    step run twice bit for bit. (b) the torch paths under both drivers
+    (:func:`device_loop_case`, not profiled): ``solve_tiles_prepared(
+    impl="xla")`` on that layout and ``solve_ba_grid(impl="planes")`` on
+    the occlusion flagship, the same bits, s/iteration. (c)
+    ``solve_ba_grid`` on the flagship with ``impl="planes"`` (fused by
+    default) and ``"einsum"`` (the same bits: one torch path) and with
+    ``band="none"`` (the monolithic kernels, their launches counted)
+    against the kernel path's banded solve: s/iteration, peak memory,
+    final cost within ``GRID_IMPL_COST_RTOL``. (d) the CLI with ``--impl
+    planes`` on a small synthetic rig and ``--impl xla`` on a small
+    ``.bal`` (outputs under ``build/chip_smoke_cli/``, removed after).
+    Returns the records."""
+    import os
+    import shutil
+
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.io import make_bal_synthetic, make_bal_windowed_host
+    from deeparc_tpu_torch.pipeline.cli import main as cli_main
+    from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_from_scene,
+        solve_ba_grid,
+    )
+    from deeparc_tpu_torch.solver.tiles import solve_tiles_prepared
+
+    print("[phase 16] the impl paths: the tile engine's xla step against "
+          "the kernel path, both drivers on the torch paths, the grid's "
+          "planes / einsum / band='none', --impl; float64")
+    t_phase = time.time()
+    rec = {}
+    if tile_layout_ is None:
+        tile_layout_ = tile_layout(make_bal_windowed_host(
+            n_points=args.tile_points, seed=0, **TILE_SCENE), True)
+    tiles, params_t, free_t, packed, cam_free = tile_layout_
+    n_live = int(sum(float(b.mask.sum()) for b in tiles.buckets))
+    opts = SolverOptions(linear_solver="iterative_schur",
+                         cg_max_iterations=30)
+    steps = {}
+    for impl in ("pallas", "xla"):
+        nxt, info, rec[f"step {impl}"], run = impl_step_split(
+            impl, tile_layout_, opts)
+        steps[impl] = (nxt, bool(info.accepted))
+        if impl == "xla":
+            check_step_repeats(run, "xla tile step")
+            print("  xla: the step run twice: the same bits")
+        del run, nxt, info
+        torch.cuda.empty_cache()
+    (ref, ref_acc), (got, acc) = steps["pallas"], steps["xla"]
+    diffs = {f: rel_diff(getattr(got, f), getattr(ref, f))
+             for f in ("cost", "points", "cam_vec")}
+    rec["step xla"]["rel_to_pallas"] = diffs
+    print(f"  xla against pallas: relative differences "
+          + ", ".join(f"{f} {d:.3e}" for f, d in diffs.items())
+          + f" (tol {IMPL_RTOL:g}); accept {acc} / {ref_acc}")
+    if acc != ref_acc or max(diffs.values()) > IMPL_RTOL:
+        raise AssertionError("the xla tile step strays from the kernel "
+                             "path's")
+    del steps, ref, got
+    torch.cuda.empty_cache()
+
+    iters, block = XLA_ITERATIONS
+    run_on = dict(function_tolerance=0.0, parameter_tolerance=0.0,
+                  gradient_tolerance=0.0, progress_to_stdout=False)
+    xopts = SolverOptions(max_iterations=iters, **run_on,
+                          linear_solver="iterative_schur",
+                          cg_max_iterations=30)
+    print(f"  (b) the torch paths under both drivers: "
+          f"solve_tiles_prepared(impl='xla'), {iters} iterations")
+    case = device_loop_case(
+        "xla, windowed BAL scene", lambda driver: solve_tiles_prepared(
+            params_t, tiles, free_t, cam_free, xopts, impl="xla",
+            driver=driver, while_block=block), profiled=False)
+    case["rmse_px"] = (2.0 * case["cost"] / n_live) ** 0.5
+    print(f"    RMSE {case['rmse_px']:.6f} px after {case['iterations']} "
+          f"iterations")
+    rec["xla solve"] = case
+    del tiles, params_t, free_t, packed, cam_free, tile_layout_
+    torch.cuda.empty_cache()
+
+    scene = from_deeparc(flagship, dtype=torch.float64, device="cuda")
+    grid, free = grid_from_scene(scene), freeze_masks(scene)
+    gopts = SolverOptions(max_iterations=GRID_IMPL_ITERATIONS, **run_on)
+    print(f"    solve_ba_grid(impl='planes') on the occlusion flagship, "
+          f"{GRID_IMPL_ITERATIONS} iterations")
+    rec["planes solve"] = device_loop_case(
+        "planes, occlusion flagship", lambda driver: solve_ba_grid(
+            scene.params, grid, free, gopts, impl="planes", driver=driver,
+            while_block=GRID_IMPL_ITERATIONS), profiled=False)
+    torch.cuda.empty_cache()
+
+    print(f"  (c) solve_ba_grid on the occlusion flagship, "
+          f"{GRID_IMPL_ITERATIONS} iterations (Python driver)")
+    grid_rec = {}
+    for label, kw in (("kernels (banded)", {}),
+                      ("planes", dict(impl="planes")),
+                      ("einsum", dict(impl="einsum")),
+                      ("band='none'", dict(band="none"))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        k.reset_launch_counts()
+        res = solve_ba_grid(scene.params, grid, free, gopts, **kw)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in (
+            k.linearize_grid_banded, k.cost_grid_banded, k.linearize_grid,
+            k.cost_grid)}
+        r = dict(iterations=res.iterations, cost=res.cost,
+                 s_per_iteration=res.seconds / max(res.iterations, 1),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 launches=launches)
+        base = grid_rec.get("kernels (banded)")
+        if base is not None:
+            r["rel_cost_to_kernels"] = abs(r["cost"] - base["cost"]) / abs(
+                base["cost"])
+        grid_rec[label] = r
+        print(f"    {label}: {r['iterations']} iterations, cost "
+              f"{r['cost']:.12e}, {r['s_per_iteration']:.6f} s/iteration, "
+              f"peak {r['peak_gib']:.2f} GiB, grid kernel launches "
+              f"{launches}"
+              + (f", relative cost difference to the kernel path "
+                 f"{r['rel_cost_to_kernels']:.3e} (tol "
+                 f"{GRID_IMPL_COST_RTOL:g})" if base is not None else ""))
+        if base is not None and (
+                r["iterations"] != base["iterations"]
+                or not r["rel_cost_to_kernels"] <= GRID_IMPL_COST_RTOL):
+            raise AssertionError(f"the grid solve with {label} strays from "
+                                 f"the kernel path's")
+        del res
+    if grid_rec["kernels (banded)"]["launches"]["linearize_grid_banded"] < 1:
+        raise AssertionError("the kernel path's solve took no band")
+    none = grid_rec["band='none'"]["launches"]
+    if (none["linearize_grid"] < 1 or none["cost_grid"] < 1
+            or none["linearize_grid_banded"] or none["cost_grid_banded"]):
+        raise AssertionError(f"band='none' did not run the monolithic "
+                             f"kernels alone: {none}")
+    for label in ("planes", "einsum"):
+        if any(grid_rec[label]["launches"].values()):
+            raise AssertionError(f"impl={label} launched a grid kernel")
+    if grid_rec["einsum"]["cost"] != grid_rec["planes"]["cost"]:
+        raise AssertionError("impl='einsum' and 'planes' (one torch path) "
+                             "gave other bits")
+    rec["grid"] = grid_rec
+    del scene, grid, free
+    torch.cuda.empty_cache()
+
+    print("  (d) the CLI with --impl")
+    work = os.path.join("build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bal = make_bal_synthetic(n_cameras=16, n_points=2000, pixel_noise=0.5,
+                             point_noise=0.02, seed=4).data
+    bal_path = os.path.join(work, "scene.bal")
+    write_bal(bal_path, bal)
+    cli = {}
+    for label, argv in (
+            ("planes", ["--synthetic", "--n-arc", "4", "--n-ring", "8",
+                        "--n-points", "2000", "--impl", "planes"]),
+            ("xla", [bal_path, "--impl", "xla", "--linear-solver",
+                     "iterative_schur"])):
+        out = os.path.join(work, label)
+        t0 = time.time()
+        rc = cli_main(argv + ["--max-iterations", "20", "--no-snapshots",
+                              "--quiet", "-o", out])
+        written = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        cli[label] = dict(rc=rc, seconds=time.time() - t0, written=written)
+        print(f"    --impl {label}: exit {rc}, {cli[label]['seconds']:.1f} "
+              f"s, wrote {written}")
+        if rc != 0 or not any(f.endswith("_output.deeparc")
+                              for f in written):
+            raise AssertionError(f"the CLI with --impl {label} failed")
+    shutil.rmtree(work)
+    rec["cli"] = cli
+    rec["phase_seconds"] = time.time() - t_phase
+    print(f"  phase 16 took {rec['phase_seconds']:.1f} s")
+    return rec
+
+
+def write_bal(path, data):
+    """A BAL file of a non-shared synthetic scene: BAL has no principal
+    point and projects with -f, so observations are shifted to the centre
+    and the focal length is stored negated."""
+    import numpy as np
+
+    cam = np.concatenate([data.ext_rot, data.ext_trans, -data.focal[:, :1],
+                          data.dist], axis=1)
+    xy = data.obs_xy - data.center[data.obs_arc]
+    with open(path, "w") as f:
+        f.write(f"{cam.shape[0]} {data.n_points} {data.n_obs}\n")
+        for c, p, (x, y) in zip(data.obs_arc, data.obs_point, xy):
+            f.write(f"{c} {p} {x:.17g} {y:.17g}\n")
+        for v in np.concatenate([cam.reshape(-1), data.points.reshape(-1)]):
+            f.write(f"{v:.17g}\n")
+
+
+def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15, 16), uniform=None,
               tile_data=None, layout=None, host_s=None):
-    """Phases 10-15 (those in ``phases``) on the occlusion flagship
-    ``data`` (phase 13 also on ``uniform`` and ``tile_data``, phase 14 on
-    ``uniform`` and phase 6's locality ``layout``, made here when not
-    given; phase 15 on its generated scenes, beside the host scenes'
-    seconds ``host_s``); their records, and the sharded paths'
+    """Phases 10-16 (those in ``phases``) on the occlusion flagship
+    ``data`` (phase 13 also on ``uniform`` and ``tile_data``, phases 14
+    and 16 on phase 6's locality ``layout``, 14 also on ``uniform``, made
+    here when not given; phase 15 on its generated scenes, beside the host
+    scenes' seconds ``host_s``); their records, and the sharded paths'
     launches."""
     import torch
 
@@ -3385,6 +3721,9 @@ def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15), uniform=None,
     if 15 in phases:
         torch.cuda.empty_cache()
         out["generated"] = phase_generated(args, host_s or {})
+    if 16 in phases:
+        torch.cuda.empty_cache()
+        out["impls"] = phase_impls(args, data, layout)
     return out, sharded
 
 
@@ -3430,13 +3769,13 @@ def main(argv=None) -> int:
                     help="after the build, time only the two cost wrappers "
                          "(an A/B or ablation of cost_band) and exit")
     ap.add_argument("--new-paths-only", nargs="?",
-                    const="10,11,12,13,14,15", default=None,
+                    const="10,11,12,13,14,15,16", default=None,
                     metavar="PHASES",
-                    help="after the build, run only these of phases 10-15 "
+                    help="after the build, run only these of phases 10-16 "
                          "(indexed engine, incremental BA, checkpoint/"
                          "resume, the sharded engines, the on-device LM "
-                         "driver, the generated scenes; default all six) "
-                         "and exit")
+                         "driver, the generated scenes, the impl paths; "
+                         "default all seven) and exit")
     args = ap.parse_args(argv)
 
     import torch

@@ -85,7 +85,9 @@ class PipelineOptions:
     # sweeps re-read every iteration ("bf16" stores them in 2 bytes; every
     # sum stays in the working dtype — see solver/tiles.make_tile_step)
     sweep_dtype: str | None = None
-    # kernel implementation inside the chosen engine. The port runs the
-    # hand kernels (their plain versions on CPU tensors): 'auto' and
-    # 'pallas' select them; 'planes' / 'xla' / 'einsum' are not ported.
+    # implementation inside the chosen engine: 'auto' / 'pallas' = the hand
+    # kernels (their plain versions on CPU tensors); 'planes' / 'einsum' =
+    # the grid engine's torch path, 'xla' the tile engine's (the grid
+    # engine reads 'xla' as 'planes', the tile engine 'planes' / 'einsum'
+    # as 'xla'); 'dual' raises (not ported, solver/tiles.py)
     impl: str = "auto"

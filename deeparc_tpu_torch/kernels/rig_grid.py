@@ -476,7 +476,14 @@ def _plain_linearize(prep, loss, loss_scale):
                + torch.einsum("agwn,bgwn->gwab", P1, P1))
         vals = torch.cat([g_s.permute(1, 2, 0),
                           h_s.reshape(gc, -1, n_p * n_p)], dim=-1)
-        ghs.index_add_(0, rows.reshape(-1), vals.reshape(-1, vals.shape[-1]))
+        # a tile's rows are distinct: place each tile's into its own
+        # slab, then sum the slabs in order (no atomics, so the sum
+        # repeats bit for bit on the card too)
+        slabs = torch.zeros((gc, t_ext, vals.shape[-1]), dtype=dtype,
+                            device=dev)
+        slabs.scatter_(1, rows[:, :, None].expand(-1, -1, vals.shape[-1]),
+                       vals)
+        ghs += slabs.sum(dim=0)
         # E: one-hot contractions over the band's cells
         W = (torch.einsum("agwn,jgwn->ajgwn", J0, P0)
              + torch.einsum("agwn,jgwn->ajgwn", J1, P1))

@@ -300,7 +300,7 @@ def solve_ba_grid_multihost(params, grid, free, options=None, mesh=None,
                             checkpoint_path: str | None = None,
                             checkpoint_every: int = 10, resume: bool = False,
                             logger=None, driver: str = "python",
-                            while_block: int = 10):
+                            while_block: int = 10, impl: str = "auto"):
     """Grid-engine LM solve sharded over a (hosts, chips) mesh.
 
     The math of :func:`sharded_grid.solve_ba_grid_sharded`, to which this
@@ -309,7 +309,7 @@ def solve_ba_grid_multihost(params, grid, free, options=None, mesh=None,
     cap ``options.max_seconds`` (``src/sfm.cc:71``), checkpoints written by
     rank 0, one log line per iteration (``driver="python"``) or per block
     of ``while_block`` iterations (``driver="while_loop"``, as the
-    reference runs it)."""
+    reference runs it). ``impl`` is that solve's."""
     from deeparc_tpu_torch.config import SolverOptions
     from deeparc_tpu_torch.parallel.sharded_grid import solve_ba_grid_sharded
 
@@ -321,4 +321,4 @@ def solve_ba_grid_multihost(params, grid, free, options=None, mesh=None,
         params, grid, free, options, mesh=mesh, axis=data_axes(),
         chunk_size=chunk_size, checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, resume=resume, logger=logger,
-        driver=driver, while_block=while_block)
+        driver=driver, while_block=while_block, impl=impl)

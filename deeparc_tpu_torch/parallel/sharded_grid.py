@@ -3,7 +3,8 @@ a process group, PyTorch port of ``deeparc_tpu.parallel.sharded_grid``.
 
 Each rank holds a contiguous block of the (N points x T cells) grid's rows
 (xy, mask, point masks) and of the points, and runs the monolithic grid
-kernels (``linearize_grid``, ``cost_grid``) on them: H_pp, g_p, the E
+kernels (``linearize_grid``, ``cost_grid``; the torch paths under
+``impl="planes"`` / ``"einsum"``) on them: H_pp, g_p, the E
 coupling rows and the back-substitution are rank-local. Only the small
 camera system crosses the group, through the step's reducer
 (``solver.rig_grid.make_grid_step(reducer=...)``): g_c (C,), H_cc and the
@@ -97,12 +98,15 @@ def solve_ba_grid_sharded(params: BAParams, grid: GridIndex, free: BAParams,
                           checkpoint_path: str | None = None,
                           checkpoint_every: int = 10, resume: bool = False,
                           logger=None, driver: str = "python",
-                          while_block: int = 10) -> BAResult:
+                          while_block: int = 10,
+                          impl: str = "auto") -> BAResult:
     """LM to convergence with the points sharded over the ranks of the
     process group (``mesh`` / ``axis`` as ``multihost.reducer_for``; by
     default the whole world, a one-rank group started here if none is).
     Every rank passes the whole problem and gets the whole result: the
-    points come back gathered, in their original order.
+    points come back gathered, in their original order. ``impl`` is
+    ``solve_ba_grid``'s: the monolithic kernels by default, the torch
+    paths for "planes" / "einsum"; each rank runs it on its rows.
 
     ``driver="python"``: one Python-driven step at a time, like
     ``solve_ba_grid``: the wall-clock cap ``options.max_seconds``
@@ -132,13 +136,14 @@ def solve_ba_grid_sharded(params: BAParams, grid: GridIndex, free: BAParams,
     # the monolithic kernels' plane stack of this rank's rows, once a solve,
     # in solve_ba_grid's tiles
     pxm = mono_stack(local, (min(chunk_size, 256), 1024))
-    step = make_grid_step(options, params_p, chunk_size, pxm=pxm,
+    step = make_grid_step(options, params_p, chunk_size, impl=impl, pxm=pxm,
                           reducer=red)
 
     def init(p: BAParams):
         """The start state of whole-problem (padded) parameters ``p``."""
         p = dataclasses.replace(p, points=p.points[rows])
-        return init_grid_state(p, local, options, pxm=pxm, reducer=red)
+        return init_grid_state(p, local, options, impl, pxm=pxm,
+                               reducer=red)
 
     def gathered(st):
         pts = red.gather_rows(st.points)[:N]

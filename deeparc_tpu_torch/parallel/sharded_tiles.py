@@ -168,7 +168,8 @@ def solve_ba_tiles_sharded(params_t: BAParams, tiles: TileIndex,
                            checkpoint_every: int = 10, resume: bool = False,
                            logger=None, sweep_dtype=None,
                            driver: str = "python",
-                           while_block: int = 10) -> BAResult:
+                           while_block: int = 10,
+                           impl: str = "auto") -> BAResult:
     """Tile-engine LM to convergence with the bucket rows sharded over the
     ranks of the process group (``mesh`` / ``axis`` as
     ``multihost.reducer_for``; by default the whole world, a one-rank group
@@ -177,7 +178,8 @@ def solve_ba_tiles_sharded(params_t: BAParams, tiles: TileIndex,
     Inputs are the caller's ROW-SPACE arrays (``tiles_from_scene``), the
     same on every rank; each rank pads and slices them
     (:func:`shard_tile_rows`, :func:`local_tiles`). Returns a BAResult in
-    the caller's row space, gathered on every rank.
+    the caller's row space, gathered on every rank. ``impl`` is
+    ``make_tile_step``'s: the kernels by default, "xla" the torch paths.
 
     ``driver="python"``: one Python-driven step at a time, like
     ``solve_tiles_prepared``: the wall-clock cap ``options.max_seconds``
@@ -206,7 +208,7 @@ def solve_ba_tiles_sharded(params_t: BAParams, tiles: TileIndex,
     rows = local_rows(params_p.points.shape[0], rank, n)
     local = local_tiles(tiles_p, rank, n)
     point_free = pf_p[rows]
-    step = make_tile_step(options, params_p, sweep_dtype=sweep_dtype,
+    step = make_tile_step(options, params_p, impl, sweep_dtype=sweep_dtype,
                           reducer=red, device_loop=driver == "while_loop")
 
     def init(p: BAParams):

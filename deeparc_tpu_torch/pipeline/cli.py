@@ -60,6 +60,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tile engine: bf16 stores the Jacobian planes the "
                         "PCG sweeps re-read in half the bytes (every sum "
                         "stays in the working dtype)")
+    p.add_argument("--impl", default="auto",
+                   choices=["auto", "pallas", "planes", "einsum", "xla"],
+                   help="implementation inside the engine: auto / pallas = "
+                        "the hand CUDA kernels (their plain PyTorch "
+                        "versions with --device cpu); planes / einsum = the "
+                        "grid engine's torch paths (the tile engine runs "
+                        "xla for both); xla = the tile engine's torch paths "
+                        "(the grid engine runs planes)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--debug-nans", action="store_true",
                    help="enable NaN debugging: fail loudly at the first NaN "
@@ -153,6 +161,7 @@ def main(argv=None) -> int:
         engine=args.engine,
         devices=args.devices,
         sweep_dtype=args.sweep_dtype,
+        impl=args.impl,
     )
     dtype = torch.float32 if args.f32 else torch.float64
     if args.incremental:

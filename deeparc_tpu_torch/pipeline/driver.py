@@ -15,7 +15,9 @@ A shared-extrinsic rig runs on the grid engine (``solve_ba_grid``: the
 banded kernels when ``band_grid`` finds locality, the monolithic ones
 otherwise); a non-shared (BAL-style) scene runs on the tile engine
 (``solve_tiles_prepared`` on one layout that every round reuses, the
-filter editing its mask planes); ``engine="indexed"`` runs the
+filter editing its mask planes), each through ``options.impl`` as the
+reference routes it (:func:`grid_impl`, :func:`tile_impl`);
+``engine="indexed"`` runs the
 observation-list engine (``solve_ba``, the scene compacted between
 rounds). ``engine="grid-sharded"`` / ``"tiles-sharded"`` run the same
 loop with every solve sharded over the ranks of the process group
@@ -131,6 +133,28 @@ def rmse_px(scene: Scene) -> float:
     return float(np.sqrt(float(torch.sum(r * r)) / n))
 
 
+def grid_impl(impl: str) -> str:
+    """The grid engine's impl for ``options.impl``: the tile engine's
+    name "xla" means the grid's torch path "planes" (as in the
+    reference); "auto" keeps the kernels."""
+    return "planes" if impl == "xla" else impl
+
+
+def tile_impl(impl: str) -> str:
+    """The tile engine's impl for ``options.impl``: the grid engine's
+    names "planes" / "einsum" mean its torch path "xla" (as in the
+    reference); "auto" keeps the kernels."""
+    return "xla" if impl in ("planes", "einsum") else impl
+
+
+def _route(impl: str, dev: torch.device) -> str:
+    from deeparc_tpu_torch.solver.rig_grid import KERNEL_IMPLS
+
+    if impl not in KERNEL_IMPLS:
+        return "torch ops"
+    return "kernels=" + ("cuda" if dev.type == "cuda" else "plain torch")
+
+
 def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
                  sharded=False):
     """The freeze solve and the solve/filter rounds on the grid engine
@@ -147,21 +171,22 @@ def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
     )
 
     dev, dtype = scene.params.points.device, scene.params.points.dtype
+    impl = grid_impl(options.impl)
     grid = grid_from_scene(scene)
     log(f"[deeparc] engine={'grid-sharded' if sharded else 'grid'} "
         f"({grid.mask.shape[1]} cells, "
         f"{float(grid.mask.mean()) * 100:.1f}% grid density, "
-        f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
+        f"impl={impl}, {_route(impl, dev)})")
     hemi_center = torch.as_tensor(hemi[:3], dtype=dtype, device=dev)
     band_state: dict = {}    # band prep shared across filter rounds
 
     def run_solve(free):
         if sharded:
             res = solve_ba_grid_sharded(scene.params, grid, free,
-                                        options.solver)
+                                        options.solver, impl=impl)
         else:
             res = solve_ba_grid(scene.params, grid, free, options.solver,
-                                band_reuse=band_state)
+                                band_reuse=band_state, impl=impl)
         totals["iterations"] += res.iterations
         totals["seconds"] += res.seconds
         return res
@@ -225,6 +250,7 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
     )
 
     dev, dtype = scene.params.points.device, scene.params.points.dtype
+    impl = tile_impl(options.impl)
     free0 = freeze_masks(scene)
     tiles, params_t, free_t, slot_src = tiles_from_scene(
         scene, free0, with_slot_src=True)
@@ -233,7 +259,7 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
         f"({tiles.cells.cols.shape[0]} cells, "
         f"{len(tiles.buckets)} width buckets "
         f"{[b.cell.shape[1] for b in tiles.buckets]}, v_local={v_loc}, "
-        f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
+        f"impl={impl}, {_route(impl, dev)})")
     cam_free_full = flatten_camera(free0)
     cam_free_frozen = flatten_camera(freeze_masks(scene, freeze_camera=True))
     sweep_dtype = torch.bfloat16 if options.sweep_dtype == "bf16" else None
@@ -244,10 +270,10 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
         if sharded:
             res = solve_ba_tiles_sharded(params_cur, tiles_cur, free_rows,
                                          cam_free, options.solver,
-                                         sweep_dtype=sweep_dtype)
+                                         sweep_dtype=sweep_dtype, impl=impl)
         else:
             res = solve_tiles_prepared(params_cur, tiles_cur, free_rows,
-                                       cam_free, options.solver,
+                                       cam_free, options.solver, impl=impl,
                                        unpermute=False,
                                        sweep_dtype=sweep_dtype,
                                        _cache=solve_cache)
@@ -389,11 +415,6 @@ def run_pipeline(data: DeepArcData,
         if options.devices is not None and options.devices != world:
             raise ValueError(f"devices={options.devices} in a world of "
                              f"{world} ranks: {world_hint(options.devices)}")
-    if options.impl not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"impl={options.impl!r}: the port runs its engines through the "
-            "hand kernels only (the einsum/planes/xla impls are left out, "
-            "ROADMAP.md Queue 1)")
     use_grid = engine in ("grid", "grid-sharded") or (
         engine == "auto" and data.share_extrinsic)
 

@@ -6,11 +6,14 @@ line.
 
     python -m deeparc_tpu_torch.scripts.vpu_roofline            # the card
     python -m deeparc_tpu_torch.scripts.microbench_sweep_payload
+    python -m deeparc_tpu_torch.scripts.dual_sweeps
     ... --device cpu    # the plain versions, at a small size (tests)
 
-Each prints one JSON line. On the card they time the hand-written probe
-kernels of ``kernels/probes.py``; ``--device cpu`` runs the plain versions
-and times the CPU, which says nothing about the card.
+Each prints one JSON line. On the card the first two time the
+hand-written probe kernels of ``kernels/probes.py``, the third the
+reference's camera-major dual sweeps against the tile sweep kernels;
+``--device cpu`` runs the plain versions and times the CPU, which says
+nothing about the card.
 """
 
 from __future__ import annotations

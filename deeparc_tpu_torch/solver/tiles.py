@@ -15,15 +15,24 @@ Layout (built on the host, identical to the reference's):
     cell, and each chunk of B rows gets a small local cell table, so the
     kernels look up and bin against V_local << V cells.
 
-Each LM step linearizes every bucket (the fused ``tile_linearize_local``
-kernel for narrow locality-blocked buckets, the torch chunk path for the
-rest), solves the reduced camera system matrix-free by PCG (ITERATIVE_SCHUR
-with block-Jacobi) whose matvec is one sweep over the observations
-(``tile_sweep_local`` / ``tile_sweep`` for buckets of width <= 64, the
-torch sweeps for wider ones), back-substitutes the points and evaluates
-the trial cost, under the same Ceres trust-region law as the other
-engines. The tensors' device picks the hand kernels (CUDA) or their plain
-versions (CPU); the routing is the same on both.
+Each LM step linearizes every bucket, solves the reduced camera system
+matrix-free by PCG (ITERATIVE_SCHUR with block-Jacobi) whose matvec is one
+sweep over the observations, back-substitutes the points and evaluates the
+trial cost, under the same Ceres trust-region law as the other engines.
+``impl`` picks the linearize and the sweeps, with the reference's names:
+
+  * ``"auto"`` / ``"pallas"``: the fused ``tile_linearize_local`` kernel
+    for narrow locality-blocked buckets, the torch chunk path for the rest;
+    sweeps through ``tile_sweep_local`` / ``tile_sweep`` for buckets of
+    width <= 64, the torch sweeps for wider ones. The tensors' device picks
+    the hand kernels (CUDA) or their plain versions (CPU); the routing is
+    the same on both;
+  * ``"xla"``: the torch chunk path and the torch sweeps for every bucket
+    (each slot's cell values gathered by its cell id, the slot rows summed
+    into the cells in a fixed order).
+
+The reference's ``"dual"`` (camera-major sweeps) is not ported: timed on
+the H100 it lost to the kernel sweeps (``PERF.md``), so it raises.
 """
 
 from __future__ import annotations
@@ -71,7 +80,11 @@ from deeparc_tpu_torch.solver.ba import (
 from deeparc_tpu_torch.solver.linalg import inv3x3, pcg, pcg_device
 from deeparc_tpu_torch.solver.loss import rho as loss_rho
 from deeparc_tpu_torch.solver.loss import weight as loss_weight
-from deeparc_tpu_torch.solver.rig_grid import reductions, slot_params
+from deeparc_tpu_torch.solver.rig_grid import (
+    KERNEL_IMPLS,
+    reductions,
+    slot_params,
+)
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
@@ -869,6 +882,9 @@ def _e_dot_cells(tiles: TileIndex, sys: TileSystem,
 # The LM step
 # ---------------------------------------------------------------------------
 
+# the tile step's implementations (the module's docstring)
+TILE_IMPLS = KERNEL_IMPLS + ("xla",)
+
 
 class TileState(NamedTuple):
     points: torch.Tensor   # (Nrows, 3) permuted+padded
@@ -1021,10 +1037,13 @@ def _params_from(cam_vec, points, template: BAParams) -> BAParams:
 
 
 def make_tile_step(options: SolverOptions, template: BAParams,
-                   sweep_dtype=None, sweep_block_n: int = 256, reducer=None,
+                   impl: str = "auto", sweep_dtype=None,
+                   sweep_block_n: int = 256, reducer=None,
                    device_loop: bool = False):
     """LM step over the tile layout:
     step(state, tiles, cam_free, point_free_t) -> (state, info).
+
+    ``impl`` picks the linearize and the sweeps (the module's docstring).
 
     With ``reducer`` (``parallel.multihost.Reducer``), the step is one
     shard of a sharded step: each rank holds its rows of every bucket, and
@@ -1035,10 +1054,18 @@ def make_tile_step(options: SolverOptions, template: BAParams,
     ``sweep_dtype`` (e.g. ``torch.bfloat16``) stores the per-slot Jacobian
     planes that the PCG sweeps re-read every iteration in that dtype; every
     sum, the LM system (gc/hcc, costs, trust region) and the accept test
-    stay in the working dtype. ``sweep_block_n`` is the sweep kernels'
-    threads per block. ``device_loop=True`` (the ``while_loop`` driver)
-    runs PCG as :func:`solver.linalg.pcg_device`, whose iteration count
-    ``info.cg_iters`` stays a device tensor."""
+    stay in the working dtype (the kernel path only). ``sweep_block_n`` is
+    the sweep kernels' threads per block. ``device_loop=True`` (the
+    ``while_loop`` driver) runs PCG as :func:`solver.linalg.pcg_device`,
+    whose iteration count ``info.cg_iters`` stays a device tensor."""
+    if impl == "dual":
+        raise ValueError(
+            "impl='dual' (the reference's camera-major sweeps) is not "
+            "ported: on the H100 it lost to the kernel sweeps (PERF.md); "
+            "use impl='pallas'")
+    if impl not in TILE_IMPLS:
+        raise ValueError(f"unknown tile impl {impl!r}; one of {TILE_IMPLS}")
+    kernels = impl in KERNEL_IMPLS
     C = 6 * template.ext_rot.shape[0] + 6 * template.center.shape[0]
     allsum, allmax, allsum_sym = reductions(reducer)
 
@@ -1048,9 +1075,13 @@ def make_tile_step(options: SolverOptions, template: BAParams,
         params = _params_from(state.cam_vec, state.points, template)
         packed = pack_cells(slot_params(params, tiles.cells), tiles.cells,
                             cam_free)
-        sys, lin_planes = linearize_tiles_mixed(
-            state.points, packed, tiles, point_free_t, C, options.loss,
-            options.loss_scale, plane_dtype=sweep_dtype)
+        if kernels:
+            sys, lin_planes = linearize_tiles_mixed(
+                state.points, packed, tiles, point_free_t, C, options.loss,
+                options.loss_scale, plane_dtype=sweep_dtype)
+        else:
+            sys = linearize_tiles(state.points, packed, tiles, point_free_t,
+                                  C, options.loss, options.loss_scale)
         if reducer is not None:
             # the Grams move packed; the flat diagonal is re-derived from
             # the summed Grams, not summed on its own
@@ -1072,8 +1103,13 @@ def make_tile_step(options: SolverOptions, template: BAParams,
                                  options.max_lm_diagonal)
         cam_aug = d2c / state.tr.radius
 
-        sweep_fn, edot_fn = _make_kernel_sweeps(
-            tiles, sys, binv, lin_planes, sweep_dtype, sweep_block_n)
+        if kernels:
+            sweep_fn, edot_fn = _make_kernel_sweeps(
+                tiles, sys, binv, lin_planes, sweep_dtype, sweep_block_n)
+        else:
+            sweep_fn = lambda v_cells, rhs_mode: _e_sweep(
+                tiles, sys, binv, v_cells, rhs_mode)
+            edot_fn = lambda v_cells: _e_dot_cells(tiles, sys, v_cells)
         rhs = (-sys.g_c
                + cells_to_flat(allsum(sweep_fn(None, True)), cells, C)) \
             * cam_free
@@ -1178,23 +1214,23 @@ def solve_ba_tiles(scene: Scene, free: BAParams,
                    checkpoint_every: int = 10, resume: bool = False,
                    logger=None, locality: bool = True,
                    driver: str = "python",
-                   while_block: int = 10) -> BAResult:
+                   while_block: int = 10, impl: str = "auto") -> BAResult:
     """LM to convergence on the tile engine, from a Scene; points come back
     in original order. ``locality=False`` keeps every bucket on the global
-    cell table (the ``tile_sweep`` kernel path). The checkpoint, logger
-    and driver arguments are :func:`solve_tiles_prepared`'s."""
+    cell table (the ``tile_sweep`` kernel path). The impl, checkpoint,
+    logger and driver arguments are :func:`solve_tiles_prepared`'s."""
     tiles, params_t, free_t = tiles_from_scene(
         scene, free, min_width=min_width, chunk_obs=chunk_obs,
         locality=locality)
     return solve_tiles_prepared(
-        params_t, tiles, free_t, flatten_camera(free), options,
+        params_t, tiles, free_t, flatten_camera(free), options, impl=impl,
         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
         resume=resume, logger=logger, driver=driver, while_block=while_block)
 
 
 def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
                          cam_free, options: SolverOptions = SolverOptions(),
-                         sweep_dtype=None,
+                         impl: str = "auto", sweep_dtype=None,
                          checkpoint_path: str | None = None,
                          checkpoint_every: int = 10, resume: bool = False,
                          logger=None,
@@ -1202,7 +1238,8 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
                          driver: str = "python",
                          while_block: int = 10,
                          _cache: dict | None = None) -> BAResult:
-    """LM to convergence on a PREPARED tile layout (row-space inputs).
+    """LM to convergence on a PREPARED tile layout (row-space inputs),
+    through ``impl``'s linearize and sweeps (:func:`make_tile_step`).
 
     ``driver="python"``: one Python-driven step per iteration with
     Ceres-style progress lines, the wall-clock cap (``src/sfm.cc:71``), a
@@ -1219,14 +1256,19 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
     updated mask planes / freeze rows on the same layout; passing the same
     ``_cache`` dict across rounds reuses the step, and under the
     ``while_loop`` driver the captured block (``_cache["block"]``, which
-    keeps copies of the layout and freeze masks that each call refreshes).
+    keeps copies of the layout and freeze masks that each call refreshes);
+    a call with another ``impl`` empties it first.
     ``unpermute=False`` returns points in row space."""
     if driver not in ("python", "while_loop"):
         raise ValueError(f"unknown driver {driver!r}")
     cache = _cache if _cache is not None else {}
+    if cache.get("impl", impl) != impl:
+        cache.clear()
+    cache["impl"] = impl
+    make = functools.partial(make_tile_step, options, params_t, impl,
+                             sweep_dtype)
     if "step" not in cache:
-        cache["step"] = make_tile_step(options, params_t,
-                                       sweep_dtype=sweep_dtype)
+        cache["step"] = make()
     step = cache["step"]
     state = init_tile_state(params_t, tiles, options, cam_free)
     ck = load_checkpoint(checkpoint_path, resume, params_t)
@@ -1255,10 +1297,8 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
         inputs = (tiles, cam_free, free_t)
         loop = cache.get("block")
         if loop is None:
-            loop = BlockLoop(make_tile_step(options, params_t,
-                                            sweep_dtype=sweep_dtype,
-                                            device_loop=True),
-                             inputs, own_inputs=_cache is not None)
+            loop = BlockLoop(make(device_loop=True), inputs,
+                             own_inputs=_cache is not None)
             if _cache is not None:
                 cache["block"] = loop
         else:
