@@ -5,11 +5,12 @@
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
     python3 chip_smoke.py --cost-only        # the two cost wrappers alone
-    python3 chip_smoke.py --new-paths-only   # phases 10-16 alone
+    python3 chip_smoke.py --new-paths-only   # phases 10-17 alone
     python3 chip_smoke.py --new-paths-only 13   # the sharded engines alone
     python3 chip_smoke.py --new-paths-only 14   # the on-device LM driver
     python3 chip_smoke.py --new-paths-only 15   # the generated scenes
     python3 chip_smoke.py --new-paths-only 16   # the impl paths
+    python3 chip_smoke.py --new-paths-only 17   # the measurement scripts
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -181,8 +182,21 @@ Phases (any failure raises and exits non-zero):
      the same iterations, costs within 1e-9 relative; (d) the CLI with
      ``--impl planes`` on a synthetic rig and ``--impl xla`` on a
      ``.bal`` file: exit 0 and the outputs written;
+  17. the measurement entry points of ``deeparc_tpu_torch.scripts``, each
+     run as a user runs it (``python -m ...``, a process of its own) on the
+     card: ``profile_grid`` on the uniform 400k rig and, with
+     ``--occlusion-rings 6``, on the band-prepped flagship (the Schur solve
+     in the step's pieces, whose sum must lie within 25% of the step's
+     Schur part), ``profile_grid_band`` (``block_np`` 256 and 512 against
+     the monolithic pair), ``profile_planes``, ``profile_tiles`` on the 1M
+     BAL scene under ``pallas`` with and without the camera window and
+     under ``xla``, ``microbench_ops``, ``microbench_tile_ops`` and the CPU
+     anchor ``ceres_equiv_cpu`` (40k points, one rep, 1 and 2 processes);
+     every time finite and above 0, every share of a rate or a peak at
+     most 1.05, and the hand kernels 1-7 launched, by the counts each
+     process read;
 then one JSON line with the probes' entry points' results, one with
-phases 10-16's records, one with the nine kernels' records (errors,
+phases 10-17's records, one with the nine kernels' records (errors,
 milliseconds, the bound, launches on the main paths, on phase 13's
 sharded paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
@@ -210,13 +224,17 @@ import time
 
 from deeparc_tpu_torch.scripts import (
     OPS_PER_SLOT,
+    band_rows,
     bound,
     busy_in,
+    cost_band_bytes,
     idle_share,
     loop_window,
+    nbytes,
     nvidia_smi,
     time_ms,
 )
+from deeparc_tpu_torch.scripts.profile_grid import grid_free
 
 # max relative error (max |kernel - plain| / max |plain|, per output) that a
 # kernel may show against its plain version: float64 sums in another order
@@ -253,10 +271,6 @@ def flagship_rig(n_points, occlusion_rings, seed):
         n_arc=8, n_ring=24, n_points=n_points, visibility=10 / 48,
         occlusion_rings=occlusion_rings, pixel_noise=PIXEL_NOISE,
         point_noise=0.02, seed=seed).data
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def compare(name, dtype_name, kernel_out, plain_out, labels, tol_name=None):
@@ -553,33 +567,6 @@ def phase_grid_kernels(args, records):
             torch.cuda.empty_cache()
     del wide
     return rigs, flagship_s + timings["grid_s"]
-
-
-def cost_band_bytes(pts, stacks, n_rows):
-    """The bytes ``cost_band`` must read: each stack's mask plane whole, the
-    xy planes' 32-byte sectors that hold a live slot (it loads xy only for a
-    live slot), counted from the masks on the card, the points, and the 30
-    table columns of its chain for the ``n_rows`` table rows it reads."""
-    esz = pts.element_size()
-    per = 32 // esz
-    total = 3 * pts.shape[0] * esz + n_rows * 30 * esz
-    for pxm in stacks:
-        w, cols = pxm.shape[1:]
-        live = pxm[2].reshape(w, cols // per, per).ne(0).any(-1)
-        total += pxm[2].numel() * esz + 2 * 32 * int(live.sum())
-    return total
-
-
-def band_rows(starts, groups):
-    """The distinct rows of the cyclically extended table that the tiles'
-    bands read: rows [starts[t] * 8, starts[t] * 8 + w) of each tile t of
-    each width group (w, lo, hi)."""
-    import torch
-
-    rows = [(starts[lo:hi].long()[:, None] * 8
-             + torch.arange(w, device=starts.device)).reshape(-1)
-            for w, lo, hi in groups if hi > lo]
-    return int(torch.cat(rows).unique().numel())
 
 
 def cost_wrapper_split(pts, sp, grid):
@@ -2906,22 +2893,6 @@ def solve_generated(label, solve, cost0, n_obs):
                 else GEN_ITERATIONS)
 
 
-def grid_free(params):
-    """The pipeline's full-BA free mask of a generated rig: the points and
-    the extrinsics but record 0 (the gauge) and the identity row."""
-    import dataclasses
-
-    import torch
-
-    ext = torch.ones_like(params.ext_rot)
-    ext[0] = ext[-1] = 0.0
-    z = torch.zeros_like
-    return dataclasses.replace(
-        params, points=torch.ones_like(params.points), ext_rot=ext,
-        ext_trans=ext.clone(), center=z(params.center),
-        focal=z(params.focal), dist=z(params.dist))
-
-
 def gen_grid(args, rec, host):
     """15a: the occlusion rig of bench.py in the grid layout, band-prepped
     and solved with the banded kernels; ``host`` is phase 3's seconds for
@@ -3671,6 +3642,169 @@ def phase_impls(args, flagship, tile_layout_=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The measurement scripts (phase 17)
+# ---------------------------------------------------------------------------
+
+# the points of phase 17's CPU anchor: one iteration at the flagship's
+# 400k points takes ~90 s on one process (BENCH.md:28), too long for the
+# script's time
+CERES_POINTS = 40_000
+# the Schur pieces of profile_grid against the step's Schur part (the step
+# less its linearize and trial cost): each piece alone leaves out the
+# step's decision scalars and the gaps between its launches
+SCHUR_SPLIT_RTOL = 0.25
+# the rows of phase 17's records that may hold no time: the banded
+# linearize takes tiles of at most 256 points, so profile_grid_band's
+# 512-point row of it holds the wrapper's refusal
+REFUSALS_ALLOWED = {"profile_grid_band": {"b512.lin"}}
+
+
+def script_runs(args):
+    """Phase 17's runs: (label, entry point, arguments, the hand kernels
+    and helpers its run must launch)."""
+    n, tp = str(args.n_points), str(args.tile_points)
+    grid_mono, grid_band = ("linearize_grid", "cost_grid"), (
+        "linearize_grid_banded", "cost_grid_banded")
+    return (
+        ("profile_grid uniform", "profile_grid", ["--n-points", n], grid_mono),
+        ("profile_grid flagship", "profile_grid",
+         ["--n-points", n, "--occlusion-rings", "6"], grid_band),
+        ("profile_grid_band", "profile_grid_band", ["--n-points", n],
+         grid_mono + grid_band),
+        ("profile_planes", "profile_planes", [], ()),
+        ("profile_tiles pallas", "profile_tiles", ["--n-points", tp],
+         ("tile_linearize_local", "tile_sweep_local", "sort_jcam_planes",
+          "sum_rows")),
+        ("profile_tiles pallas, no window", "profile_tiles",
+         ["--n-points", tp, "--window", "0"], ("tile_sweep", "sort_jcam")),
+        ("profile_tiles xla", "profile_tiles",
+         ["--n-points", tp, "--impl", "xla"], ("sum_rows",)),
+        ("microbench_ops", "microbench_ops", [], ("sum_rows",)),
+        ("microbench_tile_ops", "microbench_tile_ops", [], ("sum_rows",)),
+        ("ceres_equiv_cpu", "ceres_equiv_cpu",
+         ["--n-points", str(CERES_POINTS), "--reps", "1", "--procs", "1,2"],
+         ()),
+    )
+
+
+def check_numbers(label, rec, path="", times=False):
+    """Every time in a script's record (a key ``ms`` or ending in ``_ms``,
+    or ``seconds_per_iter``, and every number under a key ending in
+    ``_ms``) finite and above 0, every share (a key holding ``share``) at
+    most ``scripts.SHARE_LIMIT``; a refused row (``refused``) holds no
+    time. Returns the number of values checked."""
+    import math
+
+    from deeparc_tpu_torch.scripts import SHARE_LIMIT
+
+    n = 0
+    items = rec.items() if isinstance(rec, dict) else enumerate(
+        rec if isinstance(rec, list) else ())
+    for key, val in items:
+        where, key = f"{path}.{key}", str(key)
+        is_time = times or key == "ms" or key.endswith("_ms") \
+            or key == "seconds_per_iter"
+        if isinstance(val, (dict, list)):
+            n += check_numbers(label, val, where, key.endswith("_ms"))
+        elif not isinstance(val, (int, float)) or isinstance(val, bool):
+            continue
+        elif is_time:
+            if not (math.isfinite(val) and val > 0):
+                raise AssertionError(f"{label}: {where} = {val}")
+            n += 1
+        elif "share" in key:
+            if not val <= SHARE_LIMIT:
+                raise AssertionError(f"{label}: {where} = {val} above "
+                                     f"{SHARE_LIMIT}")
+            n += 1
+    return n
+
+
+def refusals(rec, path=""):
+    """The rows of a script's record that hold a refusal or a declined
+    layout (a key ``refused`` or ``declined``) in place of a time, by
+    their dotted key path."""
+    if not isinstance(rec, dict):
+        return []
+    if "refused" in rec or "declined" in rec:
+        return [path]
+    return [p for key, val in rec.items()
+            for p in refusals(val, f"{path}.{key}" if path else str(key))]
+
+
+def run_script(module, argv, timeout=600):
+    """``python -m deeparc_tpu_torch.scripts.<module> <argv>`` from the
+    repo's root, as a user runs it: (its JSON line, seconds)."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", f"deeparc_tpu_torch.scripts.{module}", *argv],
+        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+    seconds = time.time() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{module} {argv}: exit {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1]), seconds
+
+
+def phase_scripts(args):
+    """Phase 17: the measurement entry points of
+    ``deeparc_tpu_torch.scripts`` run as a user runs them, each in its own
+    process on the card at the sizes of :func:`script_runs` (the rigs and
+    the BAL scene cut with ``--n-points`` / ``--tile-points``, the CPU
+    anchor at ``CERES_POINTS``); each JSON line's times finite and above
+    0, its shares at most 1.05, no row without a time but those of
+    ``REFUSALS_ALLOWED``, the hand kernels and helpers its run must
+    launch launched (the counts its process read), ``profile_grid``'s
+    Schur pieces within ``SCHUR_SPLIT_RTOL`` of the step's Schur part.
+    Returns the records."""
+    import torch
+
+    print("[phase 17] the measurement scripts, each in its own process")
+    t_phase = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec = {}
+    for label, module, argv, kernels in script_runs(args):
+        out, seconds = run_script(module, argv)
+        n = check_numbers(label, out)
+        refused = set(refusals(out))
+        if refused - REFUSALS_ALLOWED.get(module, set()):
+            raise AssertionError(f"{label}: rows {sorted(refused)} hold no "
+                                 f"time")
+        missing = [kname for kname in kernels
+                   if not out.get("launches", {}).get(kname, 0) > 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} did not launch "
+                                 f"({out.get('launches')})")
+        print(f"  {label} ({seconds:.1f} s; {n} times and shares checked): "
+              f"{json.dumps(out)}")
+        if module == "profile_grid":
+            ratio = out["pieces_over_rest"]
+            print(f"    Schur pieces (ms): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              out["schur_ms"].items())
+                  + f"; their sum {out['schur_pieces_sum_ms']:.3f} against "
+                  f"the step's Schur part {out['schur_rest_ms']:.3f} (step "
+                  f"{out['full_step_ms']:.3f} less linearize "
+                  f"{out['assemble_ms']:.3f} and trial cost "
+                  f"{out['trial_cost_ms']:.3f}): {ratio:.3f}")
+            if ratio is None or abs(ratio - 1.0) > SCHUR_SPLIT_RTOL:
+                raise AssertionError(f"{label}: the Schur pieces sum to "
+                                     f"{ratio} of the step's Schur part")
+        out["script_seconds"] = seconds
+        rec[label] = out
+    rec["phase_seconds"] = time.time() - t_phase
+    print(f"  phase 17 took {rec['phase_seconds']:.1f} s")
+    return rec
+
+
 def write_bal(path, data):
     """A BAL file of a non-shared synthetic scene: BAL has no principal
     point and projects with -f, so observations are shifted to the centre
@@ -3688,14 +3822,14 @@ def write_bal(path, data):
             f.write(f"{v:.17g}\n")
 
 
-def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15, 16), uniform=None,
-              tile_data=None, layout=None, host_s=None):
-    """Phases 10-16 (those in ``phases``) on the occlusion flagship
+def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15, 16, 17),
+              uniform=None, tile_data=None, layout=None, host_s=None):
+    """Phases 10-17 (those in ``phases``) on the occlusion flagship
     ``data`` (phase 13 also on ``uniform`` and ``tile_data``, phases 14
     and 16 on phase 6's locality ``layout``, 14 also on ``uniform``, made
     here when not given; phase 15 on its generated scenes, beside the host
-    scenes' seconds ``host_s``); their records, and the sharded paths'
-    launches."""
+    scenes' seconds ``host_s``; phase 17 in processes of its own); their
+    records, and the sharded paths' launches."""
     import torch
 
     out, sharded = {}, {}
@@ -3724,6 +3858,8 @@ def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15, 16), uniform=None,
     if 16 in phases:
         torch.cuda.empty_cache()
         out["impls"] = phase_impls(args, data, layout)
+    if 17 in phases:
+        out["scripts"] = phase_scripts(args)
     return out, sharded
 
 
@@ -3769,13 +3905,13 @@ def main(argv=None) -> int:
                     help="after the build, time only the two cost wrappers "
                          "(an A/B or ablation of cost_band) and exit")
     ap.add_argument("--new-paths-only", nargs="?",
-                    const="10,11,12,13,14,15,16", default=None,
+                    const="10,11,12,13,14,15,16,17", default=None,
                     metavar="PHASES",
-                    help="after the build, run only these of phases 10-16 "
+                    help="after the build, run only these of phases 10-17 "
                          "(indexed engine, incremental BA, checkpoint/"
                          "resume, the sharded engines, the on-device LM "
-                         "driver, the generated scenes, the impl paths; "
-                         "default all seven) and exit")
+                         "driver, the generated scenes, the impl paths, the "
+                         "measurement scripts; default all eight) and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -3810,9 +3946,9 @@ def main(argv=None) -> int:
         return 0
     if args.new_paths_only:
         phases = [int(p) for p in args.new_paths_only.split(",")]
-        # phase 15 builds its own scenes
+        # phases 15 and 17 build their own scenes
         data = (flagship_rig(args.n_points, 6, 0)
-                if set(phases) - {15} else None)
+                if set(phases) - {15, 17} else None)
         paths, sharded = new_paths(args, data, phases)
         print(json.dumps({"paths": paths}))
         print(json.dumps({"sharded_launches": sharded}))

@@ -437,20 +437,63 @@ def _tile_chunks(groups, pxms, starts, block_np):
             yield rows, planes[:, c0:c1], (lo + c0) * bn, (lo + c1) * bn
 
 
-def _plain_linearize(prep, loss, loss_scale):
-    tbl, oho, ohi, ohk = prep["tables"]
-    pts, bn = prep["pts"], prep["block_np"]
-    T, t_pad, frozen = prep["T"], prep["t_pad"], prep["intr_frozen"]
-    dtype, dev = pts.dtype, pts.device
-    n_pad = pts.shape[1]
+def _point_side(J0, J1, r0, r1):
+    """g_p (3, g, bn) and hpp (3, 3, g, bn): the point side's reductions
+    over a chunk's band cells."""
+    g_p = (J0 * r0 + J1 * r1).sum(dim=2)
+    hpp = (torch.einsum("agwn,bgwn->abgn", J0, J0)
+           + torch.einsum("agwn,bgwn->abgn", J1, J1))
+    return g_p, hpp
+
+
+def _slot_grad(P0, P1, r0, r1):
+    """The camera gradient per slot row (n_p, g, w): reductions over each
+    tile's points."""
+    return (P0 * r0 + P1 * r1).sum(dim=3)
+
+
+def _slot_gram(P0, P1):
+    """The slot Gram per slot row (g, w, n_p, n_p)."""
+    return (torch.einsum("agwn,bgwn->gwab", P0, P0)
+            + torch.einsum("agwn,bgwn->gwab", P1, P1))
+
+
+def _bin_slots(g_s, h_s, rows, t_ext):
+    """A chunk's slot rows summed into the (t_ext, n_p + n_p^2) table.
+    A tile's rows are distinct: each tile's go into their own slab, then
+    the slabs are summed in order (no atomics, so the sum repeats bit for
+    bit on the card too)."""
+    gc, n_p = rows.shape[0], g_s.shape[0]
+    vals = torch.cat([g_s.permute(1, 2, 0),
+                      h_s.reshape(gc, -1, n_p * n_p)], dim=-1)
+    slabs = torch.zeros((gc, t_ext, vals.shape[-1]), dtype=vals.dtype,
+                        device=vals.device)
+    slabs.scatter_(1, rows[:, :, None].expand(-1, -1, vals.shape[-1]), vals)
+    return slabs.sum(dim=0)
+
+
+def _e_rows(J0, J1, P0, P1, tables, rows, frozen):
+    """A chunk's E rows (g * bn, 3, Cn) in native column order: one-hot
+    contractions over the band's cells."""
+    _, oho, ohi, ohk = tables
+    gc, bn = J0.shape[1], J0.shape[3]
     R, K = oho.shape[1], ohk.shape[1]
-    n_p = 12 if frozen else 18
-    t_ext = tbl.shape[0]
-    pout = torch.zeros((12, n_pad), dtype=dtype, device=dev)
-    E = torch.zeros((n_pad, 3, 6 * R if frozen else 6 * (R + K)),
-                    dtype=dtype, device=dev)
-    ghs = torch.zeros((t_ext, n_p + n_p * n_p), dtype=dtype, device=dev)
-    cost = torch.zeros((), dtype=dtype, device=dev)
+    W = (torch.einsum("agwn,jgwn->ajgwn", J0, P0)
+         + torch.einsum("agwn,jgwn->ajgwn", J1, P1))
+    e_ext = (torch.einsum("ajgwn,gwr->gnajr", W[:, 0:6], oho[rows])
+             + torch.einsum("ajgwn,gwr->gnajr", W[:, 6:12], ohi[rows]))
+    parts = [e_ext.reshape(gc * bn, 3, 6 * R)]
+    if not frozen:
+        e_int = torch.einsum("ajgwn,gwk->gnajk", W[:, 12:18], ohk[rows])
+        parts.append(e_int.reshape(gc * bn, 3, 6 * K))
+    return torch.cat(parts, dim=-1)
+
+
+def _chunk_products(prep, loss, loss_scale):
+    """Yield per chunk of tiles (cost, r0, r1, J0, J1, P0, P1, rows, first
+    point, last point): the residual and Jacobian planes of
+    :func:`_slot_products`, J and P stacked (3 / n_p, g, w, bn)."""
+    tbl, pts, bn = prep["tables"][0], prep["pts"], prep["block_np"]
     for rows, planes, p0, p1 in _tile_chunks(prep["groups"], prep["pxms"],
                                              prep["starts"], bn):
         gc = rows.shape[0]
@@ -460,47 +503,48 @@ def _plain_linearize(prep, loss, loss_scale):
         pf = [pts[3 + a, p0:p1].reshape(gc, 1, bn) for a in range(3)]
         c_val, r0, r1, jx_f, P = _slot_products(
             col, X, pf, planes[0], planes[1], planes[2], loss, loss_scale,
-            intr_frozen=frozen)
-        cost = cost + c_val
-        J0, J1 = torch.stack(jx_f[0]), torch.stack(jx_f[1])  # (3, gc, w, bn)
-        P0, P1 = torch.stack(P[0]), torch.stack(P[1])        # (n_p, ...)
-        # point side: reductions over the band's cells
-        g_p = (J0 * r0 + J1 * r1).sum(dim=2)                 # (3, gc, bn)
-        hpp = (torch.einsum("agwn,bgwn->abgn", J0, J0)
-               + torch.einsum("agwn,bgwn->abgn", J1, J1))
-        pout[0:3, p0:p1] = g_p.reshape(3, -1)
-        pout[3:12, p0:p1] = hpp.reshape(9, -1)
-        # slot side: reductions over the tile's points, binned per row
-        g_s = (P0 * r0 + P1 * r1).sum(dim=3)                 # (n_p, gc, w)
-        h_s = (torch.einsum("agwn,bgwn->gwab", P0, P0)
-               + torch.einsum("agwn,bgwn->gwab", P1, P1))
-        vals = torch.cat([g_s.permute(1, 2, 0),
-                          h_s.reshape(gc, -1, n_p * n_p)], dim=-1)
-        # a tile's rows are distinct: place each tile's into its own
-        # slab, then sum the slabs in order (no atomics, so the sum
-        # repeats bit for bit on the card too)
-        slabs = torch.zeros((gc, t_ext, vals.shape[-1]), dtype=dtype,
-                            device=dev)
-        slabs.scatter_(1, rows[:, :, None].expand(-1, -1, vals.shape[-1]),
-                       vals)
-        ghs += slabs.sum(dim=0)
-        # E: one-hot contractions over the band's cells
-        W = (torch.einsum("agwn,jgwn->ajgwn", J0, P0)
-             + torch.einsum("agwn,jgwn->ajgwn", J1, P1))
-        e_ext = (torch.einsum("ajgwn,gwr->gnajr", W[:, 0:6], oho[rows])
-                 + torch.einsum("ajgwn,gwr->gnajr", W[:, 6:12], ohi[rows]))
-        parts = [e_ext.reshape(gc * bn, 3, 6 * R)]
-        if not frozen:
-            e_int = torch.einsum("ajgwn,gwk->gnajk", W[:, 12:18], ohk[rows])
-            parts.append(e_int.reshape(gc * bn, 3, 6 * K))
-        E[p0:p1] = torch.cat(parts, dim=-1)
-    # fold the cyclic extension rows back onto their base cells
+            intr_frozen=prep["intr_frozen"])
+        yield (c_val, r0, r1, torch.stack(jx_f[0]), torch.stack(jx_f[1]),
+               torch.stack(P[0]), torch.stack(P[1]), rows, p0, p1)
+
+
+def _fold_slots(ghs, T, t_pad, n_p):
+    """(g_slots (T, 18), hcc_slots (T, 18, 18)) of the slot table, its
+    cyclic extension rows folded back onto their base cells."""
+    t_ext = ghs.shape[0]
     folded = ghs[:t_pad].clone()
     folded[:t_ext - t_pad] += ghs[t_pad:]
-    g_slots = torch.zeros((T, 18), dtype=dtype, device=dev)
-    hcc_slots = torch.zeros((T, 18, 18), dtype=dtype, device=dev)
+    g_slots = torch.zeros((T, 18), dtype=ghs.dtype, device=ghs.device)
+    hcc_slots = torch.zeros((T, 18, 18), dtype=ghs.dtype, device=ghs.device)
     g_slots[:, :n_p] = folded[:T, :n_p]
     hcc_slots[:, :n_p, :n_p] = folded[:T, n_p:].reshape(T, n_p, n_p)
+    return g_slots, hcc_slots
+
+
+def _plain_linearize(prep, loss, loss_scale):
+    """The linearize over the prep's chunks of tiles."""
+    tables, pts = prep["tables"], prep["pts"]
+    T, t_pad, frozen = prep["T"], prep["t_pad"], prep["intr_frozen"]
+    dtype, dev = pts.dtype, pts.device
+    n_pad = pts.shape[1]
+    R, K = tables[1].shape[1], tables[3].shape[1]
+    n_p = 12 if frozen else 18
+    t_ext = tables[0].shape[0]
+    pout = torch.zeros((12, n_pad), dtype=dtype, device=dev)
+    E = torch.zeros((n_pad, 3, 6 * R if frozen else 6 * (R + K)),
+                    dtype=dtype, device=dev)
+    ghs = torch.zeros((t_ext, n_p + n_p * n_p), dtype=dtype, device=dev)
+    cost = torch.zeros((), dtype=dtype, device=dev)
+    for c_val, r0, r1, J0, J1, P0, P1, rows, p0, p1 in _chunk_products(
+            prep, loss, loss_scale):
+        cost = cost + c_val
+        g_p, hpp = _point_side(J0, J1, r0, r1)
+        pout[0:3, p0:p1] = g_p.reshape(3, -1)
+        pout[3:12, p0:p1] = hpp.reshape(9, -1)
+        ghs += _bin_slots(_slot_grad(P0, P1, r0, r1), _slot_gram(P0, P1),
+                          rows, t_ext)
+        E[p0:p1] = _e_rows(J0, J1, P0, P1, tables, rows, frozen)
+    g_slots, hcc_slots = _fold_slots(ghs, T, t_pad, n_p)
     return _finish_linearize(prep["N"], cost, pout, g_slots, hcc_slots, E)
 
 
@@ -551,6 +595,8 @@ def _cuda_args(pts, loss, tensors):
 
 # points of a linearize_band tile (csrc/rig_band.cu BAND_PTS)
 BAND_PTS = 32
+# the largest point tile the linearize kernels take
+LIN_MAX_BLOCK_NP = 256
 
 
 def band_subtiles(groups, block_np, tp=BAND_PTS):
@@ -596,9 +642,9 @@ def _cuda_linearize(prep, loss, loss_scale, counter, band=False):
     tbl, ids = tbl.contiguous(), prep["ids"]
     pxms = tuple(p.contiguous() for p in prep["pxms"])
     dt, ls = _cuda_args(pts, loss, (tbl,) + pxms)
-    if bn % 32 or not 0 < bn <= 256:
-        raise ValueError(f"the linearize kernel takes 32..256-point tiles "
-                         f"in multiples of 32, not {bn}")
+    if bn % 32 or not 0 < bn <= LIN_MAX_BLOCK_NP:
+        raise ValueError(f"the linearize kernel takes 32..{LIN_MAX_BLOCK_NP}"
+                         f"-point tiles in multiples of 32, not {bn}")
     R, K = oho.shape[1], ohk.shape[1]
     n_p = 12 if frozen else 18
     nv = n_p + n_p * (n_p + 1) // 2

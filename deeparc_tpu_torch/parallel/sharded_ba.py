@@ -41,8 +41,8 @@ from deeparc_tpu_torch.solver.ba import LM_LOOP, StepInfo
 from deeparc_tpu_torch.solver.device_loop import BlockLoop, run_blocks
 from deeparc_tpu_torch.solver.linalg import masked_spd_solve
 from deeparc_tpu_torch.solver.schur import (
-    _augmented_point_blocks,
     _cam_aug_diag,
+    augmented_point_blocks,
     back_substitute,
     build_system,
     dense_S,
@@ -232,7 +232,8 @@ def solve_ba_sharded(sharded: ShardedScene,
         # assemble the replicated reduced camera system over the group
         g_c = red.sum(sys.g_c)
         sys = sys._replace(g_c=g_c, hcc_diag=red.sum(sys.hcc_diag))
-        binv = _augmented_point_blocks(sys, tr.radius, options)
+        binv = augmented_point_blocks(sys.hpp, sys.point_free, tr.radius,
+                                      options)
         cam_aug = _cam_aug_diag(sys, tr.radius, options)
         # reduced_rhs subtracts the replicated g_c once per shard; add back
         # (S - 1) copies so the sum is -g_c + sum(E^T B^-1 g_p)

@@ -7,13 +7,23 @@ line.
     python -m deeparc_tpu_torch.scripts.vpu_roofline            # the card
     python -m deeparc_tpu_torch.scripts.microbench_sweep_payload
     python -m deeparc_tpu_torch.scripts.dual_sweeps
+    python -m deeparc_tpu_torch.scripts.profile_grid [--occlusion-rings 6]
+    python -m deeparc_tpu_torch.scripts.profile_grid_band
+    python -m deeparc_tpu_torch.scripts.profile_planes
+    python -m deeparc_tpu_torch.scripts.profile_tiles [--rig] [--impl xla]
+    python -m deeparc_tpu_torch.scripts.microbench_ops
+    python -m deeparc_tpu_torch.scripts.microbench_tile_ops
     ... --device cpu    # the plain versions, at a small size (tests)
+    python -m deeparc_tpu_torch.scripts.ceres_equiv_cpu   # the host CPU
 
 Each prints one JSON line. On the card the first two time the
 hand-written probe kernels of ``kernels/probes.py``, the third the
-reference's camera-major dual sweeps against the tile sweep kernels;
-``--device cpu`` runs the plain versions and times the CPU, which says
-nothing about the card.
+reference's camera-major dual sweeps against the tile sweep kernels, the
+profiles the pieces of the grid and tile LM steps, the two microbenches
+library primitives (gather, scatter-add, segment sums, one-hot binning)
+at the tile layout's sizes; ``--device cpu`` runs the plain versions and
+times the CPU, which says nothing about the card. ``ceres_equiv_cpu`` is
+the CPU DENSE_SCHUR anchor: numpy and scipy on the host, no device.
 """
 
 from __future__ import annotations
@@ -23,9 +33,10 @@ import subprocess
 import time
 
 # NVIDIA's data sheet, H100 SXM: device memory rate, and the peak rates
-# outside the tensor cores; they assume the full 700 W power limit
+# outside the tensor cores (bf16: the tensor cores' dense rate, the only
+# one it has); they assume the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 # operations per (point, cell) slot, counted from the arithmetic of
 # csrc/rig_slot.cuh and the kernels: the slot chain ~60, its Jacobian ~240,
 # the point sums ~36; the grid linearize adds ~144 for the E row and ~270
@@ -37,6 +48,11 @@ OPS_PER_SLOT = {"linearize_grid_banded": 750, "linearize_grid": 750,
                 "edot": 84}
 
 
+# the most a measured rate may show of its data-sheet rate before the count
+# behind it is taken for wrong
+SHARE_LIMIT = 1.05
+
+
 def bound(nbytes_moved, ops, dtype_name):
     """(bound_ms, bound_by) of work moving these bytes and doing these ops:
     the larger of the bytes over the memory rate and the operations over
@@ -44,6 +60,59 @@ def bound(nbytes_moved, ops, dtype_name):
     t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cost_band_bytes(pts, stacks, n_rows):
+    """The bytes ``cost_band`` must read: each stack's mask plane whole, the
+    xy planes' 32-byte sectors that hold a live slot (it loads xy only for a
+    live slot), counted from the masks on the card, the points, and the 30
+    table columns of its chain for the ``n_rows`` table rows it reads."""
+    esz = pts.element_size()
+    per = 32 // esz
+    total = 3 * pts.shape[0] * esz + n_rows * 30 * esz
+    for pxm in stacks:
+        w, cols = pxm.shape[1:]
+        live = pxm[2].reshape(w, cols // per, per).ne(0).any(-1)
+        total += pxm[2].numel() * esz + 2 * 32 * int(live.sum())
+    return total
+
+
+def band_rows(starts, groups):
+    """The distinct rows of the cyclically extended table that the tiles'
+    bands read: rows [starts[t] * 8, starts[t] * 8 + w) of each tile t of
+    each width group (w, lo, hi)."""
+    import torch
+
+    rows = [(starts[lo:hi].long()[:, None] * 8
+             + torch.arange(w, device=starts.device)).reshape(-1)
+            for w, lo, hi in groups if hi > lo]
+    return int(torch.cat(rows).unique().numel())
+
+
+def check_share(label: str, share: float) -> float:
+    """``share`` (a measured rate over its data-sheet rate), raising above
+    :data:`SHARE_LIMIT`: the bytes or operations counted for it are
+    wrong."""
+    if share > SHARE_LIMIT:
+        raise AssertionError(f"{label}: {share:.3f} of the data-sheet rate "
+                             f"is above {SHARE_LIMIT}: its count is wrong")
+    return share
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches} of every kernel wrapper of the system's
+    paths and of the tile path's helpers (``sort_jcam``,
+    ``sort_jcam_planes``, ``sum_rows``), as counted since the last
+    ``kernels.reset_launch_counts()``."""
+    from deeparc_tpu_torch import kernels
+    from deeparc_tpu_torch.kernels import tile
+
+    return {fn.__name__: fn.launches
+            for fn in kernels.KERNEL_WRAPPERS + tile.HELPERS}
 
 
 def busy_in(intervals, lo: float, hi: float) -> float:

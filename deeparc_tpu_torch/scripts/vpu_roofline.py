@@ -58,19 +58,18 @@ def linearize_inputs(data, dtype, device):
     frozen)."""
     from deeparc_tpu_torch.residuals.reprojection import flatten_camera
     from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
-    from deeparc_tpu_torch.solver.rig_grid import grid_from_scene, slot_params
+    from deeparc_tpu_torch.solver.rig_grid import (
+        grid_from_scene,
+        slot_free,
+        slot_params,
+    )
 
     scene = from_deeparc(data, dtype=dtype, device=device)
     grid = grid_from_scene(scene)
     free = freeze_masks(scene)
-    R, K = grid.onehot_outer.shape[1], grid.onehot_intr.shape[1]
-    cam_free = flatten_camera(free)
-    rows = cam_free[: 6 * R].reshape(R, 6)
-    intr = cam_free[6 * R:].reshape(K, 6)
-    tables = (rows[grid.slot_outer.long()], rows[grid.slot_inner.long()],
-              intr[grid.slot_intr.long()])
     sp = slot_params(scene.params, grid)
-    return (scene.params.points, free.points, sp, grid) + tables
+    return ((scene.params.points, free.points, sp, grid)
+            + slot_free(flatten_camera(free), grid))
 
 
 def measure_fma(n: int, dtype, device, seed: int = 0) -> dict:

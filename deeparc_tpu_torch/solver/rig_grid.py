@@ -48,7 +48,8 @@ from deeparc_tpu_torch.solver.ba import (
     save_checkpoint,
     tr_of,
 )
-from deeparc_tpu_torch.solver.linalg import inv3x3, masked_spd_solve
+from deeparc_tpu_torch.solver.linalg import masked_spd_solve
+from deeparc_tpu_torch.solver.schur import augmented_point_blocks
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
@@ -235,6 +236,17 @@ def _flat_columns(E_nat: torch.Tensor, R: int, K: int) -> torch.Tensor:
                      dim=-1)
 
 
+def slot_free(cam_free: torch.Tensor, grid: GridIndex) -> tuple:
+    """The flat free camera mask as the linearize takes it: per cell, the
+    free masks (T, 6) of its outer and inner extrinsic rows and of its
+    intrinsic row."""
+    R_rows, K = grid.onehot_outer.shape[1], grid.onehot_intr.shape[1]
+    rows = cam_free[: 6 * R_rows].reshape(R_rows, 6)
+    intr = cam_free[6 * R_rows:].reshape(K, 6)
+    return (rows[grid.slot_outer.long()], rows[grid.slot_inner.long()],
+            intr[grid.slot_intr.long()])
+
+
 def assemble_grid_system(points, sp, grid, cam_free, point_free,
                          chunk_size: int = 8192, loss: str = "trivial",
                          loss_scale: float = 0.5, impl: str = "auto",
@@ -260,11 +272,7 @@ def assemble_grid_system(points, sp, grid, cam_free, point_free,
     R_rows = grid.onehot_outer.shape[1]
     K = grid.onehot_intr.shape[1]
     C = 6 * R_rows + 6 * K
-    rows = cam_free[: 6 * R_rows].reshape(R_rows, 6)
-    intr = cam_free[6 * R_rows:].reshape(K, 6)
-    free_outer = rows[grid.slot_outer.long()]
-    free_inner = rows[grid.slot_inner.long()]
-    free_intr = intr[grid.slot_intr.long()]
+    free_outer, free_inner, free_intr = slot_free(cam_free, grid)
     kernels = _check_impl(impl)
     if kernels and band_width and grid.band:
         out = linearize_grid_banded(
@@ -338,13 +346,109 @@ def _params_from(cam_vec, points, template: BAParams) -> BAParams:
                                points=points)
 
 
+def _same(x):
+    return x
+
+
 def reductions(reducer):
     """(sum, max, symmetric sum) over the ranks of ``reducer``; identities
     without one (the single-device step)."""
     if reducer is None:
-        same = lambda x: x
-        return same, same, same
+        return _same, _same, _same
     return reducer.sum, reducer.max, reducer.sum_sym
+
+
+def column_maps(template: BAParams, kernels: bool, ext_only: bool):
+    """(to_flat, to_nat): C-sized vectors and (C, C) matrices from E's
+    column order to the flat camera order and back. Only C-sized
+    quantities are ever permuted, never E. The kernel path's E has the
+    kernels' native order (``kernels.rig_grid.native_of_flat``); banded
+    with frozen intrinsics (``ext_only``) it comes back ext-only (N, 3,
+    6R): its columns are the first 6R flat columns, zeros elsewhere. The
+    torch paths' E is in flat order: identities."""
+    from deeparc_tpu_torch.kernels.rig_grid import (
+        flat_of_native,
+        native_of_flat,
+    )
+
+    if not kernels:
+        same = lambda v: v
+        return same, same
+    R_rows, K = template.ext_rot.shape[0], template.center.shape[0]
+    dev = template.points.device
+    C_full, ce = 6 * (R_rows + K), 6 * R_rows
+    k_e = 0 if ext_only else K
+    n2f = torch.as_tensor(native_of_flat(R_rows, k_e), device=dev).long()
+    f2n = torch.as_tensor(flat_of_native(R_rows, k_e), device=dev).long()
+
+    def to_flat(v):
+        if not ext_only:
+            return v[n2f] if v.ndim == 1 else v[n2f][:, n2f]
+        out = torch.zeros((C_full,) * v.ndim, dtype=v.dtype, device=dev)
+        if v.ndim == 1:
+            out[:ce] = v[n2f]
+        else:
+            out[:ce, :ce] = v[n2f][:, n2f]
+        return out
+
+    def to_nat(v):
+        return v[:ce][f2n] if ext_only else v[f2n]
+
+    return to_flat, to_nat
+
+
+# ---------------------------------------------------------------------------
+# The step's Schur solve, piece by piece (``scripts/profile_grid.py`` times
+# each). ``to_flat`` / ``to_nat`` are :func:`column_maps`; ``allsum`` /
+# ``allsum_sym`` the sharded step's sums over ranks (:func:`reductions`).
+# ---------------------------------------------------------------------------
+
+
+def schur_point_blocks(sys, radius, point_free, options: SolverOptions):
+    """(B^-1, D_c): the inverse LM-augmented point blocks and the camera
+    LM diagonal."""
+    binv = augmented_point_blocks(sys.hpp, point_free, radius, options)
+    d2c = tr_mod.lm_diagonal(torch.diagonal(sys.hcc),
+                             options.min_lm_diagonal, options.max_lm_diagonal)
+    return binv, d2c
+
+
+def _e2(sys):
+    N, Cn = sys.E.shape[0], sys.E.shape[2]
+    return sys.E.reshape(N * 3, Cn)
+
+
+def schur_rhs(sys, binv, cam_free, to_flat, allsum=_same):
+    """The reduced gradient -g_c + E2.T @ (B^-1 g_p) on the free
+    coordinates."""
+    bg = torch.einsum("pij,pj->pi", binv, sys.g_p).reshape(-1)
+    return (-sys.g_c + allsum(to_flat(_e2(sys).T @ bg))) * cam_free
+
+
+def schur_be(sys, binv):
+    """be = B^-1 E, (3N, Cn)."""
+    N, Cn = sys.E.shape[0], sys.E.shape[2]
+    return torch.einsum("pij,pjd->pid", binv, sys.E).reshape(N * 3, Cn)
+
+
+def schur_corr(sys, be, to_flat, allsum_sym=_same):
+    """The Schur correction E2.T @ be, (C, C) in flat order."""
+    return allsum_sym(to_flat(_e2(sys).T @ be))
+
+
+def schur_cameras(sys, d2c, corr, rhs, radius, cam_free):
+    """dc: S = H_cc + D_c / radius - corr solved against ``rhs`` on the
+    free coordinates."""
+    S = sys.hcc + torch.diag(d2c / radius) - corr
+    return masked_spd_solve(S, rhs, cam_free)
+
+
+def schur_back(sys, binv, dc, point_free, to_nat):
+    """The back-substitution: (e_dc = E dc, dp = -B^-1 (g_p + e_dc))."""
+    N = sys.E.shape[0]
+    e_dc = (_e2(sys) @ to_nat(dc)).reshape(N, 3)
+    dp = -torch.einsum("pij,pj->pi", binv, sys.g_p + e_dc) * point_free
+    return e_dc, dp
 
 
 def make_grid_step(options: SolverOptions, template: BAParams,
@@ -383,42 +487,11 @@ def make_grid_step(options: SolverOptions, template: BAParams,
     the next system writes into ``state.sys``'s buffers (one pass over E
     a step, and none more under the on-device driver, whose buffers they
     are): the step consumes its state's system."""
-    from deeparc_tpu_torch.kernels.rig_grid import (
-        flat_of_native,
-        native_of_flat,
-    )
-
-    # permutations between E's native column order and the flat camera
-    # order; only C-sized quantities are ever permuted, never E. Banded with
-    # frozen intrinsics, E comes back ext-only (N, 3, 6R): its columns are
-    # the first 6R flat columns, zeros elsewhere. The torch paths' E is in
-    # flat order.
     kernels = _check_impl(impl)
-    ext_only = kernels and band_intr_frozen and bool(band_widths[0])
-    R_rows, K = template.ext_rot.shape[0], template.center.shape[0]
+    to_flat, to_nat = column_maps(
+        template, kernels, kernels and band_intr_frozen
+        and bool(band_widths[0]))
     dev = template.points.device
-    C_full, ce = 6 * (R_rows + K), 6 * R_rows
-    k_e = 0 if ext_only else K
-    n2f = torch.as_tensor(native_of_flat(R_rows, k_e), device=dev).long()
-    f2n = torch.as_tensor(flat_of_native(R_rows, k_e), device=dev).long()
-
-    def to_flat(v):
-        if not kernels:
-            return v
-        if not ext_only:
-            return v[n2f] if v.ndim == 1 else v[n2f][:, n2f]
-        out = torch.zeros((C_full,) * v.ndim, dtype=v.dtype, device=dev)
-        if v.ndim == 1:
-            out[:ce] = v[n2f]
-        else:
-            out[:ce, :ce] = v[n2f][:, n2f]
-        return out
-
-    def to_nat(v):
-        if not kernels:
-            return v
-        return v[:ce][f2n] if ext_only else v[f2n]
-
     allsum, allmax, allsum_sym = reductions(reducer)
 
     def linearize_at(points, cam_vec, grid, cam_free, point_free):
@@ -440,32 +513,14 @@ def make_grid_step(options: SolverOptions, template: BAParams,
         -> (cost, payload)`` and take Ceres' accept and radius decision.
         Returns (accept, trial points, trial camera, payload, the next
         trust region, status, info)."""
-        dtype = state.points.dtype
-
-        # augmented per-point blocks, eliminated in closed form
-        d2p = tr_mod.lm_diagonal(torch.diagonal(sys.hpp, dim1=-2, dim2=-1),
-                                 options.min_lm_diagonal,
-                                 options.max_lm_diagonal)
-        eye3 = torch.eye(3, dtype=dtype, device=dev)
-        aug = sys.hpp + eye3 * d2p[:, :, None] / state.tr.radius
-        aug = aug + (1.0 - point_free)[:, :, None] * eye3
-        binv = inv3x3(aug)
-        d2c = tr_mod.lm_diagonal(torch.diagonal(sys.hcc),
-                                 options.min_lm_diagonal,
-                                 options.max_lm_diagonal)
-
+        # augmented per-point blocks, eliminated in closed form, then the
         # reduced camera system S dc = rhs (the Schur complement)
-        N, Cn = sys.E.shape[0], sys.E.shape[2]
-        E2 = sys.E.reshape(N * 3, Cn)
-        bg = torch.einsum("pij,pj->pi", binv, sys.g_p).reshape(-1)
-        rhs = (-sys.g_c + allsum(to_flat(E2.T @ bg))) * cam_free
-        be = torch.einsum("pij,pjd->pid", binv, sys.E).reshape(N * 3, Cn)
-        corr = allsum_sym(to_flat(E2.T @ be))
-        S = sys.hcc + torch.diag(d2c / state.tr.radius) - corr
-        dc = masked_spd_solve(S, rhs, cam_free)
-
-        e_dc = (E2 @ to_nat(dc)).reshape(N, 3)
-        dp = -torch.einsum("pij,pj->pi", binv, sys.g_p + e_dc) * point_free
+        radius = state.tr.radius
+        binv, d2c = schur_point_blocks(sys, radius, point_free, options)
+        rhs = schur_rhs(sys, binv, cam_free, to_flat, allsum)
+        corr = schur_corr(sys, schur_be(sys, binv), to_flat, allsum_sym)
+        dc = schur_cameras(sys, d2c, corr, rhs, radius, cam_free)
+        e_dc, dp = schur_back(sys, binv, dc, point_free, to_nat)
 
         # model cost change from the stored quadratic pieces
         dtg = allsum(torch.sum(dp * sys.g_p)) + torch.dot(dc, sys.g_c)

@@ -216,15 +216,17 @@ def build_system(r: torch.Tensor, j_point: torch.Tensor, j_cam: torch.Tensor,
                         g_c=g_c, hcc_diag=hcc_diag)
 
 
-def _augmented_point_blocks(sys: SchurSystem, radius: torch.Tensor,
-                            options: SolverOptions) -> torch.Tensor:
-    """B~^-1: inverses of the LM-augmented per-point 3x3 blocks (frozen
-    coordinates get identity rows, and their gradient is already zero)."""
-    diag = torch.diagonal(sys.hpp, dim1=-2, dim2=-1)
+def augmented_point_blocks(hpp: torch.Tensor, point_free: torch.Tensor,
+                           radius: torch.Tensor,
+                           options: SolverOptions) -> torch.Tensor:
+    """B~^-1: inverses of the LM-augmented per-point 3x3 blocks ``hpp``
+    (frozen coordinates get identity rows, and their gradient is already
+    zero). Every engine's step takes its point blocks from here."""
+    diag = torch.diagonal(hpp, dim1=-2, dim2=-1)
     d2 = lm_diagonal(diag, options.min_lm_diagonal, options.max_lm_diagonal)
-    eye = torch.eye(3, dtype=sys.hpp.dtype, device=sys.hpp.device)
-    aug = sys.hpp + eye * d2[:, :, None] / radius
-    aug = aug + (1.0 - sys.point_free)[:, :, None] * eye
+    eye = torch.eye(3, dtype=hpp.dtype, device=hpp.device)
+    aug = hpp + eye * d2[:, :, None] / radius
+    aug = aug + (1.0 - point_free)[:, :, None] * eye
     return inv3x3(aug)
 
 
@@ -368,7 +370,7 @@ def solve_schur(sys: SchurSystem, radius: torch.Tensor,
     """Solve the augmented normal equations; returns (dp (N,3), dc (C,)).
     ``device_loop`` runs PCG as :func:`solver.linalg.pcg_device` (the
     ``while_loop`` driver)."""
-    binv = _augmented_point_blocks(sys, radius, options)
+    binv = augmented_point_blocks(sys.hpp, sys.point_free, radius, options)
     cam_aug = _cam_aug_diag(sys, radius, options)
     rhs = reduced_rhs(sys, binv) * sys.cam_free
     if options.linear_solver == "dense_schur":

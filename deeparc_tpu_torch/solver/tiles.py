@@ -77,7 +77,7 @@ from deeparc_tpu_torch.solver.ba import (
     save_checkpoint,
     tr_of,
 )
-from deeparc_tpu_torch.solver.linalg import inv3x3, pcg, pcg_device
+from deeparc_tpu_torch.solver.linalg import pcg, pcg_device
 from deeparc_tpu_torch.solver.loss import rho as loss_rho
 from deeparc_tpu_torch.solver.loss import weight as loss_weight
 from deeparc_tpu_torch.solver.rig_grid import (
@@ -85,6 +85,7 @@ from deeparc_tpu_torch.solver.rig_grid import (
     reductions,
     slot_params,
 )
+from deeparc_tpu_torch.solver.schur import augmented_point_blocks
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 
@@ -1071,7 +1072,7 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
     def step(state: TileState, tiles: TileIndex, cam_free, point_free_t):
         cells, cols = tiles.cells, tiles.cells.cols
-        dtype, dev = state.points.dtype, state.points.device
+        dev = state.points.device
         params = _params_from(state.cam_vec, state.points, template)
         packed = pack_cells(slot_params(params, tiles.cells), tiles.cells,
                             cam_free)
@@ -1092,13 +1093,8 @@ def make_tile_step(options: SolverOptions, template: BAParams,
                     torch.diagonal(hcc_cells, dim1=-2, dim2=-1), cells, C))
 
         # augmented per-point blocks
-        d2p = tr_mod.lm_diagonal(torch.diagonal(sys.hpp, dim1=-2, dim2=-1),
-                                 options.min_lm_diagonal,
-                                 options.max_lm_diagonal)
-        eye3 = torch.eye(3, dtype=dtype, device=dev)
-        aug = sys.hpp + eye3 * d2p[:, :, None] / state.tr.radius
-        aug = aug + (1.0 - point_free_t)[:, :, None] * eye3
-        binv = inv3x3(aug)
+        binv = augmented_point_blocks(sys.hpp, point_free_t, state.tr.radius,
+                                      options)
         d2c = tr_mod.lm_diagonal(sys.hcc_diag, options.min_lm_diagonal,
                                  options.max_lm_diagonal)
         cam_aug = d2c / state.tr.radius

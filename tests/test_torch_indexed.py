@@ -98,7 +98,8 @@ def test_build_system_dense_S_reduced_rhs_match_jax(systems):
               1e-10 * float(np.abs(np.asarray(getattr(jsys, name))).max()))
     opts = SolverOptions()
     radius = torch.tensor(1e4, dtype=torch.float64)
-    binv = tschur._augmented_point_blocks(tsys, radius, opts)
+    binv = tschur.augmented_point_blocks(tsys.hpp, tsys.point_free, radius,
+                                         opts)
     jbinv = jschur._augmented_point_blocks(jsys, jnp.asarray(1e4),
                                            JSolverOptions())
     for got, want in ((tschur.dense_S(tsys, binv),

@@ -95,6 +95,10 @@ def test_cli_runs_without_jax(tmp_path):
         "       or m == 'scripts' or m.startswith('scripts.')]\n"
         "assert not bad, f'the port imported {bad[:5]}'\n"
         "assert 'deeparc_tpu_torch.scripts.vpu_roofline' in sys.modules\n"
+        "for m in ('profile_grid', 'profile_grid_band', 'profile_planes',\n"
+        "          'profile_tiles', 'microbench_ops', 'microbench_tile_ops',\n"
+        "          'ceres_equiv_cpu'):\n"
+        "    assert 'deeparc_tpu_torch.scripts.' + m in sys.modules, m\n"
         "for m in ('multihost', 'sharded_ba', 'sharded_grid',\n"
         "          'sharded_tiles', 'dryrun'):\n"
         "    assert 'deeparc_tpu_torch.parallel.' + m in sys.modules, m\n"
