@@ -37,7 +37,7 @@ from deeparc_tpu_torch.residuals.reprojection import (
 )
 from deeparc_tpu_torch.scene import BAParams, Scene, SceneIndex, _np
 from deeparc_tpu_torch.solver import trust_region as tr_mod
-from deeparc_tpu_torch.solver.ba import LM_LOOP, StepInfo
+from deeparc_tpu_torch.solver.ba import LM_LOOP, StepInfo, lm_running
 from deeparc_tpu_torch.solver.device_loop import BlockLoop, run_blocks
 from deeparc_tpu_torch.solver.linalg import masked_spd_solve
 from deeparc_tpu_torch.solver.schur import (
@@ -52,6 +52,7 @@ from deeparc_tpu_torch.solver.schur import (
     sys_r,
 )
 from deeparc_tpu_torch.utils import debug
+from deeparc_tpu_torch.utils.profiling import span
 
 
 class ShardedScene(NamedTuple):
@@ -295,9 +296,10 @@ def solve_ba_sharded(sharded: ShardedScene,
     else:
         step = debug.checked_step(step, "indexed-sharded", red)
         k, t0 = 0, time.time()
-        with torch.profiler.record_function(LM_LOOP):
-            while int(state.status) == 0 and k < options.max_iterations:
-                state, _ = step(state)
+        with span(LM_LOOP):
+            while lm_running(state.status) and k < options.max_iterations:
+                with span("deeparc.lm.step"):
+                    state, _ = step(state)
                 k += 1
         status, seconds = int(state.status), time.time() - t0
     gathered = red.gather_rows(state.points).reshape(

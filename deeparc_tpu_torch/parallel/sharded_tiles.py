@@ -43,6 +43,7 @@ from deeparc_tpu_torch.scene import BAParams
 from deeparc_tpu_torch.solver.ba import (
     LM_LOOP,
     BAResult,
+    lm_running,
     print_header,
     print_iteration,
     save_checkpoint,
@@ -61,6 +62,7 @@ from deeparc_tpu_torch.solver.tiles import (
 )
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
+from deeparc_tpu_torch.utils.profiling import span
 
 
 def _pad(t: torch.Tensor, pad: int, fill=0.0) -> torch.Tensor:
@@ -254,11 +256,12 @@ def solve_ba_tiles_sharded(params_t: BAParams, tiles: TileIndex,
     k, cg_total = state.k, 0
     if options.progress_to_stdout and lead:
         print_header(k, state.cost, cg=True)
-    with torch.profiler.record_function(LM_LOOP):
-        while int(state.status) == 0 and k < options.max_iterations:
+    with span(LM_LOOP):
+        while lm_running(state.status) and k < options.max_iterations:
             if red.agree(time.time() - t0 > options.max_seconds):
                 break
-            state, info = step(state, local, cam_free, point_free)
+            with span("deeparc.lm.step"):
+                state, info = step(state, local, cam_free, point_free)
             k += 1
             if options.progress_to_stdout and lead:
                 print_iteration(k, info, cg=True)

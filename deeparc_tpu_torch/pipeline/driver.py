@@ -55,6 +55,7 @@ from deeparc_tpu_torch.scene import (
     to_deeparc,
 )
 from deeparc_tpu_torch.solver.lm import fit_hemisphere
+from deeparc_tpu_torch.utils.profiling import span, traced
 
 ENGINES = ("auto", "grid", "tiles", "indexed", "grid-sharded",
            "tiles-sharded")
@@ -91,25 +92,28 @@ def _camera_composed_flags(scene: Scene) -> np.ndarray:
 
 
 def _snapshot(scene: Scene, path: str) -> None:
-    data = to_deeparc(scene)
-    centers = scene_camera_centers(scene).cpu().numpy().astype(np.float64)
-    write_ply(path, data.points, data.colors, centers,
-              _camera_composed_flags(scene))
+    with span("deeparc.pipeline.write"):
+        data = to_deeparc(scene)
+        centers = scene_camera_centers(scene).cpu().numpy().astype(
+            np.float64)
+        write_ply(path, data.points, data.colors, centers,
+                  _camera_composed_flags(scene))
 
 
 def _sync_grid_masks(scene: Scene, grid) -> Scene:
     """Reflect grid-space masks back onto the observation-list scene (for
     snapshots, export and freeze masks); the gather runs on the device."""
-    cell = torch.as_tensor(
-        scene.meta.obs_arc.astype(np.int64) * scene.meta.ring_size
-        + scene.meta.obs_ring.astype(np.int64),
-        device=scene.params.points.device)
-    dtype = scene.params.points.dtype
-    index = dataclasses.replace(
-        scene.index,
-        obs_mask=grid.mask[scene.index.obs_point.long(), cell].to(dtype),
-        point_mask=grid.point_mask.to(dtype))
-    return dataclasses.replace(scene, index=index)
+    with span("deeparc.pipeline.sync"):
+        cell = torch.as_tensor(
+            scene.meta.obs_arc.astype(np.int64) * scene.meta.ring_size
+            + scene.meta.obs_ring.astype(np.int64),
+            device=scene.params.points.device)
+        dtype = scene.params.points.dtype
+        index = dataclasses.replace(
+            scene.index,
+            obs_mask=grid.mask[scene.index.obs_point.long(), cell].to(dtype),
+            point_mask=grid.point_mask.to(dtype))
+        return dataclasses.replace(scene, index=index)
 
 
 def _write_sidecar(path, step, result, stats, t_start):
@@ -172,37 +176,43 @@ def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
 
     dev, dtype = scene.params.points.device, scene.params.points.dtype
     impl = grid_impl(options.impl)
-    grid = grid_from_scene(scene)
-    log(f"[deeparc] engine={'grid-sharded' if sharded else 'grid'} "
-        f"({grid.mask.shape[1]} cells, "
-        f"{float(grid.mask.mean()) * 100:.1f}% grid density, "
-        f"impl={impl}, {_route(impl, dev)})")
+    with span("deeparc.pipeline.layout"):
+        grid = grid_from_scene(scene)
+        log(f"[deeparc] engine={'grid-sharded' if sharded else 'grid'} "
+            f"({grid.mask.shape[1]} cells, "
+            f"{float(grid.mask.mean()) * 100:.1f}% grid density, "
+            f"impl={impl}, {_route(impl, dev)})")
     hemi_center = torch.as_tensor(hemi[:3], dtype=dtype, device=dev)
     band_state: dict = {}    # band prep shared across filter rounds
 
-    def run_solve(free):
-        if sharded:
-            res = solve_ba_grid_sharded(scene.params, grid, free,
-                                        options.solver, impl=impl)
-        else:
-            res = solve_ba_grid(scene.params, grid, free, options.solver,
-                                band_reuse=band_state, impl=impl)
+    def run_solve(free, rnd):
+        with span("deeparc.pipeline.solve", round=rnd):
+            if sharded:
+                res = solve_ba_grid_sharded(scene.params, grid, free,
+                                            options.solver, impl=impl)
+            else:
+                res = solve_ba_grid(scene.params, grid, free, options.solver,
+                                    band_reuse=band_state, impl=impl)
         totals["iterations"] += res.iterations
         totals["seconds"] += res.seconds
         return res
 
     def run_filter():
-        mask, pmask = filter_masks_grid(scene.params, grid, hemi_center,
-                                        float(hemi[3]), options.filter)
-        stats = FilterStats(obs_alive=int(mask.sum()),
-                            points_alive=int(pmask.sum()))
+        with span("deeparc.pipeline.filter") as sp:
+            mask, pmask = filter_masks_grid(scene.params, grid, hemi_center,
+                                            float(hemi[3]), options.filter)
+            stats = FilterStats(obs_alive=int(mask.sum()),
+                                points_alive=int(pmask.sum()))
+            sp.set(obs_alive=stats.obs_alive,
+                   points_alive=stats.points_alive)
         return dataclasses.replace(grid, mask=mask, point_mask=pmask), stats
 
     def point_free_of(free):
         return dataclasses.replace(
             free, points=free.points * grid.point_mask[:, None])
 
-    result = run_solve(point_free_of(freeze_masks(scene, freeze_camera=True)))
+    result = run_solve(point_free_of(freeze_masks(scene, freeze_camera=True)),
+                       0)
     scene = dataclasses.replace(scene, params=result.params)
     log(f"[deeparc] freeze-camera solve: cost={result.cost:.6e} "
         f"iters={result.iterations}")
@@ -218,7 +228,7 @@ def _grid_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
     while current_points != old_points and step < options.max_filter_rounds:
         step += 1
         old_points = current_points
-        result = run_solve(point_free_of(freeze_masks(scene)))
+        result = run_solve(point_free_of(freeze_masks(scene)), step)
         scene = dataclasses.replace(scene, params=result.params)
         grid, stats = run_filter()
         scene = _sync_grid_masks(scene, grid)
@@ -252,8 +262,9 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
     dev, dtype = scene.params.points.device, scene.params.points.dtype
     impl = tile_impl(options.impl)
     free0 = freeze_masks(scene)
-    tiles, params_t, free_t, slot_src = tiles_from_scene(
-        scene, free0, with_slot_src=True)
+    with span("deeparc.pipeline.layout"):
+        tiles, params_t, free_t, slot_src = tiles_from_scene(
+            scene, free0, with_slot_src=True)
     v_loc = [b.loc[1].shape[1] if b.loc else None for b in tiles.buckets]
     log(f"[deeparc] engine={'tiles-sharded' if sharded else 'tiles'} "
         f"({tiles.cells.cols.shape[0]} cells, "
@@ -266,49 +277,53 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
     hemi_center = torch.as_tensor(hemi[:3], dtype=dtype, device=dev)
     solve_cache: dict = {}   # the step, shared across filter rounds
 
-    def run_solve(tiles_cur, params_cur, cam_free, free_rows):
-        if sharded:
-            res = solve_ba_tiles_sharded(params_cur, tiles_cur, free_rows,
-                                         cam_free, options.solver,
-                                         sweep_dtype=sweep_dtype, impl=impl)
-        else:
-            res = solve_tiles_prepared(params_cur, tiles_cur, free_rows,
-                                       cam_free, options.solver, impl=impl,
-                                       unpermute=False,
-                                       sweep_dtype=sweep_dtype,
-                                       _cache=solve_cache)
+    def run_solve(tiles_cur, params_cur, cam_free, free_rows, rnd):
+        with span("deeparc.pipeline.solve", round=rnd):
+            if sharded:
+                res = solve_ba_tiles_sharded(
+                    params_cur, tiles_cur, free_rows, cam_free,
+                    options.solver, sweep_dtype=sweep_dtype, impl=impl)
+            else:
+                res = solve_tiles_prepared(
+                    params_cur, tiles_cur, free_rows, cam_free,
+                    options.solver, impl=impl, unpermute=False,
+                    sweep_dtype=sweep_dtype, _cache=solve_cache)
         totals["iterations"] += res.iterations
         totals["seconds"] += res.seconds
         totals["cg"] += res.cg_iterations
         return res
 
     def run_filter(tiles_cur, params_cur):
-        masks, row_mask = filter_masks_tiles(
-            params_cur.points, params_cur, tiles_cur, hemi_center,
-            float(hemi[3]), options.filter)
-        stats = FilterStats(obs_alive=int(sum(m.sum() for m in masks)),
-                            points_alive=int(row_mask.sum()))
+        with span("deeparc.pipeline.filter") as sp:
+            masks, row_mask = filter_masks_tiles(
+                params_cur.points, params_cur, tiles_cur, hemi_center,
+                float(hemi[3]), options.filter)
+            stats = FilterStats(obs_alive=int(sum(m.sum() for m in masks)),
+                                points_alive=int(row_mask.sum()))
+            sp.set(obs_alive=stats.obs_alive,
+                   points_alive=stats.points_alive)
         buckets = tuple(b._replace(mask=m)
                         for b, m in zip(tiles_cur.buckets, masks))
         return tiles_cur._replace(buckets=buckets), row_mask, stats
 
     def sync_scene(scn, params_cur, tiles_cur, row_mask):
         """Row-space results back onto the observation-list scene."""
-        pts = unpermute_points(params_cur.points, tiles)
-        obs_mask = np.zeros(scn.n_obs)
-        for b, src in zip(tiles_cur.buckets, slot_src):
-            valid = src >= 0
-            obs_mask[src[valid]] = b.mask.cpu().numpy()[valid]
-        pmask = row_mask[tiles.row_of_point.long()]
-        index = dataclasses.replace(
-            scn.index, obs_mask=torch.as_tensor(obs_mask, dtype=dtype,
-                                                device=dev),
-            point_mask=pmask.to(dtype))
-        return dataclasses.replace(
-            scn, params=dataclasses.replace(params_cur, points=pts),
-            index=index)
+        with span("deeparc.pipeline.sync"):
+            pts = unpermute_points(params_cur.points, tiles)
+            obs_mask = np.zeros(scn.n_obs)
+            for b, src in zip(tiles_cur.buckets, slot_src):
+                valid = src >= 0
+                obs_mask[src[valid]] = b.mask.cpu().numpy()[valid]
+            pmask = row_mask[tiles.row_of_point.long()]
+            index = dataclasses.replace(
+                scn.index, obs_mask=torch.as_tensor(obs_mask, dtype=dtype,
+                                                    device=dev),
+                point_mask=pmask.to(dtype))
+            return dataclasses.replace(
+                scn, params=dataclasses.replace(params_cur, points=pts),
+                index=index)
 
-    result = run_solve(tiles, params_t, cam_free_frozen, free_t)
+    result = run_solve(tiles, params_t, cam_free_frozen, free_t, 0)
     params_rows = result.params
     log(f"[deeparc] freeze-camera solve: cost={result.cost:.6e} "
         f"iters={result.iterations}")
@@ -325,7 +340,8 @@ def _tile_rounds(scene, options, hemi, log, snapshot, sidecar, totals,
     while current_points != old_points and step < options.max_filter_rounds:
         step += 1
         old_points = current_points
-        result = run_solve(tiles_cur, params_rows, cam_free_full, free_rows)
+        result = run_solve(tiles_cur, params_rows, cam_free_full, free_rows,
+                           step)
         params_rows = result.params
         tiles_cur, row_mask, stats = run_filter(tiles_cur, params_rows)
         free_rows = free_t * row_mask[:, None]
@@ -349,18 +365,27 @@ def _indexed_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     log(f"[deeparc] engine=indexed ({scene.n_obs} observations, "
         f"kernels={'cuda' if dev.type == 'cuda' else 'plain torch'})")
 
-    def run_solve(free):
-        res = solve_ba(scene.params, scene.index, free, options.solver)
+    def run_solve(free, rnd):
+        with span("deeparc.pipeline.solve", round=rnd):
+            res = solve_ba(scene.params, scene.index, free, options.solver)
         totals["iterations"] += res.iterations
         totals["seconds"] += res.seconds
         return res
 
+    def run_filter(scn):
+        with span("deeparc.pipeline.filter") as sp:
+            scn, stats = filter_outliers(scn, hemi[:3], hemi[3],
+                                         options.filter)
+            sp.set(obs_alive=stats.obs_alive,
+                   points_alive=stats.points_alive)
+        return scn, stats
+
     # points-only pre-solve (freeze_camera=true; sfm.cc:111)
-    result = run_solve(freeze_masks(scene, freeze_camera=True))
+    result = run_solve(freeze_masks(scene, freeze_camera=True), 0)
     scene = dataclasses.replace(scene, params=result.params)
     log(f"[deeparc] freeze-camera solve: cost={result.cost:.6e} "
         f"iters={result.iterations}")
-    scene, stats = filter_outliers(scene, hemi[:3], hemi[3], options.filter)
+    scene, stats = run_filter(scene)
     log(f"block: {stats.obs_alive}")
     log(f"point3d: {stats.points_alive}")
 
@@ -371,11 +396,11 @@ def _indexed_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     while current_points != old_points and step < options.max_filter_rounds:
         step += 1
         old_points = current_points
-        scene = compact(scene, obs_bucket=1024, point_bucket=256)
-        result = run_solve(freeze_masks(scene))
+        with span("deeparc.pipeline.compact"):
+            scene = compact(scene, obs_bucket=1024, point_bucket=256)
+        result = run_solve(freeze_masks(scene), step)
         scene = dataclasses.replace(scene, params=result.params)
-        scene, stats = filter_outliers(scene, hemi[:3], hemi[3],
-                                       options.filter)
+        scene, stats = run_filter(scene)
         current_points = stats.points_alive
         log(f"block: {stats.obs_alive}")
         log(f"point3d: {current_points}")
@@ -384,6 +409,7 @@ def _indexed_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     return scene, rounds
 
 
+@traced("deeparc.pipeline")
 def run_pipeline(data: DeepArcData,
                  options: PipelineOptions = PipelineOptions(),
                  output_dir: Optional[str] = None, basename: str = "scene",
@@ -426,7 +452,8 @@ def run_pipeline(data: DeepArcData,
         os.makedirs(output_dir, exist_ok=True)
     log = print if verbose and rank == 0 else (lambda *a, **k: None)
 
-    scene = from_deeparc(data, dtype=dtype, device=device)
+    with span("deeparc.pipeline.load"):
+        scene = from_deeparc(data, dtype=dtype, device=device)
     log(f"[deeparc] loaded: {scene.n_obs} obs, {scene.n_points} points, "
         f"{scene.n_extrinsics} extrinsics, {scene.n_intrinsics} intrinsics, "
         f"share_extrinsic={scene.meta.share_extrinsic}, device={device}")
@@ -434,8 +461,9 @@ def run_pipeline(data: DeepArcData,
         log(f"[deeparc] process group: world size {world} "
             f"({dist.get_backend()})")
 
-    hemi = fit_hemisphere(scene_camera_centers(scene),
-                          options.hemisphere_max_iterations).cpu().numpy()
+    with span("deeparc.pipeline.hemisphere"):
+        hemi = fit_hemisphere(scene_camera_centers(scene),
+                              options.hemisphere_max_iterations).cpu().numpy()
     log(f"[deeparc] hemisphere fit: center={hemi[:3]} r^2={hemi[3]:.6f}")
     if output_dir and options.write_snapshots:
         _snapshot(scene, out(f"{basename}_init.ply"))
@@ -459,13 +487,19 @@ def run_pipeline(data: DeepArcData,
                                       sidecar, totals, sharded=sharded)
 
     log(f"TOTAL REPEAT: {len(rounds_log)}")
-    scene = compact(scene)
+    with span("deeparc.pipeline.compact"):
+        scene = compact(scene)
     if output_dir:
         _snapshot(scene, out(f"{basename}_clear.ply"))
-        write_deeparc(to_deeparc(scene), out(f"{basename}_output.deeparc"))
+        with span("deeparc.pipeline.write"):
+            write_deeparc(to_deeparc(scene),
+                          out(f"{basename}_output.deeparc"))
+    with span("deeparc.pipeline.final_cost"):
+        final_cost = float(cost(scene.params, scene.index))
+        final_rmse = rmse_px(scene)
     return PipelineResult(
         scene=scene, hemisphere=hemi, filter_rounds=len(rounds_log),
-        final_cost=float(cost(scene.params, scene.index)),
-        final_rmse_px=rmse_px(scene), rounds=tuple(rounds_log),
+        final_cost=final_cost, final_rmse_px=final_rmse,
+        rounds=tuple(rounds_log),
         solve_iterations=totals["iterations"],
         solve_seconds=totals["seconds"], cg_iterations=totals["cg"])

@@ -27,9 +27,10 @@ from deeparc_tpu_torch.scene import BAParams, SceneIndex
 from deeparc_tpu_torch.solver import trust_region as tr_mod
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
+from deeparc_tpu_torch.utils.profiling import span, traced
 
-# the profiler's name for a solve's LM loop, under either driver, every
-# engine (``torch.profiler.record_function``)
+# the span (``utils/profiling.py``) of a solve's LM loop, under either
+# driver, every engine
 LM_LOOP = "deeparc.lm_loop"
 
 
@@ -207,6 +208,13 @@ def print_iteration(k: int, info: StepInfo, cg: bool = False) -> None:
           + (f" {info.cg_iters:>4}" if cg else ""))
 
 
+def lm_running(status) -> bool:
+    """The Python driver's read of the step's status (0: running), the
+    host's wait for the card (span ``deeparc.lm.sync``)."""
+    with span("deeparc.lm.sync"):
+        return int(status) == 0
+
+
 def load_checkpoint(path: str | None, resume: bool, template: BAParams):
     """(BAParams, scalars) of the checkpoint at ``path`` in the template's
     dtype and device when ``resume`` is set and the file exists, else
@@ -237,6 +245,7 @@ def save_checkpoint(path: str, params: BAParams, tr: tr_mod.TRState, k: int,
                       float(tr.decrease_factor), k, float(cost))
 
 
+@traced("deeparc.solve")
 def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
              options: SolverOptions = SolverOptions(),
              driver: str = "python", checkpoint_path: str | None = None,
@@ -281,11 +290,12 @@ def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
     k = state.k
     if options.progress_to_stdout:
         print_header(k, state.cost)
-    with torch.profiler.record_function(LM_LOOP):
-        while int(state.status) == 0 and k < options.max_iterations:
+    with span(LM_LOOP):
+        while lm_running(state.status) and k < options.max_iterations:
             if time.time() - t0 > options.max_seconds:
                 break
-            state, info = step(state)
+            with span("deeparc.lm.step"):
+                state, info = step(state)
             k += 1
             if options.progress_to_stdout:
                 print_iteration(k, info)

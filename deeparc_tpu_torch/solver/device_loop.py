@@ -43,6 +43,7 @@ import torch
 from deeparc_tpu_torch.kernels import graph_loop
 from deeparc_tpu_torch.solver.ba import LM_LOOP
 from deeparc_tpu_torch.utils import debug
+from deeparc_tpu_torch.utils.profiling import span
 
 # called with each BlockLoop right after its graph is captured (the card's
 # measurements read the graph's nodes and the capture's time there)
@@ -244,7 +245,8 @@ class BlockLoop:
                 self.graph.replay()
             else:
                 self._program()
-        k, status, cg = self.out.tolist()
+        with span("deeparc.lm.sync"):
+            k, status, cg = self.out.tolist()
         self.block_seconds.append(time.perf_counter() - t0)
         return k, status, cg
 
@@ -266,13 +268,15 @@ def run_blocks(loop: BlockLoop, k: int, max_iterations: int,
     check = debug.enabled()
     t0 = time.time()
     status, cg = 0, 0
-    with torch.profiler.record_function(LM_LOOP):
+    with span(LM_LOOP):
         while status == 0 and k < max_iterations:
             if agree(time.time() - t0 > max_seconds):
                 break
             k0 = k
             saved = tree_map(torch.clone, loop.state) if check else None
-            k, status, cg = loop.run(min(k + while_block, max_iterations))
+            with span("deeparc.lm.block"):
+                k, status, cg = loop.run(min(k + while_block,
+                                             max_iterations))
             if check:
                 debug.check_block(loop, saved, k0, k, engine, reducer)
             if on_block is not None:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from deeparc_tpu_torch.solver.rig_grid import GridIndex
+from deeparc_tpu_torch.utils.profiling import span
 
 
 class BandPrep(NamedTuple):
@@ -267,19 +268,23 @@ def band_grid(grid: GridIndex, block_np: int = 256, cost_block_np: int = 1024,
                          "two tilings share one padded point count")
     dev = grid.mask.device
     n_pad = _round_up(N, max(block_np, cost_block_np))
-    cooc = (grid.mask.T @ grid.mask).cpu().numpy()         # (T, T)
     n_live = -(-N // block_np)
+    # the co-visibility Gram on the host and the orderings it yields
+    with span("deeparc.band.cooc"):
+        cooc = (grid.mask.T @ grid.mask).cpu().numpy()     # (T, T)
+        candidates = _cell_orderings(cooc, orderings)
 
     best = None
-    for cell_perm in _cell_orderings(cooc, orderings):
-        cp = torch.as_tensor(cell_perm, device=dev)
-        order = _point_order(grid.mask, cp)
-        lv = _tile_liveness(grid.mask, order, cp, t_pad, block_np,
-                            n_pad).cpu().numpy()
-        starts, covers = _covers_from_liveness(lv)
-        # selection metric: the PAID slot work after width bucketing, over
-        # tiles that hold real points
-        work = int(_partition_widths(covers[:n_live], max_groups).sum())
+    for cell_perm in candidates:
+        with span("deeparc.band.ordering"):
+            cp = torch.as_tensor(cell_perm, device=dev)
+            order = _point_order(grid.mask, cp)
+            lv = _tile_liveness(grid.mask, order, cp, t_pad, block_np,
+                                n_pad).cpu().numpy()
+            starts, covers = _covers_from_liveness(lv)
+            # selection metric: the PAID slot work after width bucketing,
+            # over tiles that hold real points
+            work = int(_partition_widths(covers[:n_live], max_groups).sum())
         if best is None or work < best[0]:
             best = (work, cp, order, starts, covers)
     work, cell_perm, order, starts, covers = best
@@ -287,36 +292,43 @@ def band_grid(grid: GridIndex, block_np: int = 256, cost_block_np: int = 1024,
     if work * 8 >= max_frac * t_pad * n_live:
         return None
 
-    # width-bucketed tile reorder; tiles overlapping the padding stay last
-    n_full = N // block_np
-    tile_order_full, lin_groups = _group_tiles(covers[:n_full], max_groups)
-    tile_order = np.concatenate([tile_order_full,
-                                 np.arange(n_full, n_tiles)])
-    if n_full < n_tiles:
-        w_tail = max(int(covers[n_full:].max()), 1) * 8
-        lin_groups = lin_groups + ((w_tail, n_full, n_tiles),)
-    starts = starts[tile_order]
-    order_np = order.cpu().numpy()
-    full_rows = order_np[: n_full * block_np].reshape(n_full, block_np)
-    order = torch.as_tensor(np.concatenate(
-        [full_rows[tile_order_full].reshape(-1),
-         order_np[n_full * block_np:]]), device=dev)
-    w_band = max(w for w, _, _ in lin_groups)
+    with span("deeparc.band.tiles"):
+        # width-bucketed tile reorder; tiles overlapping the padding stay
+        # last
+        n_full = N // block_np
+        tile_order_full, lin_groups = _group_tiles(covers[:n_full],
+                                                   max_groups)
+        tile_order = np.concatenate([tile_order_full,
+                                     np.arange(n_full, n_tiles)])
+        if n_full < n_tiles:
+            w_tail = max(int(covers[n_full:].max()), 1) * 8
+            lin_groups = lin_groups + ((w_tail, n_full, n_tiles),)
+        starts = starts[tile_order]
+        order_np = order.cpu().numpy()
+        full_rows = order_np[: n_full * block_np].reshape(n_full, block_np)
+        order = torch.as_tensor(np.concatenate(
+            [full_rows[tile_order_full].reshape(-1),
+             order_np[n_full * block_np:]]), device=dev)
+        w_band = max(w for w, _, _ in lin_groups)
 
-    # cost tiling on the FINAL point order: a contiguous sequence partition
-    lv_cost = _tile_liveness(grid.mask, order, cell_perm, t_pad,
-                             cost_block_np, n_pad).cpu().numpy()
-    starts_cost, covers_cost = _covers_from_liveness(lv_cost)
-    cost_groups = _partition_sequence(covers_cost, max_groups_cost, t_pad)
-    w_cost = max(w for w, _, _ in cost_groups)
+        # cost tiling on the FINAL point order: a contiguous sequence
+        # partition
+        lv_cost = _tile_liveness(grid.mask, order, cell_perm, t_pad,
+                                 cost_block_np, n_pad).cpu().numpy()
+        starts_cost, covers_cost = _covers_from_liveness(lv_cost)
+        cost_groups = _partition_sequence(covers_cost, max_groups_cost,
+                                          t_pad)
+        w_cost = max(w for w, _, _ in cost_groups)
 
-    new_grid = _permuted(grid, order, cell_perm)
+    with span("deeparc.band.permute"):
+        new_grid = _permuted(grid, order, cell_perm)
     starts_d = torch.as_tensor(starts, dtype=torch.int32, device=dev)
     starts_cost_d = torch.as_tensor(starts_cost, dtype=torch.int32,
                                     device=dev)
-    pxm_lin, pxm_cost = _gather_stacks(
-        new_grid, starts_d, starts_cost_d, lin_groups, cost_groups, block_np,
-        cost_block_np, max(w_band, w_cost))
+    with span("deeparc.band.stacks"):
+        pxm_lin, pxm_cost = _gather_stacks(
+            new_grid, starts_d, starts_cost_d, lin_groups, cost_groups,
+            block_np, cost_block_np, max(w_band, w_cost))
     new_grid = dataclasses.replace(
         new_grid, band=(starts_d, starts_cost_d, pxm_lin, pxm_cost))
     return BandPrep(grid=new_grid, w_band=int(w_band), w_band_cost=int(w_cost),
@@ -335,20 +347,25 @@ def band_grid_update(prep: BandPrep, grid: GridIndex) -> BandPrep:
     banded kernels would skip it wherever it lies outside the stored
     bands."""
     order, cp = prep.perm, prep.cell_perm
-    mask = grid.mask[order][:, cp]
-    moved = int(torch.count_nonzero((mask != 0) & (prep.grid.mask == 0)))
-    if moved:
-        raise ValueError(
-            f"band_grid_update: {moved} live observations were dead at prep "
-            f"time; the stored band covers are only valid for masks that "
-            f"remove observations — run band_grid")
-    g = dataclasses.replace(
-        prep.grid, xy0=grid.xy0[order][:, cp], xy1=grid.xy1[order][:, cp],
-        mask=mask, point_mask=grid.point_mask[order], band=())
+    with span("deeparc.band.permute"):
+        mask = grid.mask[order][:, cp]
+        moved = int(torch.count_nonzero((mask != 0)
+                                        & (prep.grid.mask == 0)))
+        if moved:
+            raise ValueError(
+                f"band_grid_update: {moved} live observations were dead at "
+                f"prep time; the stored band covers are only valid for masks "
+                f"that remove observations — run band_grid")
+        g = dataclasses.replace(
+            prep.grid, xy0=grid.xy0[order][:, cp],
+            xy1=grid.xy1[order][:, cp], mask=mask,
+            point_mask=grid.point_mask[order], band=())
     starts_d, starts_cost_d = prep.grid.band[0], prep.grid.band[1]
-    pxm_lin, pxm_cost = _gather_stacks(
-        g, starts_d, starts_cost_d, prep.lin_groups, prep.cost_groups,
-        prep.block_np, prep.cost_block_np, max(prep.w_band, prep.w_band_cost))
+    with span("deeparc.band.stacks"):
+        pxm_lin, pxm_cost = _gather_stacks(
+            g, starts_d, starts_cost_d, prep.lin_groups, prep.cost_groups,
+            prep.block_np, prep.cost_block_np,
+            max(prep.w_band, prep.w_band_cost))
     g = dataclasses.replace(g, band=(starts_d, starts_cost_d, pxm_lin,
                                      pxm_cost))
     return prep._replace(grid=g)

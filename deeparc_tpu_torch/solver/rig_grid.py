@@ -42,6 +42,7 @@ from deeparc_tpu_torch.solver.ba import (
     LM_LOOP,
     BAResult,
     StepInfo,
+    lm_running,
     load_checkpoint,
     print_header,
     print_iteration,
@@ -52,6 +53,7 @@ from deeparc_tpu_torch.solver.linalg import masked_spd_solve
 from deeparc_tpu_torch.solver.schur import augmented_point_blocks
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
+from deeparc_tpu_torch.utils.profiling import span, traced
 
 
 @dataclasses.dataclass
@@ -497,14 +499,17 @@ def make_grid_step(options: SolverOptions, template: BAParams,
     def linearize_at(points, cam_vec, grid, cam_free, point_free):
         """The system at (points, cam_vec), its camera side summed over
         the ranks (its cost is the rank's own)."""
-        params = _params_from(cam_vec, points, template)
-        sys = assemble_grid_system(
-            points, slot_params(params, grid), grid, cam_free, point_free,
-            chunk_size, options.loss, options.loss_scale, impl=impl,
-            band_width=band_widths[0], band_block=band_blocks[0],
-            band_intr_frozen=band_intr_frozen, pxm=pxm)
-        if reducer is not None:
-            sys = sys._replace(g_c=allsum(sys.g_c), hcc=allsum_sym(sys.hcc))
+        with span("deeparc.grid.linearize", device=True):
+            params = _params_from(cam_vec, points, template)
+            sys = assemble_grid_system(
+                points, slot_params(params, grid), grid, cam_free,
+                point_free, chunk_size, options.loss, options.loss_scale,
+                impl=impl, band_width=band_widths[0],
+                band_block=band_blocks[0],
+                band_intr_frozen=band_intr_frozen, pxm=pxm)
+            if reducer is not None:
+                sys = sys._replace(g_c=allsum(sys.g_c),
+                                   hcc=allsum_sym(sys.hcc))
         return sys
 
     def solve_and_decide(sys, state, cam_free, point_free, trial_eval):
@@ -513,24 +518,27 @@ def make_grid_step(options: SolverOptions, template: BAParams,
         -> (cost, payload)`` and take Ceres' accept and radius decision.
         Returns (accept, trial points, trial camera, payload, the next
         trust region, status, info)."""
-        # augmented per-point blocks, eliminated in closed form, then the
-        # reduced camera system S dc = rhs (the Schur complement)
-        radius = state.tr.radius
-        binv, d2c = schur_point_blocks(sys, radius, point_free, options)
-        rhs = schur_rhs(sys, binv, cam_free, to_flat, allsum)
-        corr = schur_corr(sys, schur_be(sys, binv), to_flat, allsum_sym)
-        dc = schur_cameras(sys, d2c, corr, rhs, radius, cam_free)
-        e_dc, dp = schur_back(sys, binv, dc, point_free, to_nat)
+        with span("deeparc.grid.schur", device=True):
+            # augmented per-point blocks, eliminated in closed form, then
+            # the reduced camera system S dc = rhs (the Schur complement)
+            radius = state.tr.radius
+            binv, d2c = schur_point_blocks(sys, radius, point_free, options)
+            rhs = schur_rhs(sys, binv, cam_free, to_flat, allsum)
+            corr = schur_corr(sys, schur_be(sys, binv), to_flat, allsum_sym)
+            dc = schur_cameras(sys, d2c, corr, rhs, radius, cam_free)
+            e_dc, dp = schur_back(sys, binv, dc, point_free, to_nat)
 
-        # model cost change from the stored quadratic pieces
-        dtg = allsum(torch.sum(dp * sys.g_p)) + torch.dot(dc, sys.g_c)
-        dhd = (allsum(torch.einsum("pi,pij,pj->", dp, sys.hpp, dp)
-                      + 2.0 * torch.sum(dp * e_dc)) + dc @ (sys.hcc @ dc))
-        mcc = -(dtg + 0.5 * dhd)
+            # model cost change from the stored quadratic pieces
+            dtg = allsum(torch.sum(dp * sys.g_p)) + torch.dot(dc, sys.g_c)
+            dhd = (allsum(torch.einsum("pi,pij,pj->", dp, sys.hpp, dp)
+                          + 2.0 * torch.sum(dp * e_dc))
+                   + dc @ (sys.hcc @ dc))
+            mcc = -(dtg + 0.5 * dhd)
 
-        new_points = state.points + dp
-        new_cam = state.cam_vec + dc
-        new_cost, payload = trial_eval(new_points, new_cam)
+            new_points = state.points + dp
+            new_cam = state.cam_vec + dc
+        with span("deeparc.grid.trial_cost", device=True):
+            new_cost, payload = trial_eval(new_points, new_cam)
 
         rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
         accept = (mcc > 0) & (rho > options.min_relative_decrease)
@@ -672,6 +680,7 @@ def _strip_planes(prep):
     return prep._replace(grid=g)
 
 
+@traced("deeparc.solve")
 def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
                   options: SolverOptions = SolverOptions(),
                   chunk_size: int = 8192,
@@ -729,22 +738,28 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
     kernels = _check_impl(impl)
     prep = None
     if band == "auto" and kernels:
-        if band_reuse is not None and "prep" in band_reuse:
-            stored = band_reuse["prep"]
-            prep = None if stored is None else band_grid_update(stored, grid)
-        else:
-            prep = band_grid(grid)
-            if band_reuse is not None:
-                band_reuse["prep"] = (None if prep is None
-                                      else _strip_planes(prep))
+        fresh = band_reuse is None or "prep" not in band_reuse
+        with span("deeparc.grid.band_prep", fresh=int(fresh)) as sp:
+            if fresh:
+                prep = band_grid(grid)
+                if band_reuse is not None:
+                    band_reuse["prep"] = (None if prep is None
+                                          else _strip_planes(prep))
+            else:
+                stored = band_reuse["prep"]
+                prep = (None if stored is None
+                        else band_grid_update(stored, grid))
+            sp.set(w_band=0 if prep is None else prep.w_band)
     band_widths = band_blocks = (0, 0)
     intr_frozen = False
     unperm = lambda pts: pts
     # the monolithic kernels' stack of THIS solve's mask (a filter round's
     # next solve builds its own), in tiles of the linearize's points and of
     # the cost pass's 1024 (grid_cost's block)
-    pxm = (mono_stack(grid, (min(chunk_size, 256), 1024))
-           if prep is None else None)
+    pxm = None
+    if prep is None:
+        with span("deeparc.grid.mono_stack"):
+            pxm = mono_stack(grid, (min(chunk_size, 256), 1024))
     if prep is not None:
         if options.progress_to_stdout:
             print(f"[grid] live-band solve: w_band<={prep.w_band} of "
@@ -764,14 +779,16 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
         intr_frozen = not bool(torch.any(
             flatten_camera(free)[6 * n_ext_rows:] != 0))
 
-    cam_free = flatten_camera(free)
-    point_free = free.points
-    if fuse_trial is None:
-        fuse_trial = not kernels
-    step = make_grid_step(options, params, chunk_size, impl=impl,
-                          band_widths=band_widths, band_blocks=band_blocks,
-                          band_intr_frozen=intr_frozen, pxm=pxm,
-                          fuse_trial=fuse_trial)
+    with span("deeparc.grid.step_build"):
+        cam_free = flatten_camera(free)
+        point_free = free.points
+        if fuse_trial is None:
+            fuse_trial = not kernels
+        step = make_grid_step(options, params, chunk_size, impl=impl,
+                              band_widths=band_widths,
+                              band_blocks=band_blocks,
+                              band_intr_frozen=intr_frozen, pxm=pxm,
+                              fuse_trial=fuse_trial)
 
     def init(p: BAParams):
         if fuse_trial:
@@ -783,16 +800,17 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
                                band_widths=band_widths,
                                band_blocks=band_blocks, pxm=pxm)
 
-    state = init(params)
-    ck = load_checkpoint(checkpoint_path, resume, params)
-    if ck is not None:
-        # checkpoints hold points in ORIGINAL order
-        ck_params, scal = ck
-        if prep is not None:
-            ck_params = dataclasses.replace(ck_params,
-                                            points=ck_params.points[perm])
-        state = init(ck_params)._replace(tr=tr_of(scal, params.points),
-                                         k=scal["iteration"])
+    with span("deeparc.grid.init"):
+        state = init(params)
+        ck = load_checkpoint(checkpoint_path, resume, params)
+        if ck is not None:
+            # checkpoints hold points in ORIGINAL order
+            ck_params, scal = ck
+            if prep is not None:
+                ck_params = dataclasses.replace(
+                    ck_params, points=ck_params.points[perm])
+            state = init(ck_params)._replace(tr=tr_of(scal, params.points),
+                                             k=scal["iteration"])
     engine = "grid (fused trial)" if fuse_trial else "grid"
     if driver == "while_loop":
         from deeparc_tpu_torch.solver.device_loop import (
@@ -810,11 +828,12 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
     k = state.k
     if options.progress_to_stdout:
         print_header(k, state.cost)
-    with torch.profiler.record_function(LM_LOOP):
-        while int(state.status) == 0 and k < options.max_iterations:
+    with span(LM_LOOP):
+        while lm_running(state.status) and k < options.max_iterations:
             if time.time() - t0 > options.max_seconds:
                 break
-            state, info = step(state, grid, cam_free, point_free)
+            with span("deeparc.lm.step"):
+                state, info = step(state, grid, cam_free, point_free)
             k += 1
             if options.progress_to_stdout:
                 print_iteration(k, info)
@@ -824,7 +843,10 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
                     checkpoint_path,
                     _params_from(state.cam_vec, unperm(state.points), params),
                     state.tr, k, state.cost)
-    out_params = _params_from(state.cam_vec, unperm(state.points), params)
-    return BAResult(params=out_params, cost=float(state.cost), iterations=k,
+    with span("deeparc.grid.unpermute"):
+        out_params = _params_from(state.cam_vec, unperm(state.points),
+                                  params)
+        cost = float(state.cost)
+    return BAResult(params=out_params, cost=cost, iterations=k,
                     status=int(state.status), seconds=time.time() - t0)
 

@@ -71,6 +71,7 @@ from deeparc_tpu_torch.solver.ba import (
     LM_LOOP,
     BAResult,
     StepInfo,
+    lm_running,
     load_checkpoint,
     print_header,
     print_iteration,
@@ -88,6 +89,7 @@ from deeparc_tpu_torch.solver.rig_grid import (
 from deeparc_tpu_torch.solver.schur import augmented_point_blocks
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
+from deeparc_tpu_torch.utils.profiling import span, traced
 
 # target observations per chunk: rows-per-chunk = CHUNK_OBS // W
 CHUNK_OBS = 8192
@@ -1073,24 +1075,27 @@ def make_tile_step(options: SolverOptions, template: BAParams,
     def step(state: TileState, tiles: TileIndex, cam_free, point_free_t):
         cells, cols = tiles.cells, tiles.cells.cols
         dev = state.points.device
-        params = _params_from(state.cam_vec, state.points, template)
-        packed = pack_cells(slot_params(params, tiles.cells), tiles.cells,
-                            cam_free)
-        if kernels:
-            sys, lin_planes = linearize_tiles_mixed(
-                state.points, packed, tiles, point_free_t, C, options.loss,
-                options.loss_scale, plane_dtype=sweep_dtype)
-        else:
-            sys = linearize_tiles(state.points, packed, tiles, point_free_t,
-                                  C, options.loss, options.loss_scale)
-        if reducer is not None:
-            # the Grams move packed; the flat diagonal is re-derived from
-            # the summed Grams, not summed on its own
-            hcc_cells = allsum_sym(sys.hcc_cells)
-            sys = sys._replace(
-                g_c=allsum(sys.g_c), hcc_cells=hcc_cells,
-                hcc_diag=cells_to_flat(
-                    torch.diagonal(hcc_cells, dim1=-2, dim2=-1), cells, C))
+        with span("deeparc.tiles.linearize", device=True):
+            params = _params_from(state.cam_vec, state.points, template)
+            packed = pack_cells(slot_params(params, tiles.cells),
+                                tiles.cells, cam_free)
+            if kernels:
+                sys, lin_planes = linearize_tiles_mixed(
+                    state.points, packed, tiles, point_free_t, C,
+                    options.loss, options.loss_scale, plane_dtype=sweep_dtype)
+            else:
+                sys = linearize_tiles(state.points, packed, tiles,
+                                      point_free_t, C, options.loss,
+                                      options.loss_scale)
+            if reducer is not None:
+                # the Grams move packed; the flat diagonal is re-derived
+                # from the summed Grams, not summed on its own
+                hcc_cells = allsum_sym(sys.hcc_cells)
+                sys = sys._replace(
+                    g_c=allsum(sys.g_c), hcc_cells=hcc_cells,
+                    hcc_diag=cells_to_flat(
+                        torch.diagonal(hcc_cells, dim1=-2, dim2=-1), cells,
+                        C))
 
         # augmented per-point blocks
         binv = augmented_point_blocks(sys.hpp, point_free_t, state.tr.radius,
@@ -1123,10 +1128,13 @@ def make_tile_step(options: SolverOptions, template: BAParams,
             return torch.where(cam_free > 0.5, s, v)
 
         precond = _block_jacobi(sys, tiles.cells, cam_aug, cam_free, C)
-        result = (pcg_device if device_loop else pcg)(
-            matvec, rhs, precond=precond,
-            max_iterations=options.cg_max_iterations,
-            tol=options.cg_tolerance)
+        with span("deeparc.tiles.pcg", device=True) as sp:
+            result = (pcg_device if device_loop else pcg)(
+                matvec, rhs, precond=precond,
+                max_iterations=options.cg_max_iterations,
+                tol=options.cg_tolerance)
+            if not device_loop:     # pcg_device's count stays on the card
+                sp.set(iterations=result.iterations)
         dc = result.x * cam_free
         e_dc = edot_fn(flat_to_cells(dc, cols))
         dp = -torch.einsum("bij,bj->bi", binv, sys.g_p + e_dc) * point_free_t
@@ -1140,11 +1148,12 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
         new_points = state.points + dp
         new_cam = state.cam_vec + dc
-        trial = _params_from(new_cam, new_points, template)
-        trial_packed = pack_cells(slot_params(trial, tiles.cells),
-                                  tiles.cells, cam_free)
-        new_cost = allsum(tile_cost(new_points, trial_packed, tiles,
-                                    options.loss, options.loss_scale))
+        with span("deeparc.tiles.trial_cost", device=True):
+            trial = _params_from(new_cam, new_points, template)
+            trial_packed = pack_cells(slot_params(trial, tiles.cells),
+                                      tiles.cells, cam_free)
+            new_cost = allsum(tile_cost(new_points, trial_packed, tiles,
+                                        options.loss, options.loss_scale))
 
         rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
         accept = (mcc > 0) & (rho > options.min_relative_decrease)
@@ -1224,6 +1233,7 @@ def solve_ba_tiles(scene: Scene, free: BAParams,
         resume=resume, logger=logger, driver=driver, while_block=while_block)
 
 
+@traced("deeparc.solve")
 def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
                          cam_free, options: SolverOptions = SolverOptions(),
                          impl: str = "auto", sweep_dtype=None,
@@ -1263,21 +1273,23 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
     cache["impl"] = impl
     make = functools.partial(make_tile_step, options, params_t, impl,
                              sweep_dtype)
-    if "step" not in cache:
-        cache["step"] = make()
-    step = cache["step"]
-    state = init_tile_state(params_t, tiles, options, cam_free)
-    ck = load_checkpoint(checkpoint_path, resume, params_t)
-    if ck is not None:
-        # checkpoints hold points in original order; pad and dead rows keep
-        # the values tiles_from_scene gave them (their mask is 0)
-        ck_params, scal = ck
-        points = params_t.points.clone()
-        points[tiles.row_of_point.long()] = ck_params.points
-        state = init_tile_state(
-            dataclasses.replace(ck_params, points=points), tiles, options,
-            cam_free)._replace(tr=tr_of(scal, params_t.points),
-                               k=scal["iteration"])
+    with span("deeparc.tiles.step_build"):
+        if "step" not in cache:
+            cache["step"] = make()
+        step = cache["step"]
+    with span("deeparc.tiles.init"):
+        state = init_tile_state(params_t, tiles, options, cam_free)
+        ck = load_checkpoint(checkpoint_path, resume, params_t)
+        if ck is not None:
+            # checkpoints hold points in original order; pad and dead rows
+            # keep the values tiles_from_scene gave them (their mask is 0)
+            ck_params, scal = ck
+            points = params_t.points.clone()
+            points[tiles.row_of_point.long()] = ck_params.points
+            state = init_tile_state(
+                dataclasses.replace(ck_params, points=points), tiles,
+                options, cam_free)._replace(tr=tr_of(scal, params_t.points),
+                                            k=scal["iteration"])
 
     def original(st):
         out = unflatten_camera(st.cam_vec, params_t)
@@ -1311,11 +1323,12 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
     k, cg_total = state.k, 0
     if options.progress_to_stdout:
         print_header(k, state.cost, cg=True)
-    with torch.profiler.record_function(LM_LOOP):
-        while int(state.status) == 0 and k < options.max_iterations:
+    with span(LM_LOOP):
+        while lm_running(state.status) and k < options.max_iterations:
             if time.time() - t0 > options.max_seconds:
                 break
-            state, info = step(state, tiles, cam_free, free_t)
+            with span("deeparc.lm.step"):
+                state, info = step(state, tiles, cam_free, free_t)
             k += 1
             if options.progress_to_stdout:
                 print_iteration(k, info, cg=True)

@@ -1,5 +1,6 @@
 """Operational helpers: solver-state checkpoints, the JSONL logger, the
-phase timers, the profiler trace (``trace_to``) and the NaN-debug toggle
+spans (``span``, ``spans``, ``span_report``, ``reset_spans``), the
+profiler trace (``trace_to``) and the NaN-debug toggle
 (``debug.set_nan_debugging`` / ``debug.nan_debugging``); the port of
 ``deeparc_tpu.utils``."""
 
@@ -9,11 +10,12 @@ from deeparc_tpu_torch.utils.checkpoint import (
 )
 from deeparc_tpu_torch.utils.logging import JsonlLogger
 from deeparc_tpu_torch.utils.profiling import (
-    phase_report,
-    phase_timer,
-    reset_phases,
+    reset_spans,
+    span,
+    span_report,
+    spans,
     trace_to,
 )
 
-__all__ = ["JsonlLogger", "load_solver_state", "phase_report", "phase_timer",
-           "reset_phases", "save_solver_state", "trace_to"]
+__all__ = ["JsonlLogger", "load_solver_state", "reset_spans",
+           "save_solver_state", "span", "span_report", "spans", "trace_to"]

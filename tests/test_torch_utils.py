@@ -1,6 +1,6 @@
 """Port parity: the rotation logs, solver-state checkpoints (in both
 directions between the packages), resumed solves on every engine, the
-JSONL logger and the phase timers (PyTorch port on the CPU vs the JAX
+JSONL logger and the span report (PyTorch port on the CPU vs the JAX
 package).
 
 Tolerances: ``matrix_to_angle_axis`` / ``quaternion_to_angle_axis`` 1e-12
@@ -32,10 +32,10 @@ from deeparc_tpu_torch.scene import freeze_masks, from_deeparc
 from deeparc_tpu_torch.utils import (
     JsonlLogger,
     load_solver_state,
-    phase_report,
-    phase_timer,
-    reset_phases,
+    reset_spans,
     save_solver_state,
+    span,
+    span_report,
 )
 from torch_parity import as_np, params_to_torch
 
@@ -208,18 +208,22 @@ def test_jsonl_logger_lines(tmp_path):
     JsonlLogger(None).log("lm_iteration", iter=1)     # no path: no file
 
 
-def test_phase_timer():
-    reset_phases()
-    sink: dict = {}
-    with phase_timer("stage_a", sink):
-        pass
-    with phase_timer("stage_a", sink, device="cpu"):
-        pass
-    rep = phase_report()
-    assert rep["stage_a"]["count"] == 2
-    assert sink["stage_a"] == pytest.approx(rep["stage_a"]["total_s"])
-    reset_phases()
-    assert phase_report() == {}
+def test_span_report_and_reset_spans():
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for n in (1, 2):
+            with span("stage_a", n=n):
+                with span("stage_b"):
+                    pass
+    rep = span_report()
+    assert rep["stage_a"]["count"] == 2 and rep["stage_b"]["count"] == 2
+    assert rep["stage_a"]["counts"] == {"n": 3}
+    assert rep["stage_a"]["total_s"] == pytest.approx(
+        rep["stage_a"]["self_s"] + rep["stage_b"]["total_s"])
+    reset_spans()
+    assert span_report() == {}
 
 
 def _degenerate(scene):
