@@ -14,11 +14,15 @@ points touches a narrow band of cells. The prep:
    covers every live cell, buckets tiles into width groups, and gathers
    each group's band planes.
 
-The co-visibility Gram, the point order and the tile liveness run on the
-grid's device; only (T, T)- and (n_tiles, nb)-sized summaries cross to the
-host. When no ordering yields bands narrower than ``max_frac * t_pad``
-(dense or uniform-random visibility) the prep returns None and the solve
-uses the monolithic kernels.
+Everything but the cell orderings runs on the grid's device as array
+programs: the point order, the tile liveness, each tile's cover, and the
+width partitions (dynamic programs over whole cost matrices, with no loop
+over tiles or cut points). What crosses to the host: the (T, T)
+co-visibility Gram, which the orderings are computed from; one ``work``
+scalar per candidate ordering; and at the end the width groups of both
+tilings, a few integers each. When no ordering yields bands narrower than
+``max_frac * t_pad`` (dense or uniform-random visibility) the prep returns
+None and the solve uses the monolithic kernels.
 """
 
 from __future__ import annotations
@@ -57,33 +61,52 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _partition_widths(covers8: np.ndarray, max_groups: int):
+def _cut_ends(pay, dp, max_groups: int):
+    """Optimal contiguous cuts of n items into <= max_groups segments, on
+    the device.
+
+    ``pay[i, e - 1]`` is what segment [i, e) pays (inf where e <= i), the
+    same at every level; ``dp[i]`` what [i, n) pays as one segment
+    (``dp[n]`` = 0). Level by level, the cut at i is the FIRST e that
+    minimises ``pay[i, e - 1] + dp_prev[e]``, as the reference's loops
+    keep it. Returns the (max_groups,) segment ends from item 0, the last
+    n (a segment after an end of n is empty)."""
+    n = pay.shape[0]
+    col = torch.arange(n, device=pay.device)
+    cuts = []
+    for _ in range(2, max_groups + 1):
+        v = pay + dp[1:]
+        best = v.min(dim=1).values
+        first = torch.where(v == best[:, None], col, n).min(dim=1).values
+        dp = torch.cat([best, best.new_zeros(1)])
+        cuts.append(torch.cat([first + 1, first.new_full((1,), n)]))
+    # walk the cuts from item 0 with 1-element index tensors: no host read
+    i = torch.zeros(1, dtype=torch.long, device=pay.device)
+    ends = []
+    for cut in reversed(cuts):
+        i = cut[i]
+        ends.append(i)
+    ends.append(torch.full((1,), n, dtype=torch.long, device=pay.device))
+    return torch.cat(ends)
+
+
+def _partition_widths(covers8: torch.Tensor, max_groups: int):
     """Optimal contiguous partition of SORTED tile covers into <= max_groups
     width buckets minimizing sum(n_g * max_g). Returns the bucket width (in
-    8-cell slabs, >= 1) per tile, in unsorted order."""
+    8-cell slabs, >= 1) per tile, in unsorted order, on the covers'
+    device. Every sum is of small integers in float64, so exact."""
     n = covers8.shape[0]
-    order = np.argsort(covers8, kind="stable")
-    c = np.maximum(covers8[order].astype(np.float64), 1.0)
-    dp_prev = (n - np.arange(n + 1)) * c[-1]
-    dp_prev[n] = 0.0
-    cuts = [None]
-    for _ in range(2, max_groups + 1):
-        dp = np.zeros(n + 1)
-        cut = np.full(n + 1, n, np.int64)
-        for i in range(n - 1, -1, -1):
-            v = np.arange(1, n - i + 1) * c[i:] + dp_prev[i + 1:]
-            j = int(np.argmin(v))
-            dp[i] = v[j]
-            cut[i] = i + 1 + j
-        dp_prev, _ = dp, cuts.append(cut)
-    widths_sorted = np.empty(n, np.int64)
-    g, i = len(cuts) - 1, 0
-    while i < n:
-        j = int(cuts[g][i]) if g >= 1 and cuts[g] is not None else n
-        widths_sorted[i:j] = int(c[j - 1])
-        i, g = j, max(g - 1, 0)
-    out = np.empty(n, np.int64)
-    out[order] = widths_sorted
+    order = torch.argsort(covers8, stable=True)
+    c = covers8[order].double().clamp(min=1.0)
+    k = torch.arange(n + 1, device=covers8.device)
+    dp = (n - k).double() * c[-1]
+    dp[n] = 0.0
+    seg_len = k[1:] - k[:-1, None]                 # [i, e - 1] -> e - i
+    pay = torch.where(seg_len > 0, seg_len.double() * c, torch.inf)
+    ends = _cut_ends(pay, dp, max_groups)
+    seg = torch.searchsorted(ends, k[:-1], right=True)
+    out = torch.empty(n, dtype=torch.long, device=covers8.device)
+    out[order] = c[ends[seg] - 1].long()
     return out
 
 
@@ -129,83 +152,86 @@ def _point_order(mask, cell_perm):
     return torch.argsort(point_angles(mask, cell_perm), stable=True)
 
 
-def _tile_liveness(mask, order, cell_perm, t_pad, bn, n_pad):
-    """(n_tiles, t_pad/8) slab liveness of the sorted + permuted mask."""
-    N, T = mask.shape
-    m = torch.zeros((n_pad, t_pad), dtype=mask.dtype, device=mask.device)
-    m[:N, :T] = mask[order][:, cell_perm]
-    return m.reshape(n_pad // bn, bn, t_pad // 8, 8).sum(dim=(1, 3)) > 0.5
+def _slab_counts(mask, cell_perm, t_pad):
+    """(N, t_pad/8): each point's mask summed over each 8-cell slab of the
+    cell order ``cell_perm`` (a 0/1 mask: exact counts)."""
+    T = mask.shape[1]
+    rank = torch.empty_like(cell_perm)
+    rank[cell_perm] = torch.arange(T, device=mask.device)
+    onehot = torch.zeros((T, t_pad // 8), dtype=mask.dtype,
+                         device=mask.device)
+    onehot[torch.arange(T, device=mask.device), rank // 8] = 1.0
+    return mask @ onehot
 
 
-def _covers_from_liveness(lv: np.ndarray):
-    """Per-tile minimal cyclic 8-block window -> (starts8, covers8)."""
+def _tile_liveness(counts, order, bn, n_pad):
+    """(n_tiles, nb) slab liveness of the tiles of ``bn`` points in
+    ``order``, from :func:`_slab_counts`."""
+    N, nb = counts.shape
+    m = counts.new_zeros((n_pad, nb))
+    m[:N] = counts[order]
+    return m.reshape(n_pad // bn, bn, nb).sum(dim=1) > 0.5
+
+
+def _covers_from_liveness(lv: torch.Tensor):
+    """Per-tile minimal cyclic 8-block window -> (starts8, covers8), int32
+    on the liveness's device. The window leaves out the row's largest
+    cyclic gap between live slabs, the first such gap in slab order; an
+    empty row has start 0 and cover 0."""
     n_tiles, nb = lv.shape
-    starts = np.zeros(n_tiles, np.int32)
-    covers = np.ones(n_tiles, np.int32)
-    for i, row in enumerate(lv):
-        pos = np.nonzero(row)[0]
-        if pos.size == 0:
-            covers[i] = 0
-            continue
-        gaps = np.diff(np.concatenate([pos, [pos[0] + nb]]))
-        gmax = int(np.argmax(gaps))
-        starts[i] = pos[(gmax + 1) % pos.size]
-        covers[i] = nb - int(gaps[gmax]) + 1
-    return starts, covers
+    col = torch.arange(nb, device=lv.device)
+    past = 2 * nb
+    # first live slab at or after each slab, then strictly after it,
+    # wrapping to the row's first live slab one turn on
+    at_or_after = torch.where(lv, col, past).flip(1).cummin(1).values.flip(1)
+    after = torch.cat([at_or_after[:, 1:],
+                       at_or_after.new_full((n_tiles, 1), past)], dim=1)
+    after = torch.where(after == past, at_or_after[:, :1] + nb, after)
+    gap = torch.where(lv, after - col, -1)
+    gmax = gap.max(dim=1).values
+    first = torch.where(gap == gmax[:, None], col, nb).min(dim=1).values
+    start = after.gather(1, first[:, None])[:, 0] % nb
+    live = gmax > 0
+    return (torch.where(live, start, 0).int(),
+            torch.where(live, nb - gmax + 1, 0).int())
 
 
-def _partition_sequence(covers8: np.ndarray, max_groups: int, t_pad: int):
+def _partition_sequence(covers8: torch.Tensor, max_groups: int,
+                        t_pad: int):
     """Contiguous partition (no reorder) of tile covers into <= max_groups
-    segments minimizing sum(len_g * max_g). Returns ((w_cells, lo, hi), ...)."""
+    segments minimizing sum(len_g * max_g). Returns ((w_cells, lo, hi), ...)
+    after one host read."""
     n = covers8.shape[0]
     if n == 0:
         return ((8, 0, 0),)
-    c = np.minimum(np.maximum(covers8.astype(np.int64), 1), t_pad // 8)
-    INF = float("inf")
-    dp_prev = np.full(n + 1, INF)
-    dp_prev[n] = 0.0
-    run = np.maximum.accumulate(c[::-1])[::-1]
-    for i in range(n):
-        dp_prev[i] = (n - i) * run[i]
-    cuts = [None]
-    for _ in range(2, max_groups + 1):
-        dp = np.full(n + 1, INF)
-        dp[n] = 0.0
-        cut = np.full(n + 1, n, np.int64)
-        for i in range(n - 1, -1, -1):
-            m, best, bj = 0, INF, n
-            for j in range(i + 1, n + 1):
-                if c[j - 1] > m:
-                    m = c[j - 1]
-                v = (j - i) * m + dp_prev[j]
-                if v < best:
-                    best, bj = v, j
-            dp[i] = best
-            cut[i] = bj
-        dp_prev, _ = dp, cuts.append(cut)
-    groups = []
-    g, i = len(cuts) - 1, 0
-    while i < n:
-        j = int(cuts[g][i]) if g >= 1 and cuts[g] is not None else n
-        groups.append((int(c[i:j].max()) * 8, i, j))
-        i, g = j, max(g - 1, 0)
-    return tuple(groups)
+    c = covers8.long().clamp(1, t_pad // 8)
+    k = torch.arange(n + 1, device=covers8.device)
+    run = c.flip(0).cummax(0).values.flip(0)       # max(c[i:])
+    dp = torch.cat([(n - k[:-1]) * run, c.new_zeros(1)]).double()
+    seg_len = k[1:] - k[:-1, None]                 # [i, e - 1] -> e - i
+    seg_max = torch.where(seg_len > 0, c, 0).cummax(dim=1).values
+    pay = torch.where(seg_len > 0, (seg_len * seg_max).double(), torch.inf)
+    ends = _cut_ends(pay, dp, max_groups)
+    lo = torch.cat([ends.new_zeros(1), ends[:-1]])
+    w = c.new_zeros(max_groups).scatter_reduce(
+        0, torch.searchsorted(ends, k[:-1], right=True), c, "amax")
+    rows = torch.stack([w * 8, lo, ends], dim=1).tolist()
+    return tuple(tuple(r) for r in rows if r[1] < r[2])
 
 
-def _group_tiles(covers8, max_groups):
+def _group_tiles(covers8: torch.Tensor, max_groups: int):
     """Bucket tiles by cover width; tiles keep their angular order inside
-    each bucket. Returns (tile_order, ((w_cells, lo, hi), ...))."""
-    if covers8.size == 0:
-        return np.zeros((0,), np.int64), ()
+    each bucket. Returns (tile_order, ((w_cells, lo, hi), ...)), the order
+    on the covers' device, the groups after one host read."""
+    if covers8.numel() == 0:
+        return torch.zeros((0,), dtype=torch.long, device=covers8.device), ()
     buckets = _partition_widths(covers8, max_groups)
-    tile_order = np.argsort(buckets, kind="stable")
-    b_sorted = buckets[tile_order]
-    groups, lo = [], 0
-    for w in np.unique(b_sorted):
-        hi = int(np.searchsorted(b_sorted, w, side="right"))
-        groups.append((int(w) * 8, lo, hi))
-        lo = hi
-    return tile_order, tuple(groups)
+    tile_order = torch.argsort(buckets, stable=True)
+    w, count = torch.unique_consecutive(buckets[tile_order],
+                                        return_counts=True)
+    hi = count.cumsum(0)
+    rows = torch.stack([w * 8, hi - count, hi], dim=1).tolist()
+    return tile_order, tuple(tuple(r) for r in rows)
 
 
 def _gather_stacks(grid, starts_d, starts_cost_d, lin_groups, cost_groups,
@@ -279,15 +305,16 @@ def band_grid(grid: GridIndex, block_np: int = 256, cost_block_np: int = 1024,
         with span("deeparc.band.ordering"):
             cp = torch.as_tensor(cell_perm, device=dev)
             order = _point_order(grid.mask, cp)
-            lv = _tile_liveness(grid.mask, order, cp, t_pad, block_np,
-                                n_pad).cpu().numpy()
-            starts, covers = _covers_from_liveness(lv)
+            counts = _slab_counts(grid.mask, cp, t_pad)
+            starts, covers = _covers_from_liveness(
+                _tile_liveness(counts, order, block_np, n_pad))
             # selection metric: the PAID slot work after width bucketing,
-            # over tiles that hold real points
+            # over tiles that hold real points (this candidate's one host
+            # read)
             work = int(_partition_widths(covers[:n_live], max_groups).sum())
         if best is None or work < best[0]:
-            best = (work, cp, order, starts, covers)
-    work, cell_perm, order, starts, covers = best
+            best = (work, cp, order, counts, starts, covers)
+    work, cell_perm, order, counts, starts, covers = best
     n_tiles = n_pad // block_np
     if work * 8 >= max_frac * t_pad * n_live:
         return None
@@ -298,39 +325,36 @@ def band_grid(grid: GridIndex, block_np: int = 256, cost_block_np: int = 1024,
         n_full = N // block_np
         tile_order_full, lin_groups = _group_tiles(covers[:n_full],
                                                    max_groups)
-        tile_order = np.concatenate([tile_order_full,
-                                     np.arange(n_full, n_tiles)])
         if n_full < n_tiles:
             w_tail = max(int(covers[n_full:].max()), 1) * 8
             lin_groups = lin_groups + ((w_tail, n_full, n_tiles),)
-        starts = starts[tile_order]
-        order_np = order.cpu().numpy()
-        full_rows = order_np[: n_full * block_np].reshape(n_full, block_np)
-        order = torch.as_tensor(np.concatenate(
-            [full_rows[tile_order_full].reshape(-1),
-             order_np[n_full * block_np:]]), device=dev)
+        starts = starts[torch.cat([tile_order_full,
+                                   torch.arange(n_full, n_tiles, device=dev)])]
+        n_rows = n_full * block_np
+        order = torch.cat([
+            order[:n_rows].reshape(n_full, block_np)[tile_order_full]
+            .reshape(-1), order[n_rows:]])
         w_band = max(w for w, _, _ in lin_groups)
 
         # cost tiling on the FINAL point order: a contiguous sequence
         # partition
-        lv_cost = _tile_liveness(grid.mask, order, cell_perm, t_pad,
-                                 cost_block_np, n_pad).cpu().numpy()
-        starts_cost, covers_cost = _covers_from_liveness(lv_cost)
+        starts_cost, covers_cost = _covers_from_liveness(
+            _tile_liveness(counts, order, cost_block_np, n_pad))
         cost_groups = _partition_sequence(covers_cost, max_groups_cost,
                                           t_pad)
         w_cost = max(w for w, _, _ in cost_groups)
+        # the slab counts are done with: free them before the permute's
+        # copies of the planes
+        del best, counts
 
     with span("deeparc.band.permute"):
         new_grid = _permuted(grid, order, cell_perm)
-    starts_d = torch.as_tensor(starts, dtype=torch.int32, device=dev)
-    starts_cost_d = torch.as_tensor(starts_cost, dtype=torch.int32,
-                                    device=dev)
     with span("deeparc.band.stacks"):
         pxm_lin, pxm_cost = _gather_stacks(
-            new_grid, starts_d, starts_cost_d, lin_groups, cost_groups,
+            new_grid, starts, starts_cost, lin_groups, cost_groups,
             block_np, cost_block_np, max(w_band, w_cost))
     new_grid = dataclasses.replace(
-        new_grid, band=(starts_d, starts_cost_d, pxm_lin, pxm_cost))
+        new_grid, band=(starts, starts_cost, pxm_lin, pxm_cost))
     return BandPrep(grid=new_grid, w_band=int(w_band), w_band_cost=int(w_cost),
                     perm=order, inv=torch.argsort(order), block_np=block_np,
                     cost_block_np=cost_block_np, lin_groups=lin_groups,
