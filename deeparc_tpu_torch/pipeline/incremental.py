@@ -11,6 +11,15 @@ visibility mask; a non-shared scene runs on the tile engine with a
 pose-graph refinement between batches.
 
 The BFS orders are numpy and equal the reference's integer for integer.
+
+While a profiler records, :func:`run_incremental` opens the
+``deeparc.incremental`` root (``utils/profiling.py``). On a shared rig it
+holds ``.load``, ``.layout``, ``.order``, ``.band``, one ``.batch`` a
+batch (counts ``batch``, ``active_cells``, ``live_points``) holding
+``.mask``, ``.structure`` and ``.full``, then ``.final_cost``; the free
+path has ``.load``, ``.order``, ``.structure``, ``.pose_graph``, ``.full``
+and ``.final_cost``. The solves' own spans nest inside. Off, the spans do
+nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from deeparc_tpu_torch.config import PipelineOptions
 from deeparc_tpu_torch.device import check_device
 from deeparc_tpu_torch.io import DeepArcData
 from deeparc_tpu_torch.scene import _np, freeze_masks, from_deeparc
+from deeparc_tpu_torch.utils.profiling import span, traced
 
 
 class IncrementalResult(NamedTuple):
@@ -34,6 +44,9 @@ class IncrementalResult(NamedTuple):
     final_cost: float
     final_rmse_px: float
     history: list            # per-batch dicts
+    solve_seconds: float = 0.0   # wall clock of every solve's LM loop
+    solve_iterations: int = 0    # LM iterations over every solve
+    cg_iterations: int = 0       # PCG iterations over every solve
 
 
 def bfs_cell_order_from_covis(covis: np.ndarray, start: int = 0,
@@ -88,77 +101,119 @@ def _band_state(grid) -> dict:
     return {"prep": None if prep is None else _strip_planes(prep)}
 
 
+def _add(totals: dict, res) -> None:
+    """Sum a solve's LM seconds and iterations into ``totals``."""
+    totals["seconds"] += res.seconds
+    totals["iterations"] += res.iterations
+    totals["cg"] += res.cg_iterations
+
+
+def _result(scene, n_batches, order, history, totals) -> IncrementalResult:
+    from deeparc_tpu_torch.pipeline.driver import rmse_px
+
+    with span("deeparc.incremental.final_cost"):
+        final_rmse = rmse_px(scene)
+    return IncrementalResult(
+        scene=scene, batches=n_batches, order=order,
+        final_cost=history[-1]["cost"] if history else 0.0,
+        final_rmse_px=final_rmse, history=history,
+        solve_seconds=totals["seconds"],
+        solve_iterations=totals["iterations"], cg_iterations=totals["cg"])
+
+
+@traced("deeparc.incremental")
 def run_incremental(data: DeepArcData,
                     options: PipelineOptions = PipelineOptions(),
                     batch_size: int | None = None, dtype=torch.float64,
                     device="cuda", verbose: bool = True,
-                    pose_graph: bool = True) -> IncrementalResult:
+                    pose_graph: bool = True,
+                    min_observations: int = 2) -> IncrementalResult:
     """Incremental BA over BFS-ordered cameras on ``device``.
 
     Shared rigs run on the grid engine: each batch turns on ``batch_size``
     more cells (default: one ring), then a structure-only solve on the
-    newly visible points and a full BA over every active cell. Non-shared
-    scenes go to :func:`run_incremental_free`, with the pose-graph stage
-    when ``pose_graph``; a shared rig's extrinsic records are coupled by
-    the rig sharing, a stronger constraint than any pose graph."""
+    newly visible points and a full BA over every active cell. A point is
+    solved once ``min_observations`` of its observations are active: one
+    observation fixes a ray, not a point, and a point freed on it slides
+    along the ray (in an 8 x 24 rig of 400k points one went 2e6 scene
+    units out, where later views no longer pull it back); 1 is the JAX
+    package's rule on a rig. Non-shared scenes go to
+    :func:`run_incremental_free` (two observations, as in the JAX package),
+    with the pose-graph stage when ``pose_graph``; a shared rig's extrinsic
+    records are coupled by the rig sharing, a stronger constraint than any
+    pose graph."""
     if not data.share_extrinsic:
         return run_incremental_free(data, options, batch_size=batch_size,
                                     dtype=dtype, device=device,
                                     verbose=verbose, pose_graph=pose_graph)
-    from deeparc_tpu_torch.pipeline.driver import rmse_px
     from deeparc_tpu_torch.solver.rig_grid import (
         grid_from_scene,
         solve_ba_grid,
     )
 
     log = print if verbose else (lambda *a, **k: None)
-    scene = from_deeparc(data, dtype=dtype, device=check_device(device))
-    grid = grid_from_scene(scene)
+    with span("deeparc.incremental.load"):
+        scene = from_deeparc(data, dtype=dtype, device=check_device(device))
+    with span("deeparc.incremental.layout"):
+        grid = grid_from_scene(scene)
     T = grid.mask.shape[1]
     full_mask = grid.mask
-    order = bfs_cell_order(full_mask, T, start=0)
+    with span("deeparc.incremental.order"):
+        order = bfs_cell_order(full_mask, T, start=0)
     if batch_size is None:
         batch_size = scene.meta.ring_size
-    band_state = _band_state(grid)
+    with span("deeparc.incremental.band"):
+        band_state = _band_state(grid)
 
     active = np.zeros(T)
     history = []
+    totals = {"seconds": 0.0, "iterations": 0, "cg": 0}
     params = scene.params
     n_batches = -(-T // batch_size)
     for b in range(n_batches):
         active[order[b * batch_size:(b + 1) * batch_size]] = 1.0
-        mask = full_mask * torch.as_tensor(active, dtype=full_mask.dtype,
-                                           device=full_mask.device)[None, :]
-        masked_grid = dataclasses.replace(grid, mask=mask)
-        scene_b = dataclasses.replace(scene, params=params)
-        # points with no active observation stay frozen
-        live = (mask.sum(dim=1) > 0).to(params.points.dtype)[:, None]
+        with span("deeparc.incremental.batch", batch=b,
+                  active_cells=int(active.sum())) as sp:
+            with span("deeparc.incremental.mask"):
+                mask = full_mask * torch.as_tensor(
+                    active, dtype=full_mask.dtype,
+                    device=full_mask.device)[None, :]
+                masked_grid = dataclasses.replace(grid, mask=mask)
+                scene_b = dataclasses.replace(scene, params=params)
+                # points with too few active observations stay frozen
+                live = (mask.sum(dim=1) >= min_observations).to(
+                    params.points.dtype)[:, None]
+                n_live = int(live.sum())
+                free_structure = freeze_masks(scene_b, freeze_camera=True)
+                free_structure = dataclasses.replace(
+                    free_structure, points=free_structure.points * live)
+                free_full = freeze_masks(scene_b)
+                free_full = dataclasses.replace(
+                    free_full, points=free_full.points * live)
+            sp.set(live_points=n_live)
 
-        free_structure = freeze_masks(scene_b, freeze_camera=True)
-        free_structure = dataclasses.replace(
-            free_structure, points=free_structure.points * live)
-        res = solve_ba_grid(params, masked_grid, free_structure,
-                            options.solver, band_reuse=band_state)
-        params = res.params
+            with span("deeparc.incremental.structure"):
+                res = solve_ba_grid(params, masked_grid, free_structure,
+                                    options.solver, band_reuse=band_state)
+            _add(totals, res)
+            params, structure_iterations = res.params, res.iterations
 
-        free_full = freeze_masks(scene_b)
-        free_full = dataclasses.replace(free_full,
-                                        points=free_full.points * live)
-        res = solve_ba_grid(params, masked_grid, free_full, options.solver,
-                            band_reuse=band_state)
-        params = res.params
+            with span("deeparc.incremental.full"):
+                res = solve_ba_grid(params, masked_grid, free_full,
+                                    options.solver, band_reuse=band_state)
+            _add(totals, res)
+            params = res.params
         history.append({"batch": b, "active_cells": int(active.sum()),
                         "cost": float(res.cost),
-                        "iterations": res.iterations})
+                        "iterations": res.iterations,
+                        "structure_iterations": structure_iterations,
+                        "live_points": n_live})
         log(f"[incremental] batch {b + 1}/{n_batches}: "
             f"{int(active.sum())}/{T} cells, cost={res.cost:.6e}, "
             f"iters={res.iterations}")
 
     scene = dataclasses.replace(scene, params=params)
-    return IncrementalResult(
-        scene=scene, batches=n_batches, order=order,
-        final_cost=history[-1]["cost"] if history else 0.0,
-        final_rmse_px=rmse_px(scene), history=history)
+    return _result(scene, n_batches, order, history, totals)
 
 
 def camera_covisibility(scene) -> np.ndarray:
@@ -190,7 +245,6 @@ def run_incremental_free(data: DeepArcData,
     (camera record 0 and the unregistered cameras anchored, the gauge of
     ``src/sfm.cc:50-53``), then the full BA over the registered cameras
     runs (default batch: C // 8 cameras)."""
-    from deeparc_tpu_torch.pipeline.driver import rmse_px
     from deeparc_tpu_torch.residuals.pose_graph import (
         PoseGraph,
         relative_pose,
@@ -200,12 +254,14 @@ def run_incremental_free(data: DeepArcData,
 
     log = print if verbose else (lambda *a, **k: None)
     device = check_device(device)
-    scene = from_deeparc(data, dtype=dtype, device=device)
+    with span("deeparc.incremental.load"):
+        scene = from_deeparc(data, dtype=dtype, device=device)
     if scene.meta.share_extrinsic:
         raise ValueError("run_incremental_free is the non-shared path")
     C = scene.n_extrinsics
-    covis = camera_covisibility(scene)
-    order = bfs_cell_order_from_covis(covis)
+    with span("deeparc.incremental.order"):
+        covis = camera_covisibility(scene)
+        order = bfs_cell_order_from_covis(covis)
     if batch_size is None:
         batch_size = max(C // 8, 1)
 
@@ -218,6 +274,7 @@ def run_incremental_free(data: DeepArcData,
     active = np.zeros(C, dtype=bool)
     snapshots = {}          # edge (i, j) -> (meas_rot, meas_trans) at capture
     history = []
+    totals = {"seconds": 0.0, "iterations": 0, "cg": 0}
     params = scene.params
     n_batches = -(-C // batch_size)
     for b in range(n_batches):
@@ -243,6 +300,7 @@ def run_incremental_free(data: DeepArcData,
         live_counts = np.bincount(obs_point[obs_mask_b > 0.5],
                                   minlength=scene.n_points)
         live = as_t(live_counts >= 2)[:, None]
+        n_live = int(np.count_nonzero(live_counts >= 2))
         index_b = dataclasses.replace(scene.index, obs_mask=as_t(obs_mask_b))
         scene_b = dataclasses.replace(scene, params=params, index=index_b)
         # registered camera records; the identity slot stays frozen
@@ -252,8 +310,10 @@ def run_incremental_free(data: DeepArcData,
         free_structure = freeze_masks(scene_b, freeze_camera=True)
         free_structure = dataclasses.replace(
             free_structure, points=free_structure.points * live)
-        params = solve_ba_tiles(scene_b, free_structure,
-                                options.solver).params
+        with span("deeparc.incremental.structure"):
+            res = solve_ba_tiles(scene_b, free_structure, options.solver)
+        _add(totals, res)
+        params, structure_iterations = res.params, res.iterations
         scene_b = dataclasses.replace(scene_b, params=params)
 
         # pose-graph refinement over the registered cameras
@@ -269,8 +329,9 @@ def run_incremental_free(data: DeepArcData,
                                dim=1)
             anchor = torch.as_tensor((~active) | (np.arange(C) == 0),
                                      device=device)
-            refined = solve_pose_graph(poses0, graph, anchor,
-                                       max_iterations=20)
+            with span("deeparc.incremental.pose_graph"):
+                refined = solve_pose_graph(poses0, graph, anchor,
+                                           max_iterations=20)
             params = dataclasses.replace(
                 params,
                 ext_rot=torch.cat([refined[:, :3], params.ext_rot[C:]]),
@@ -283,17 +344,18 @@ def run_incremental_free(data: DeepArcData,
             free_full, points=free_full.points * live,
             ext_rot=free_full.ext_rot * active_rows[:, None],
             ext_trans=free_full.ext_trans * active_rows[:, None])
-        res = solve_ba_tiles(scene_b, free_full, options.solver)
+        with span("deeparc.incremental.full"):
+            res = solve_ba_tiles(scene_b, free_full, options.solver)
+        _add(totals, res)
         params = res.params
         history.append({"batch": b, "active_cells": int(active.sum()),
                         "cost": float(res.cost),
-                        "iterations": res.iterations})
+                        "iterations": res.iterations,
+                        "structure_iterations": structure_iterations,
+                        "live_points": n_live})
         log(f"[incremental-free] batch {b + 1}/{n_batches}: "
             f"{int(active.sum())}/{C} cameras, cost={res.cost:.6e}, "
             f"iters={res.iterations}")
 
     scene = dataclasses.replace(scene, params=params)
-    return IncrementalResult(
-        scene=scene, batches=n_batches, order=order,
-        final_cost=history[-1]["cost"] if history else 0.0,
-        final_rmse_px=rmse_px(scene), history=history)
+    return _result(scene, n_batches, order, history, totals)

@@ -296,3 +296,89 @@ def test_trace_to_writes_the_span_report(tmp_path):
     assert set(rep["spans"]) == {"deeparc.test.traced"}
     assert rep["spans"]["deeparc.test.traced"]["count"] == 1
     assert rep["spans"]["deeparc.test.traced"]["counts"] == {"n": 4}
+
+
+# the children of an incremental reconstruction's root, and of its batches
+INCREMENTAL_ROOT = ("deeparc.incremental.load", "deeparc.incremental.layout",
+                    "deeparc.incremental.order", "deeparc.incremental.band",
+                    "deeparc.incremental.batch",
+                    "deeparc.incremental.final_cost")
+INCREMENTAL_BATCH = ("deeparc.incremental.mask",
+                     "deeparc.incremental.structure",
+                     "deeparc.incremental.full")
+
+
+def _incremental_readers():
+    from portbench.run import load_module
+
+    return {name: load_module("metrics", name).read
+            for name in ("incremental_batch_ms", "incremental_load_s")}
+
+
+def test_an_incremental_run_leaves_the_span_tree():
+    from deeparc_tpu_torch.pipeline.incremental import run_incremental
+
+    rig = make_hemisphere_rig(**BANDED_RIG)
+    opts = PipelineOptions(solver=SolverOptions(max_iterations=4))
+    res, _, recs = _profiled(lambda: run_incremental(
+        rig.data, opts, batch_size=16, device="cpu", verbose=False))
+    by_id = {r["id"]: r for r in recs}
+    names = _by_name(recs)
+    roots = names["deeparc.incremental"]
+    assert len(roots) == 1 and roots[0]["parent"] is None
+    root = roots[0]["id"]
+    assert all(r["root"] == root for r in recs)
+    parent = lambda r: by_id[r["parent"]]["name"]
+    children = {r["name"] for r in recs if r["parent"] == root}
+    assert children == set(INCREMENTAL_ROOT)
+    for name in INCREMENTAL_ROOT[:4] + INCREMENTAL_ROOT[5:]:
+        assert len(names[name]) == 1, name
+    batches = names["deeparc.incremental.batch"]
+    assert [b["counts"]["batch"] for b in batches] == list(range(3))
+    assert [b["counts"]["active_cells"] for b in batches] == [16, 32, 48]
+    assert [b["counts"]["live_points"] for b in batches] == \
+        [h["live_points"] for h in res.history]
+    assert 0 < batches[0]["counts"]["live_points"] < \
+        batches[-1]["counts"]["live_points"] == res.scene.n_points
+    for name in INCREMENTAL_BATCH:
+        assert len(names[name]) == 3
+        assert all(parent(r) == "deeparc.incremental.batch"
+                   for r in names[name])
+    # each solve's own root nests under the batch's structure or full span
+    solves = names["deeparc.solve"]
+    assert sorted(parent(r) for r in solves) == \
+        ["deeparc.incremental.full"] * 3 + \
+        ["deeparc.incremental.structure"] * 3
+    assert [r["counts"]["fresh"] for r in names["deeparc.grid.band_prep"]] \
+        == [0] * 6
+    assert len(names["deeparc.lm.step"]) == res.solve_iterations
+    got = {k: read(None) for k, read in _incremental_readers().items()}
+    assert got["incremental_batch_ms"] > 0 and got["incremental_load_s"] > 0
+
+
+def test_an_untraced_incremental_run_records_nothing():
+    from deeparc_tpu_torch.pipeline.incremental import run_incremental
+
+    reset_spans()
+    rig = make_hemisphere_rig(**BANDED_RIG)
+    res = run_incremental(rig.data, PipelineOptions(
+        solver=SolverOptions(max_iterations=2)), batch_size=24,
+        device="cpu", verbose=False)
+    assert res.batches == 2 and res.solve_iterations > 0
+    assert spans() == []
+    for name, read in _incremental_readers().items():
+        assert read(None) is None, name
+
+
+def test_the_incremental_lm_reader_reads_the_counters():
+    from portbench.run import load_module
+
+    read = load_module("metrics", "incremental_lm_iter_ms").read
+    call = {"wall": 2.0, "lm_seconds": 0.5, "iterations": 25,
+            "cg_iterations": 0}
+    assert read({"unit": "pipeline", "calls": [call, call]}) == \
+        pytest.approx(20.0)
+    # nothing to read without LM iterations, or in a solve cell
+    none = dict(call, lm_seconds=0.0, iterations=0)
+    assert read({"unit": "pipeline", "calls": [none]}) is None
+    assert read({"unit": "solve", "calls": [call]}) is None
