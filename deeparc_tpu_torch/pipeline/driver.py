@@ -396,8 +396,9 @@ def _indexed_rounds(scene, options, hemi, log, snapshot, sidecar, totals):
     while current_points != old_points and step < options.max_filter_rounds:
         step += 1
         old_points = current_points
-        with span("deeparc.pipeline.compact"):
+        with span("deeparc.pipeline.compact") as sp:
             scene = compact(scene, obs_bucket=1024, point_bucket=256)
+            sp.set(obs=scene.n_obs)
         result = run_solve(freeze_masks(scene), step)
         scene = dataclasses.replace(scene, params=result.params)
         scene, stats = run_filter(scene)
@@ -452,7 +453,7 @@ def run_pipeline(data: DeepArcData,
         os.makedirs(output_dir, exist_ok=True)
     log = print if verbose and rank == 0 else (lambda *a, **k: None)
 
-    with span("deeparc.pipeline.load"):
+    with span("deeparc.pipeline.load", obs=data.n_obs):
         scene = from_deeparc(data, dtype=dtype, device=device)
     log(f"[deeparc] loaded: {scene.n_obs} obs, {scene.n_points} points, "
         f"{scene.n_extrinsics} extrinsics, {scene.n_intrinsics} intrinsics, "
@@ -487,8 +488,9 @@ def run_pipeline(data: DeepArcData,
                                       sidecar, totals, sharded=sharded)
 
     log(f"TOTAL REPEAT: {len(rounds_log)}")
-    with span("deeparc.pipeline.compact"):
+    with span("deeparc.pipeline.compact") as sp:
         scene = compact(scene)
+        sp.set(obs=scene.n_obs)
     if output_dir:
         _snapshot(scene, out(f"{basename}_clear.ply"))
         with span("deeparc.pipeline.write"):

@@ -152,7 +152,7 @@ def run_incremental(data: DeepArcData,
     )
 
     log = print if verbose else (lambda *a, **k: None)
-    with span("deeparc.incremental.load"):
+    with span("deeparc.incremental.load", obs=data.n_obs):
         scene = from_deeparc(data, dtype=dtype, device=check_device(device))
     with span("deeparc.incremental.layout"):
         grid = grid_from_scene(scene)
@@ -254,7 +254,7 @@ def run_incremental_free(data: DeepArcData,
 
     log = print if verbose else (lambda *a, **k: None)
     device = check_device(device)
-    with span("deeparc.incremental.load"):
+    with span("deeparc.incremental.load", obs=data.n_obs):
         scene = from_deeparc(data, dtype=dtype, device=device)
     if scene.meta.share_extrinsic:
         raise ValueError("run_incremental_free is the non-shared path")

@@ -4,6 +4,7 @@ Tolerances: the closed-form geometry runs the same float64 arithmetic in
 both packages, so rtol 1e-12; the hemisphere LM iterates to a tolerance,
 so rtol 1e-8."""
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from deeparc_tpu.geometry import camera as jcam
 from deeparc_tpu.geometry import projection as jproj
 from deeparc_tpu.geometry import rotation as jrot
 from deeparc_tpu.io import make_hemisphere_rig, read_deeparc
+from deeparc_tpu.io.synthetic import make_bal_synthetic
 from deeparc_tpu.scene import from_deeparc as jfrom_deeparc
 from deeparc_tpu.solver.lm import fit_hemisphere as jfit_hemisphere
 from deeparc_tpu_torch.geometry import camera as tcam
@@ -95,28 +97,91 @@ def test_camera_centers_match_jax():
                                     jnp.asarray(d.ext_trans)), RTOL, 1e-14)
 
 
-@pytest.mark.parametrize("source", ["golden", "synthetic"])
+def _source(name):
+    """Scene contents: the golden file, a rig, the rig shuffled (points
+    renumbered, observations reordered, so the point sort has ties in a
+    new order) and a BAL-style non-shared scene."""
+    if name == "golden":
+        return read_deeparc(GOLDEN)
+    if name == "bal":
+        return make_bal_synthetic(n_cameras=10, n_points=80, seed=6,
+                                  pixel_noise=0.5).data
+    data = make_hemisphere_rig(n_arc=3, n_ring=5, n_points=60, seed=4,
+                               pixel_noise=0.5).data
+    if name == "synthetic":
+        return data
+    rng = np.random.default_rng(7)
+    new_id = rng.permutation(data.n_points)
+    order = rng.permutation(data.n_obs)
+    points, colors = np.empty_like(data.points), np.empty_like(data.colors)
+    points[new_id], colors[new_id] = data.points, data.colors
+    return dataclasses.replace(
+        data, obs_arc=data.obs_arc[order], obs_ring=data.obs_ring[order],
+        obs_point=new_id[data.obs_point[order]].astype(np.int32),
+        obs_xy=data.obs_xy[order], points=points, colors=colors)
+
+
+def _same_scene(got, want):
+    """Every SceneIndex and BAParams field and SceneMeta's observation and
+    point columns equal bit for bit, dtypes too."""
+    for group in ("index", "params"):
+        g, w = getattr(got, group), getattr(want, group)
+        for f in dataclasses.fields(g):
+            a, b = as_np(getattr(g, f.name)), np.asarray(getattr(w, f.name))
+            assert a.dtype == b.dtype, (group, f.name, a.dtype, b.dtype)
+            np.testing.assert_array_equal(a, b, err_msg=f"{group}.{f.name}")
+    for f in ("obs_arc", "obs_ring", "colors", "focal_size", "dist_size"):
+        a, b = getattr(got.meta, f), getattr(want.meta, f)
+        assert isinstance(a, np.ndarray) and a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f"meta.{f}")
+
+
+@pytest.mark.parametrize("source", ["golden", "synthetic", "shuffled", "bal"])
 def test_from_to_deeparc_roundtrip(source):
-    data = (read_deeparc(GOLDEN) if source == "golden" else
-            make_hemisphere_rig(n_arc=3, n_ring=5, n_points=60, seed=4,
-                                pixel_noise=0.5).data)
+    data = _source(source)
     scene = from_deeparc(data, device="cpu")
     jscene = jfrom_deeparc(data)
-    for f in ("obs_point", "obs_outer", "obs_inner", "obs_intr", "obs_xy",
-              "focal_shared", "dist_m1", "dist_m2"):
-        np.testing.assert_array_equal(as_np(getattr(scene.index, f)),
-                                      np.asarray(getattr(jscene.index, f)))
+    _same_scene(scene, jscene)
     back = to_deeparc(scene)
     for f in ("obs_arc", "obs_ring", "obs_point", "obs_xy", "points",
               "ext_rot", "ext_trans", "center", "focal", "dist", "colors"):
         np.testing.assert_array_equal(
             np.sort(np.asarray(getattr(back, f)), axis=0),
             np.sort(np.asarray(getattr(data, f)), axis=0))
+    # the given order kept, as the reference package keeps it
+    _same_scene(from_deeparc(data, device="cpu", sort_by_point=False),
+                jfrom_deeparc(data, sort_by_point=False))
     # masking then compacting drops the masked observations and points
     scene.index.point_mask[0] = 0.0
     small = to_deeparc(compact(scene))
     assert small.n_points == data.n_points - 1
     assert small.n_obs == int((data.obs_point != 0).sum())
+
+
+@pytest.mark.parametrize("buckets", [(1, 1), (64, 16)])
+@pytest.mark.parametrize("source", ["shuffled", "bal"])
+def test_compact_matches_jax(source, buckets):
+    """Dead observations of live points, live observations of dead points
+    and a dead point with no observation left: the survivors, their new
+    point ids, the padding's fills and SceneMeta bit for bit as the
+    reference package's ``compact``."""
+    from deeparc_tpu.scene import compact as jcompact
+
+    data = _source(source)
+    scene, jscene = from_deeparc(data, device="cpu"), jfrom_deeparc(data)
+    rng = np.random.default_rng(11)
+    obs_mask = (rng.random(data.n_obs) > 0.2).astype(np.float64)
+    point_mask = (rng.random(data.n_points) > 0.15).astype(np.float64)
+    obs_mask[as_np(scene.index.obs_point) == 0] = 0.0
+    point_mask[0] = 0.0
+    scene.index.obs_mask = torch.as_tensor(obs_mask)
+    scene.index.point_mask = torch.as_tensor(point_mask)
+    jscene.index = dataclasses.replace(
+        jscene.index, obs_mask=jnp.asarray(obs_mask),
+        point_mask=jnp.asarray(point_mask))
+    got, want = compact(scene, *buckets), jcompact(jscene, *buckets)
+    _same_scene(got, want)
+    assert got.n_obs % buckets[0] == 0 and got.n_points % buckets[1] == 0
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(freeze_camera=True),

@@ -244,6 +244,11 @@ def test_a_grid_pipeline_leaves_the_span_tree():
     last = names["deeparc.pipeline.filter"][-1]["counts"]
     assert last["points_alive"] == res.scene.n_points
     assert last["obs_alive"] == int(res.scene.index.obs_mask.sum())
+    # the load re-orders every observation, the compaction keeps the live
+    assert names["deeparc.pipeline.load"][0]["counts"] == \
+        {"obs": rig.data.n_obs}
+    assert names["deeparc.pipeline.compact"][0]["counts"] == \
+        {"obs": res.scene.n_obs} and res.scene.n_obs == last["obs_alive"]
 
 
 def test_a_tile_solve_leaves_the_span_tree():
@@ -351,6 +356,8 @@ def test_an_incremental_run_leaves_the_span_tree():
         ["deeparc.incremental.structure"] * 3
     assert [r["counts"]["fresh"] for r in names["deeparc.grid.band_prep"]] \
         == [0] * 6
+    assert names["deeparc.incremental.load"][0]["counts"] == \
+        {"obs": rig.data.n_obs}
     assert len(names["deeparc.lm.step"]) == res.solve_iterations
     got = {k: read(None) for k, read in _incremental_readers().items()}
     assert got["incremental_batch_ms"] > 0 and got["incremental_load_s"] > 0
