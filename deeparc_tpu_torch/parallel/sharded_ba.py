@@ -15,6 +15,7 @@ rank takes the same decisions.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import NamedTuple
 
@@ -37,7 +38,7 @@ from deeparc_tpu_torch.residuals.reprojection import (
 )
 from deeparc_tpu_torch.scene import BAParams, Scene, SceneIndex, _np
 from deeparc_tpu_torch.solver import trust_region as tr_mod
-from deeparc_tpu_torch.solver.ba import LM_LOOP, StepInfo, lm_running
+from deeparc_tpu_torch.solver.ba import check_driver, run_steps
 from deeparc_tpu_torch.solver.device_loop import BlockLoop, run_blocks
 from deeparc_tpu_torch.solver.linalg import masked_spd_solve
 from deeparc_tpu_torch.solver.schur import (
@@ -51,8 +52,6 @@ from deeparc_tpu_torch.solver.schur import (
     schur_maps,
     sys_r,
 )
-from deeparc_tpu_torch.utils import debug
-from deeparc_tpu_torch.utils.profiling import span
 
 
 class ShardedScene(NamedTuple):
@@ -203,8 +202,7 @@ def solve_ba_sharded(sharded: ShardedScene,
     one CUDA graph, the step's ``all_reduce`` calls inside its WHILE
     node's body; on the CPU, gloo, the same program eagerly), as the
     reference runs it in one ``lax.while_loop``."""
-    if driver not in ("python", "while_loop"):
-        raise ValueError(f"unknown driver {driver!r}")
+    check_driver(driver)
     device = check_device(device)
     red = reducer_for(device, mesh, axis)
     if sharded.points.shape[0] != red.size:
@@ -249,35 +247,17 @@ def solve_ba_sharded(sharded: ShardedScene,
                                                sys_r(sys).reshape(-1)))
         new_points, new_cam = points + dp, cam_vec + dc
         new_cost = total_cost(new_points, new_cam)
-        rho = (cost - new_cost) / torch.clamp(mcc, min=1e-300)
-        accept = (mcc > 0) & (rho > options.min_relative_decrease)
-        tr_next = tr_mod.select(
-            accept, tr_mod.step_accepted(tr, rho, options.max_radius),
-            tr_mod.step_rejected(tr))
-
         grad_max = torch.maximum(torch.max(torch.abs(g_c)),
                                  red.max(torch.max(torch.abs(sys.g_p))))
         step_norm = torch.sqrt(red.sum(torch.sum(dp * dp))
                                + torch.dot(dc, dc))
         x_norm = torch.sqrt(red.sum(torch.sum(points * points))
                             + torch.dot(cam_vec, cam_vec))
-        cost_change = cost - new_cost
-        ftol = accept & (torch.abs(cost_change)
-                         <= options.function_tolerance * cost)
-        ptol = accept & (step_norm <= options.parameter_tolerance
-                         * (x_norm + options.parameter_tolerance))
-        gtol = grad_max <= options.gradient_tolerance
-        radius_min = tr_next.radius <= options.min_radius
-        zero = torch.zeros((), dtype=torch.int64, device=device)
-        status = torch.where(gtol, 3, torch.where(ftol, 2, torch.where(
-            ptol, 4, torch.where(radius_min, 5, zero))))
-        cost_next = torch.where(accept, new_cost, cost)
-        info = StepInfo(cost=cost_next, cost_change=cost_change,
-                        grad_max=grad_max, step_norm=step_norm,
-                        radius=tr.radius, rho=rho, accepted=accept)
+        accept, tr_next, status, info = tr_mod.decide(
+            cost, new_cost, mcc, tr, grad_max, step_norm, x_norm, options)
         return ShardedState(
             points=torch.where(accept, new_points, points),
-            cam_vec=torch.where(accept, new_cam, cam_vec), cost=cost_next,
+            cam_vec=torch.where(accept, new_cam, cam_vec), cost=info.cost,
             tr=tr_next, k=state.k + 1, status=status), info
 
     points, cam_vec = cam_template.points, flatten_camera(cam_template)
@@ -294,13 +274,10 @@ def solve_ba_sharded(sharded: ShardedScene,
             float("inf"), reducer=red, engine="indexed-sharded")
         state = loop.state
     else:
-        step = debug.checked_step(step, "indexed-sharded", red)
-        k, t0 = 0, time.time()
-        with span(LM_LOOP):
-            while lm_running(state.status) and k < options.max_iterations:
-                with span("deeparc.lm.step"):
-                    state, _ = step(state)
-                k += 1
+        # no progress, log, checkpoint or cap, as the one-block driver
+        state, k, _, t0 = run_steps(step, (), state, options,
+                                    engine="indexed-sharded", reducer=red,
+                                    progress=False, max_seconds=math.inf)
         status, seconds = int(state.status), time.time() - t0
     gathered = red.gather_rows(state.points).reshape(
         (red.size,) + tuple(state.points.shape))

@@ -41,12 +41,9 @@ from deeparc_tpu_torch.parallel.multihost import (
 from deeparc_tpu_torch.residuals.reprojection import flatten_camera
 from deeparc_tpu_torch.scene import BAParams
 from deeparc_tpu_torch.solver.ba import (
-    LM_LOOP,
     BAResult,
-    lm_running,
-    print_header,
-    print_iteration,
-    save_checkpoint,
+    check_driver,
+    run_steps,
     tr_of,
 )
 from deeparc_tpu_torch.solver.device_loop import BlockLoop, solve_blocks
@@ -57,9 +54,6 @@ from deeparc_tpu_torch.solver.rig_grid import (
     make_grid_step,
     mono_stack,
 )
-from deeparc_tpu_torch.utils import debug
-from deeparc_tpu_torch.utils.logging import log_iteration
-from deeparc_tpu_torch.utils.profiling import span
 
 
 def _pad_rows(t: torch.Tensor, n_pad: int, fill=0.0) -> torch.Tensor:
@@ -120,14 +114,12 @@ def solve_ba_grid_sharded(params: BAParams, grid: GridIndex, free: BAParams,
     block; between blocks rank 0's clock applies the cap, and rank 0
     writes the checkpoint (when ``checkpoint_path`` is given) and one
     ``lm_block`` log line; no progress or ``lm_iteration`` lines."""
-    if driver not in ("python", "while_loop"):
-        raise ValueError(f"unknown driver {driver!r}")
+    check_driver(driver)
     red = reducer_for(params.points.device, mesh, axis)
     n, rank = red.size, red.rank
     red.check_same([grid.mask.shape[0], grid.mask.shape[1],
                     float(grid.mask.sum()), float(grid.point_mask.sum())],
                    "grids")
-    lead = rank == 0
     cam_free = flatten_camera(free)
     params_p, grid_p, pf_p, N = shard_grid_rows(params, grid, free.points, n)
     rows = local_rows(params_p.points.shape[0], rank, n)
@@ -164,26 +156,11 @@ def solve_ba_grid_sharded(params: BAParams, grid: GridIndex, free: BAParams,
             while_block, checkpoint_path, gathered, red, logger,
             engine="grid-sharded")
 
-    step = debug.checked_step(step, "grid-sharded", red)
-    t0 = time.time()
-    k = state.k
-    if options.progress_to_stdout and lead:
-        print_header(k, state.cost)
-    with span(LM_LOOP):
-        while lm_running(state.status) and k < options.max_iterations:
-            if red.agree(time.time() - t0 > options.max_seconds):
-                break
-            with span("deeparc.lm.step"):
-                state, info = step(state, local, cam_free, point_free)
-            k += 1
-            if options.progress_to_stdout and lead:
-                print_iteration(k, info)
-            log_iteration(logger if lead else None, k, info)
-            if checkpoint_path and k % checkpoint_every == 0:
-                ck_params = gathered(state)
-                if lead:
-                    save_checkpoint(checkpoint_path, ck_params, state.tr, k,
-                                    state.cost)
+    state, k, _, t0 = run_steps(
+        step, (local, cam_free, point_free), state, options,
+        engine="grid-sharded", checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, original=gathered, logger=logger,
+        reducer=red)
     return BAResult(params=gathered(state), cost=float(state.cost),
                     iterations=k, status=int(state.status),
                     seconds=time.time() - t0)

@@ -41,12 +41,9 @@ from deeparc_tpu_torch.parallel.sharded_grid import local_rows
 from deeparc_tpu_torch.residuals.reprojection import unflatten_camera
 from deeparc_tpu_torch.scene import BAParams
 from deeparc_tpu_torch.solver.ba import (
-    LM_LOOP,
     BAResult,
-    lm_running,
-    print_header,
-    print_iteration,
-    save_checkpoint,
+    check_driver,
+    run_steps,
     tr_of,
 )
 from deeparc_tpu_torch.solver.device_loop import BlockLoop, solve_blocks
@@ -60,9 +57,6 @@ from deeparc_tpu_torch.solver.tiles import (
     unpermute_points,
     with_bins,
 )
-from deeparc_tpu_torch.utils import debug
-from deeparc_tpu_torch.utils.logging import log_iteration
-from deeparc_tpu_torch.utils.profiling import span
 
 
 def _pad(t: torch.Tensor, pad: int, fill=0.0) -> torch.Tensor:
@@ -194,13 +188,11 @@ def solve_ba_tiles_sharded(params_t: BAParams, tiles: TileIndex,
     clock applies the cap, and rank 0 writes the checkpoint (when
     ``checkpoint_path`` is given) and one ``lm_block`` log line; no
     progress or ``lm_iteration`` lines."""
-    if driver not in ("python", "while_loop"):
-        raise ValueError(f"unknown driver {driver!r}")
+    check_driver(driver)
     red = reducer_for(params_t.points.device, mesh, axis)
     n, rank = red.size, red.rank
     red.check_same(layout_signature(tiles, params_t.points.shape[0]),
                    "tile layouts")
-    lead = rank == 0
     params_p, tiles_p, pf_p, orig_rows = shard_tile_rows(
         params_t, tiles, point_free_t, n, chunk_obs)
     # the shard-major rows that hold the caller's rows, and which those are
@@ -251,27 +243,11 @@ def solve_ba_tiles_sharded(params_t: BAParams, tiles: TileIndex,
             while_block, checkpoint_path, original, red, logger,
             result=row_space, engine="tiles-sharded")
 
-    step = debug.checked_step(step, "tiles-sharded", red)
-    t0 = time.time()
-    k, cg_total = state.k, 0
-    if options.progress_to_stdout and lead:
-        print_header(k, state.cost, cg=True)
-    with span(LM_LOOP):
-        while lm_running(state.status) and k < options.max_iterations:
-            if red.agree(time.time() - t0 > options.max_seconds):
-                break
-            with span("deeparc.lm.step"):
-                state, info = step(state, local, cam_free, point_free)
-            k += 1
-            if options.progress_to_stdout and lead:
-                print_iteration(k, info, cg=True)
-            log_iteration(logger if lead else None, k, info)
-            if checkpoint_path and k % checkpoint_every == 0:
-                ck_params = original(state)
-                if lead:
-                    save_checkpoint(checkpoint_path, ck_params, state.tr, k,
-                                    state.cost)
-            cg_total += info.cg_iters
+    state, k, cg_total, t0 = run_steps(
+        step, (local, cam_free, point_free), state, options,
+        engine="tiles-sharded", checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, original=original, logger=logger,
+        cg=True, reducer=red)
     return BAResult(params=row_space(state), cost=float(state.cost),
                     iterations=k, status=int(state.status),
                     seconds=time.time() - t0, cg_iterations=cg_total)

@@ -6,16 +6,18 @@ The native replacement for the reference's ``solve()`` (``src/sfm.cc:31-75``,
 DENSE_SCHUR, <= 100 iterations, 3600 s cap, progress to stdout): one step
 function -- linearize (``vmap(jacfwd)``, ``residuals/reprojection.py``) ->
 Schur solve (``solver/schur.py``) -> trial evaluation -> trust-region
-update -- driven from Python with Ceres-style progress lines, the
-wall-clock cap, periodic solver-state checkpoints and a JSONL logger.
+decision (``trust_region.decide``) -- driven from Python by
+:func:`run_steps`, every engine's Python driver: Ceres-style progress
+lines, the wall-clock cap, periodic solver-state checkpoints and a JSONL
+logger.
 
-Status codes: 0 running/max-iter, 2 function-tol, 3 gradient-tol,
-4 parameter-tol, 5 trust region collapsed.
+Status codes: ``solver/trust_region.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import NamedTuple
@@ -25,6 +27,7 @@ import torch
 from deeparc_tpu_torch.config import SolverOptions
 from deeparc_tpu_torch.scene import BAParams, SceneIndex
 from deeparc_tpu_torch.solver import trust_region as tr_mod
+from deeparc_tpu_torch.solver.trust_region import StepInfo
 from deeparc_tpu_torch.utils import debug
 from deeparc_tpu_torch.utils.logging import log_iteration
 from deeparc_tpu_torch.utils.profiling import span, traced
@@ -32,19 +35,6 @@ from deeparc_tpu_torch.utils.profiling import span, traced
 # the span (``utils/profiling.py``) of a solve's LM loop, under either
 # driver, every engine
 LM_LOOP = "deeparc.lm_loop"
-
-
-class StepInfo(NamedTuple):
-    cost: torch.Tensor
-    cost_change: torch.Tensor
-    grad_max: torch.Tensor
-    step_norm: torch.Tensor
-    radius: torch.Tensor
-    rho: torch.Tensor
-    accepted: torch.Tensor
-    # PCG iterations the linear solve used (the tile engine's
-    # ITERATIVE_SCHUR; -1 where the solve is direct)
-    cg_iters: int = -1
 
 
 class BAResult(NamedTuple):
@@ -112,7 +102,6 @@ def make_step_pure(options: SolverOptions, device_loop: bool = False):
     def step(state: BAState, index: SceneIndex, cam_free, point_free,
              maps=None):
         params = state.params
-        dev = params.points.device
         blocks = jacobian_blocks_flat(params, index)
         if options.loss != "trivial":
             s = torch.sum(blocks.r * blocks.r, dim=-1)
@@ -128,38 +117,21 @@ def make_step_pure(options: SolverOptions, device_loop: bool = False):
 
         trial = _apply_step(params, dp, dc)
         new_cost = robust_cost(trial, index, options)
-        rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
-        accept = (mcc > 0) & (rho > options.min_relative_decrease)
-        tr_next = tr_mod.select(
-            accept, tr_mod.step_accepted(state.tr, rho, options.max_radius),
-            tr_mod.step_rejected(state.tr))
-        params_next = BAParams(**{
-            f.name: torch.where(accept, getattr(trial, f.name),
-                                getattr(params, f.name))
-            for f in dataclasses.fields(BAParams)})
-        cost_next = torch.where(accept, new_cost, state.cost)
-
         grad_max = torch.maximum(torch.max(torch.abs(sys.g_c)),
                                  torch.max(torch.abs(sys.g_p)))
         step_norm = torch.sqrt(torch.sum(dp * dp) + torch.dot(dc, dc))
         cam = flatten_camera(params)
         x_norm = torch.sqrt(torch.sum(params.points * params.points)
                             + torch.dot(cam, cam))
-        cost_change = state.cost - new_cost
-        ftol = accept & (torch.abs(cost_change)
-                         <= options.function_tolerance * state.cost)
-        ptol = accept & (step_norm <= options.parameter_tolerance
-                         * (x_norm + options.parameter_tolerance))
-        gtol = grad_max <= options.gradient_tolerance
-        radius_min = tr_next.radius <= options.min_radius
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        status = torch.where(gtol, 3, torch.where(ftol, 2, torch.where(
-            ptol, 4, torch.where(radius_min, 5, zero))))
-        next_state = BAState(params=params_next, cost=cost_next, tr=tr_next,
+        accept, tr_next, status, info = tr_mod.decide(
+            state.cost, new_cost, mcc, state.tr, grad_max, step_norm, x_norm,
+            options)
+        params_next = BAParams(**{
+            f.name: torch.where(accept, getattr(trial, f.name),
+                                getattr(params, f.name))
+            for f in dataclasses.fields(BAParams)})
+        next_state = BAState(params=params_next, cost=info.cost, tr=tr_next,
                              k=state.k + 1, status=status)
-        info = StepInfo(cost=cost_next, cost_change=cost_change,
-                        grad_max=grad_max, step_norm=step_norm,
-                        radius=state.tr.radius, rho=rho, accepted=accept)
         return next_state, info
 
     return step
@@ -215,6 +187,66 @@ def lm_running(status) -> bool:
         return int(status) == 0
 
 
+def check_driver(driver: str) -> None:
+    """Raise for a driver no solve has."""
+    if driver not in ("python", "while_loop"):
+        raise ValueError(f"unknown driver {driver!r}")
+
+
+def run_steps(step, inputs: tuple, state, options: SolverOptions, *,
+              engine: str, checkpoint_path: str | None = None,
+              checkpoint_every: int = 10, original=None, logger=None,
+              cg: bool = False, reducer=None, progress: bool = True,
+              max_seconds: float | None = None):
+    """The ``driver="python"`` LM loop of every engine:
+    ``step(state, *inputs) -> (state, StepInfo)`` (checked under
+    ``utils.debug.nan_debugging``, naming the ``engine``) while the status
+    is 0 and ``k < options.max_iterations``, one read of the status an
+    iteration. Before each step the wall-clock cap (``max_seconds``, by
+    default ``options.max_seconds``; ``src/sfm.cc:71``) is tested; after
+    it come the progress line (``progress`` and
+    ``options.progress_to_stdout``; ``cg`` adds the PCG column), the
+    ``lm_iteration`` line to ``logger``, and every ``checkpoint_every``
+    iterations the solver-state checkpoint of ``original(state)`` (the
+    parameters in their original point order) at ``checkpoint_path``.
+
+    With ``reducer`` (a sharded solve) rank 0's clock decides the cap for
+    every rank, ``original`` runs on every rank (it gathers, a
+    collective), and rank 0 alone prints, logs and writes; an uncapped
+    solve (``max_seconds=inf``) reads no clock across the group.
+
+    Returns (state, k, PCG iterations summed when ``cg``, t0), ``t0`` the
+    wall clock just before the header: an engine's ``BAResult.seconds``
+    runs from there to the end of its result extraction."""
+    step = debug.checked_step(step, engine, reducer)
+    lead = reducer is None or reducer.rank == 0
+    agree = bool if reducer is None else reducer.agree
+    cap = options.max_seconds if max_seconds is None else max_seconds
+    show = progress and options.progress_to_stdout and lead
+    t0 = time.time()
+    k, cg_total = state.k, 0
+    if show:
+        print_header(k, state.cost, cg=cg)
+    with span(LM_LOOP):
+        while lm_running(state.status) and k < options.max_iterations:
+            if cap < math.inf and agree(time.time() - t0 > cap):
+                break
+            with span("deeparc.lm.step"):
+                state, info = step(state, *inputs)
+            k += 1
+            if show:
+                print_iteration(k, info, cg=cg)
+            log_iteration(logger if lead else None, k, info)
+            if checkpoint_path and k % checkpoint_every == 0:
+                params = original(state)
+                if lead:
+                    save_checkpoint(checkpoint_path, params, state.tr, k,
+                                    state.cost)
+            if cg:
+                cg_total += info.cg_iters
+    return state, k, cg_total, t0
+
+
 def load_checkpoint(path: str | None, resume: bool, template: BAParams):
     """(BAParams, scalars) of the checkpoint at ``path`` in the template's
     dtype and device when ``resume`` is set and the file exists, else
@@ -263,8 +295,7 @@ def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
     ``options.max_iterations``, with no host read until it ends (on the
     card one CUDA graph, ``solver/device_loop.py``); as in the reference,
     no wall-clock cap, no checkpoint, no progress lines or log."""
-    if driver not in ("python", "while_loop"):
-        raise ValueError(f"unknown driver {driver!r}")
+    check_driver(driver)
     state = init_state(params, index, options)
     if driver == "while_loop":
         from deeparc_tpu_torch.solver.device_loop import BlockLoop, run_blocks
@@ -278,7 +309,6 @@ def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
             float("inf"), engine="indexed")
         return BAResult(params=loop.state.params, cost=float(loop.state.cost),
                         iterations=k, status=status, seconds=seconds)
-    step = debug.checked_step(make_step(index, free, options), "indexed")
     ck = load_checkpoint(checkpoint_path, resume, params)
     if ck is not None:
         ck_params, scal = ck
@@ -286,23 +316,11 @@ def solve_ba(params: BAParams, index: SceneIndex, free: BAParams,
                                cost=robust_cost(ck_params, index, options),
                                tr=tr_of(scal, params.points),
                                k=scal["iteration"])
-    t0 = time.time()
-    k = state.k
-    if options.progress_to_stdout:
-        print_header(k, state.cost)
-    with span(LM_LOOP):
-        while lm_running(state.status) and k < options.max_iterations:
-            if time.time() - t0 > options.max_seconds:
-                break
-            with span("deeparc.lm.step"):
-                state, info = step(state)
-            k += 1
-            if options.progress_to_stdout:
-                print_iteration(k, info)
-            log_iteration(logger, k, info)
-            if checkpoint_path and k % checkpoint_every == 0:
-                save_checkpoint(checkpoint_path, state.params, state.tr, k,
-                                state.cost)
+    state, k, _, t0 = run_steps(
+        make_step(index, free, options), (), state, options,
+        engine="indexed", checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, original=lambda st: st.params,
+        logger=logger)
     return BAResult(params=state.params, cost=float(state.cost),
                     iterations=k, status=int(state.status),
                     seconds=time.time() - t0)

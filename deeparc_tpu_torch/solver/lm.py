@@ -3,8 +3,9 @@
 (reference ``src/sfm.cc:89-103``: up to 1000 iterations over 4 parameters).
 A Python loop takes the place of the reference's ``lax.while_loop``.
 
-Status codes: 0 = running / max_iterations, 2 = function tolerance,
-3 = gradient tolerance, 4 = parameter tolerance, 5 = radius collapsed.
+Each step takes Ceres' decision through ``trust_region.decide``, the law
+of the port's BA engines too, and the loop reads its status once an
+iteration. Status codes: ``solver/trust_region.py``.
 """
 
 from __future__ import annotations
@@ -52,28 +53,13 @@ def levenberg_marquardt(residual_fn: Callable, x0: torch.Tensor,
         mcc = tr_mod.model_cost_change(J @ dx, r)
         x_new = x + dx
         new_cost = cost_of(x_new)
-        rho = (cost - new_cost) / torch.clamp(mcc, min=1e-300)
-        accept = (mcc > 0) & (rho > options.min_relative_decrease)
-        tr_next = tr_mod.select(accept,
-                                tr_mod.step_accepted(tr, rho, options.max_radius),
-                                tr_mod.step_rejected(tr))
-        g_max = torch.max(torch.abs(g * free))
-        ftol = accept & (torch.abs(cost - new_cost)
-                         <= options.function_tolerance * cost)
-        ptol = accept & (torch.linalg.norm(dx) <= options.parameter_tolerance
-                         * (torch.linalg.norm(x) + options.parameter_tolerance))
+        accept, tr, code, info = tr_mod.decide(
+            cost, new_cost, mcc, tr, torch.max(torch.abs(g * free)),
+            torch.linalg.norm(dx), torch.linalg.norm(x), options)
         x = torch.where(accept, x_new, x)
-        cost = torch.where(accept, new_cost, cost)
-        tr = tr_next
+        cost = info.cost
         k += 1
-        if bool(g_max <= options.gradient_tolerance):
-            status = 3
-        elif bool(ftol):
-            status = 2
-        elif bool(ptol):
-            status = 4
-        elif bool(tr.radius <= options.min_radius):
-            status = 5
+        status = int(code)
     return LMResult(x=x, cost=cost, iterations=k, status=status)
 
 

@@ -39,20 +39,14 @@ from deeparc_tpu_torch.residuals.reprojection import (
 from deeparc_tpu_torch.scene import BAParams, Scene
 from deeparc_tpu_torch.solver import trust_region as tr_mod
 from deeparc_tpu_torch.solver.ba import (
-    LM_LOOP,
     BAResult,
-    StepInfo,
-    lm_running,
+    check_driver,
     load_checkpoint,
-    print_header,
-    print_iteration,
-    save_checkpoint,
+    run_steps,
     tr_of,
 )
 from deeparc_tpu_torch.solver.linalg import masked_spd_solve
 from deeparc_tpu_torch.solver.schur import augmented_point_blocks
-from deeparc_tpu_torch.utils import debug
-from deeparc_tpu_torch.utils.logging import log_iteration
 from deeparc_tpu_torch.utils.profiling import span, traced
 
 
@@ -493,7 +487,6 @@ def make_grid_step(options: SolverOptions, template: BAParams,
     to_flat, to_nat = column_maps(
         template, kernels, kernels and band_intr_frozen
         and bool(band_widths[0]))
-    dev = template.points.device
     allsum, allmax, allsum_sym = reductions(reducer)
 
     def linearize_at(points, cam_vec, grid, cam_free, point_free):
@@ -540,31 +533,15 @@ def make_grid_step(options: SolverOptions, template: BAParams,
         with span("deeparc.grid.trial_cost", device=True):
             new_cost, payload = trial_eval(new_points, new_cam)
 
-        rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
-        accept = (mcc > 0) & (rho > options.min_relative_decrease)
-        tr_next = tr_mod.select(
-            accept, tr_mod.step_accepted(state.tr, rho, options.max_radius),
-            tr_mod.step_rejected(state.tr))
         grad_max = torch.maximum(torch.max(torch.abs(sys.g_c)),
                                  allmax(torch.max(torch.abs(sys.g_p))))
         step_norm = torch.sqrt(allsum(torch.sum(dp * dp))
                                + torch.dot(dc, dc))
         x_norm = torch.sqrt(allsum(torch.sum(state.points * state.points))
                             + torch.dot(state.cam_vec, state.cam_vec))
-        cost_change = state.cost - new_cost
-        ftol = accept & (torch.abs(cost_change)
-                         <= options.function_tolerance * state.cost)
-        ptol = accept & (step_norm <= options.parameter_tolerance
-                         * (x_norm + options.parameter_tolerance))
-        gtol = grad_max <= options.gradient_tolerance
-        radius_min = tr_next.radius <= options.min_radius
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        status = torch.where(gtol, 3, torch.where(ftol, 2, torch.where(
-            ptol, 4, torch.where(radius_min, 5, zero))))
-        info = StepInfo(cost=torch.where(accept, new_cost, state.cost),
-                        cost_change=cost_change, grad_max=grad_max,
-                        step_norm=step_norm, radius=state.tr.radius, rho=rho,
-                        accepted=accept)
+        accept, tr_next, status, info = tr_mod.decide(
+            state.cost, new_cost, mcc, state.tr, grad_max, step_norm, x_norm,
+            options)
         return accept, new_points, new_cam, payload, tr_next, status, info
 
     def step(state: GridState, grid: GridIndex, cam_free, point_free):
@@ -731,8 +708,7 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
         band_grid_update,
     )
 
-    if driver not in ("python", "while_loop"):
-        raise ValueError(f"unknown driver {driver!r}")
+    check_driver(driver)
     if band not in ("auto", "none"):
         raise ValueError(f"unknown band {band!r}")
     kernels = _check_impl(impl)
@@ -812,6 +788,7 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
             state = init(ck_params)._replace(tr=tr_of(scal, params.points),
                                              k=scal["iteration"])
     engine = "grid (fused trial)" if fuse_trial else "grid"
+    original = lambda st: _params_from(st.cam_vec, unperm(st.points), params)
     if driver == "while_loop":
         from deeparc_tpu_torch.solver.device_loop import (
             BlockLoop,
@@ -820,32 +797,13 @@ def solve_ba_grid(params: BAParams, grid: GridIndex, free: BAParams,
 
         return solve_blocks(
             BlockLoop(step, (grid, cam_free, point_free)), state, options,
-            while_block, checkpoint_path,
-            lambda st: _params_from(st.cam_vec, unperm(st.points), params),
-            engine=engine)
-    step = debug.checked_step(step, engine)
-    t0 = time.time()
-    k = state.k
-    if options.progress_to_stdout:
-        print_header(k, state.cost)
-    with span(LM_LOOP):
-        while lm_running(state.status) and k < options.max_iterations:
-            if time.time() - t0 > options.max_seconds:
-                break
-            with span("deeparc.lm.step"):
-                state, info = step(state, grid, cam_free, point_free)
-            k += 1
-            if options.progress_to_stdout:
-                print_iteration(k, info)
-            log_iteration(logger, k, info)
-            if checkpoint_path and k % checkpoint_every == 0:
-                save_checkpoint(
-                    checkpoint_path,
-                    _params_from(state.cam_vec, unperm(state.points), params),
-                    state.tr, k, state.cost)
+            while_block, checkpoint_path, original, engine=engine)
+    state, k, _, t0 = run_steps(
+        step, (grid, cam_free, point_free), state, options, engine=engine,
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        original=original, logger=logger)
     with span("deeparc.grid.unpermute"):
-        out_params = _params_from(state.cam_vec, unperm(state.points),
-                                  params)
+        out_params = original(state)
         cost = float(state.cost)
     return BAResult(params=out_params, cost=cost, iterations=k,
                     status=int(state.status), seconds=time.time() - t0)

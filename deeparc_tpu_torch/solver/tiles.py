@@ -68,14 +68,10 @@ from deeparc_tpu_torch.residuals.reprojection import (
 from deeparc_tpu_torch.scene import BAParams, Scene, _np
 from deeparc_tpu_torch.solver import trust_region as tr_mod
 from deeparc_tpu_torch.solver.ba import (
-    LM_LOOP,
     BAResult,
-    StepInfo,
-    lm_running,
+    check_driver,
     load_checkpoint,
-    print_header,
-    print_iteration,
-    save_checkpoint,
+    run_steps,
     tr_of,
 )
 from deeparc_tpu_torch.solver.linalg import pcg, pcg_device
@@ -87,8 +83,6 @@ from deeparc_tpu_torch.solver.rig_grid import (
     slot_params,
 )
 from deeparc_tpu_torch.solver.schur import augmented_point_blocks
-from deeparc_tpu_torch.utils import debug
-from deeparc_tpu_torch.utils.logging import log_iteration
 from deeparc_tpu_torch.utils.profiling import span, traced
 
 # target observations per chunk: rows-per-chunk = CHUNK_OBS // W
@@ -1074,7 +1068,6 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
     def step(state: TileState, tiles: TileIndex, cam_free, point_free_t):
         cells, cols = tiles.cells, tiles.cells.cols
-        dev = state.points.device
         with span("deeparc.tiles.linearize", device=True):
             params = _params_from(state.cam_vec, state.points, template)
             packed = pack_cells(slot_params(params, tiles.cells),
@@ -1155,31 +1148,15 @@ def make_tile_step(options: SolverOptions, template: BAParams,
             new_cost = allsum(tile_cost(new_points, trial_packed, tiles,
                                         options.loss, options.loss_scale))
 
-        rho = (state.cost - new_cost) / torch.clamp(mcc, min=1e-300)
-        accept = (mcc > 0) & (rho > options.min_relative_decrease)
-        tr_next = tr_mod.select(
-            accept, tr_mod.step_accepted(state.tr, rho, options.max_radius),
-            tr_mod.step_rejected(state.tr))
         grad_max = torch.maximum(torch.max(torch.abs(sys.g_c)),
                                  allmax(torch.max(torch.abs(sys.g_p))))
         step_norm = torch.sqrt(allsum(torch.sum(dp * dp))
                                + torch.dot(dc, dc))
         x_norm = torch.sqrt(allsum(torch.sum(state.points * state.points))
                             + torch.dot(state.cam_vec, state.cam_vec))
-        cost_change = state.cost - new_cost
-        ftol = accept & (torch.abs(cost_change)
-                         <= options.function_tolerance * state.cost)
-        ptol = accept & (step_norm <= options.parameter_tolerance
-                         * (x_norm + options.parameter_tolerance))
-        gtol = grad_max <= options.gradient_tolerance
-        radius_min = tr_next.radius <= options.min_radius
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        status = torch.where(gtol, 3, torch.where(ftol, 2, torch.where(
-            ptol, 4, torch.where(radius_min, 5, zero))))
-        info = StepInfo(cost=torch.where(accept, new_cost, state.cost),
-                        cost_change=cost_change, grad_max=grad_max,
-                        step_norm=step_norm, radius=state.tr.radius, rho=rho,
-                        accepted=accept, cg_iters=result.iterations)
+        accept, tr_next, status, info = tr_mod.decide(
+            state.cost, new_cost, mcc, state.tr, grad_max, step_norm, x_norm,
+            options, cg_iters=result.iterations)
         next_state = TileState(
             points=torch.where(accept, new_points, state.points),
             cam_vec=torch.where(accept, new_cam, state.cam_vec),
@@ -1265,8 +1242,7 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
     keeps copies of the layout and freeze masks that each call refreshes);
     a call with another ``impl`` empties it first.
     ``unpermute=False`` returns points in row space."""
-    if driver not in ("python", "while_loop"):
-        raise ValueError(f"unknown driver {driver!r}")
+    check_driver(driver)
     cache = _cache if _cache is not None else {}
     if cache.get("impl", impl) != impl:
         cache.clear()
@@ -1318,25 +1294,10 @@ def solve_tiles_prepared(params_t: BAParams, tiles: TileIndex, free_t,
             res = res._replace(params=dataclasses.replace(res.params,
                                                           points=pts))
         return res
-    step = debug.checked_step(step, "tiles")
-    t0 = time.time()
-    k, cg_total = state.k, 0
-    if options.progress_to_stdout:
-        print_header(k, state.cost, cg=True)
-    with span(LM_LOOP):
-        while lm_running(state.status) and k < options.max_iterations:
-            if time.time() - t0 > options.max_seconds:
-                break
-            with span("deeparc.lm.step"):
-                state, info = step(state, tiles, cam_free, free_t)
-            k += 1
-            if options.progress_to_stdout:
-                print_iteration(k, info, cg=True)
-            log_iteration(logger, k, info)
-            if checkpoint_path and k % checkpoint_every == 0:
-                save_checkpoint(checkpoint_path, original(state), state.tr, k,
-                                state.cost)
-            cg_total += info.cg_iters
+    state, k, cg_total, t0 = run_steps(
+        step, (tiles, cam_free, free_t), state, options, engine="tiles",
+        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+        original=original, logger=logger, cg=True)
     out = unflatten_camera(state.cam_vec, params_t)
     pts = unpermute_points(state.points, tiles) if unpermute else state.points
     return BAResult(params=dataclasses.replace(out, points=pts),

@@ -208,15 +208,27 @@ def test_tiles_while_loop_matches_jax(bal):
     close(flatten_camera(got.params), jflatten(want.params), 1e-7, 1e-10)
 
 
-def test_zero_time_budget_runs_no_iteration(grids, bal):
+# the indexed engine's while_loop driver runs the whole solve as one block,
+# with no wall-clock cap (as the reference's)
+@pytest.mark.parametrize("engine,driver", [
+    ("grid", "python"), ("grid", "while_loop"), ("tiles", "python"),
+    ("tiles", "while_loop"), ("indexed", "python")])
+def test_zero_time_budget_runs_no_iteration(grids, bal, indexed, engine,
+                                            driver):
     opts = SolverOptions(max_iterations=100, max_seconds=0.0)
-    assert _grid_solve(grids, "monolithic", "while_loop", while_block=2,
-                       options=opts).iterations == 0
-    _, scene, free = bal
-    out = tt.solve_ba_tiles(scene, free, dataclasses.replace(
-        opts, **TILE_OPTS), chunk_obs=256, driver="while_loop",
-        while_block=2)
+    blocks = dict(while_block=2) if driver == "while_loop" else {}
+    if engine == "grid":
+        out = _grid_solve(grids, "monolithic", driver, options=opts,
+                          **blocks)
+    elif engine == "tiles":
+        _, scene, free = bal
+        out = tt.solve_ba_tiles(scene, free, dataclasses.replace(
+            opts, **TILE_OPTS), chunk_obs=256, driver=driver, **blocks)
+    else:
+        scene, free = indexed
+        out = solve_ba(scene.params, scene.index, free, opts, driver=driver)
     assert out.iterations == 0 and out.cg_iterations == 0
+    assert out.status == 0
 
 
 def test_a_solve_that_converges_inside_a_block_stops_there(grids):
