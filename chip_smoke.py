@@ -5,12 +5,13 @@
     python3 chip_smoke.py --n-points 20000 --tile-points 100000 \
         --dense-points 20000                 # smaller
     python3 chip_smoke.py --cost-only        # the two cost wrappers alone
-    python3 chip_smoke.py --new-paths-only   # phases 10-17 alone
+    python3 chip_smoke.py --new-paths-only   # phases 10-18 alone
     python3 chip_smoke.py --new-paths-only 13   # the sharded engines alone
     python3 chip_smoke.py --new-paths-only 14   # the on-device LM driver
     python3 chip_smoke.py --new-paths-only 15   # the generated scenes
     python3 chip_smoke.py --new-paths-only 16   # the impl paths
     python3 chip_smoke.py --new-paths-only 17   # the measurement scripts
+    python3 chip_smoke.py --new-paths-only 18   # the Schur reduction
 
 Phases (any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -41,8 +42,10 @@ Phases (any failure raises and exits non-zero):
      same way, run twice must give the same bits; then the grid main
      path: ``run_pipeline`` on
      the 8x24-cell occlusion rig (400k points), float64; the banded kernels
-     must launch and the final RMSE must sit under twice the pixel noise;
-  5. a small uniform-random rig through ``run_pipeline`` (monolithic);
+     and the Schur reduction (``schur_reduce``) must launch and the final
+     RMSE must sit under twice the pixel noise;
+  5. a small uniform-random rig through ``run_pipeline`` (monolithic; the
+     monolithic kernels and ``schur_reduce`` must launch);
   6. each tile kernel against its plain version on the card at the tile
      path's shapes: the windowed BAL scene (2000 shuffled cameras, 1M
      points, 8 observations each, 8 hub cameras), laid out with locality
@@ -100,8 +103,9 @@ Phases (any failure raises and exits non-zero):
      one ``lm_iteration`` log line per iteration;
   13. the sharded engines (``deeparc_tpu_torch.parallel``): (a)
      ``run_pipeline(engine="grid-sharded")`` on the flagship in a one-rank
-     NCCL group that the pipeline starts (``linearize_grid`` and
-     ``cost_grid`` must launch, RMSE under twice the pixel noise), and its
+     NCCL group that the pipeline starts (``linearize_grid``,
+     ``cost_grid`` and ``schur_reduce`` must launch, RMSE under twice the
+     pixel noise), and its
      freeze-camera solve against ``solve_ba_grid`` on the monolithic route
      (cost within 1e-9 relative, the same iterations); (b)
      ``run_pipeline(engine="tiles-sharded")`` on phase 7's scene, at most
@@ -186,17 +190,27 @@ Phases (any failure raises and exits non-zero):
      run as a user runs it (``python -m ...``, a process of its own) on the
      card: ``profile_grid`` on the uniform 400k rig and, with
      ``--occlusion-rings 6``, on the band-prepped flagship (the Schur solve
-     in the step's pieces, whose sum must lie within 25% of the step's
-     Schur part), ``profile_grid_band`` (``block_np`` 256 and 512 against
-     the monolithic pair), ``profile_planes``, ``profile_tiles`` on the 1M
+     in the step's pieces, whose sum with the trial's ``slot_params``
+     must lie within 25% of the step's Schur part), ``profile_grid_band``
+     (``block_np`` 256 and 512 against the monolithic pair),
+     ``profile_planes``, ``profile_tiles`` on the 1M
      BAL scene under ``pallas`` with and without the camera window and
      under ``xla``, ``microbench_ops``, ``microbench_tile_ops`` and the CPU
      anchor ``ceres_equiv_cpu`` (40k points, one rep, 1 and 2 processes);
      every time finite and above 0, every share of a rate or a peak at
      most 1.05, and the hand kernels 1-7 launched, by the counts each
-     process read;
+     process read (``profile_grid`` also ``schur_reduce``);
+  18. the grid step's Schur reduction (``schur_reduce``,
+     ``csrc/rig_schur.cu``) against its plain version at the main path's
+     two shapes, the banded flagship's ext-only E (400k x 3 x 192) and
+     the uniform rig's (400k x 3 x 240), float64 and float32: largest
+     relative gap at most 1e-12 in float64, two runs the same bits, no
+     (3N, Cn) temporary, ms beside its bound and beside the plain
+     version's three pieces (reduced gradient, be = B^-1 E, correction),
+     and the host time of one call beside the plain version's; then random
+     ragged shapes (Cn 6, 66, 246; N 1001, 37) the same way;
 then one JSON line with the probes' entry points' results, one with
-phases 10-17's records, one with the nine kernels' records (errors,
+phases 10-18's records, one with the ten kernels' records (errors,
 milliseconds, the bound, launches on the main paths, on phase 13's
 sharded paths and per LM step at the kernel's timing scene; the probes'
 launches are their entry points'), the nvidia-smi line, and the result
@@ -241,7 +255,10 @@ from deeparc_tpu_torch.scripts.profile_grid import grid_free
 # differ in the last digits; float32 sums over ~1e6 terms differ in ~1e-5;
 # bf16 planes differ by one rounding step where the two working values
 # straddle a bf16 rounding boundary, and the sweeps sum such planes
-TOLERANCE = {"float64": 1e-9, "float32": 2e-3, "bf16": 1e-2}
+TOLERANCE = {"float64": 1e-9, "float32": 2e-3, "bf16": 1e-2,
+             # the Schur reduction in float64: one product summed over the
+             # points in another order (phase 18)
+             "schur": 1e-12}
 PIXEL_NOISE = 1.0
 GRID_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_grid.cu"
 TILE_SOURCE = "deeparc_tpu_torch/kernels/csrc/tile.cu"
@@ -249,6 +266,7 @@ TILE_SOURCE = "deeparc_tpu_torch/kernels/csrc/tile.cu"
 # fit take linearize_kernel in GRID_SOURCE)
 BAND_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_band.cu"
 PROBES_SOURCE = "deeparc_tpu_torch/kernels/csrc/probes.cu"
+SCHUR_SOURCE = "deeparc_tpu_torch/kernels/csrc/rig_schur.cu"
 REPLACES = {
     "linearize_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:615",
     "cost_grid_banded": "deeparc_tpu/kernels/rig_pallas.py:777",
@@ -681,6 +699,23 @@ def wall_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
         walls.append((time.time() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def host_us(fn, calls=50):
+    """Host time of one call of fn, in microseconds: the median of calls
+    issued back to back with no synchronisation between them (the card
+    runs behind, so this is what the caller's thread pays)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(walls)
 
 
@@ -2162,11 +2197,13 @@ def phase_sharded(args, flagship, uniform=None, tile_data=None):
                         engine="grid-sharded")
     grid_launches = {fn.__name__: fn.launches
                      for fn in (k.linearize_grid, k.cost_grid,
-                                k.linearize_grid_banded, k.cost_grid_banded)}
+                                k.linearize_grid_banded, k.cost_grid_banded,
+                                k.schur_reduce)}
     print(f"  launches: {grid_launches}; process group: "
           f"{dist.get_world_size()} rank, {dist.get_backend()}")
     launches.update({name: grid_launches[name]
-                     for name in ("linearize_grid", "cost_grid")})
+                     for name in ("linearize_grid", "cost_grid",
+                                  "schur_reduce")})
     rec["grid_pipeline"] = dict(
         rounds=res.filter_rounds, final_rmse_px=res.final_rmse_px,
         lm_iterations=res.solve_iterations, seconds=res.solve_seconds,
@@ -2260,29 +2297,33 @@ DEVICE_LOOP_ITERATIONS = {"grid": (10, 5), "tiles": (6, 3), "indexed": (3, 3),
 # kernel. A fused-trial step launches no cost kernel: its trial evaluation
 # is the linearize.
 REPLAY_KERNELS = {
-    "banded flagship": ("linearize_band", "cost_band", "set_condition"),
-    "monolithic uniform rig": ("linearize_mono", "cost_band",
+    "banded flagship": ("linearize_band", "cost_band", "schur_tiles",
+                        "set_condition"),
+    "monolithic uniform rig": ("linearize_mono", "cost_band", "schur_tiles",
                                "set_condition"),
-    "banded flagship, fused": ("linearize_band", "set_condition"),
-    "monolithic uniform rig, fused": ("linearize_mono", "set_condition"),
+    "banded flagship, fused": ("linearize_band", "schur_tiles",
+                               "set_condition"),
+    "monolithic uniform rig, fused": ("linearize_mono", "schur_tiles",
+                                      "set_condition"),
     "windowed BAL scene": ("linearize_rows", "linearize_bins", "lsweep_bins",
                            "sort_planes", "gather_cells", "set_condition"),
     "indexed flagship": ("gather_cells", "set_condition"),
-    "grid-sharded": ("linearize_mono", "cost_band", "set_condition"),
+    "grid-sharded": ("linearize_mono", "cost_band", "schur_tiles",
+                     "set_condition"),
     "tiles-sharded": ("gsweep_rows", "gsweep_bins", "sort_rows", "edot_rows",
                       "gather_cells", "set_condition"),
     "sharded indexed": ("gather_cells", "set_condition"),
 }
 # the parts of a grid LM step by kernel name: the linearize kernels, the
 # cost pass, the select (torch.where; the classic step's small selects
-# too), the Schur solve's cuBLAS / cuSOLVER calls (products, Cholesky,
-# triangular solves); every other kernel is "rest"
+# too), the Schur solve's reduction kernels and cuBLAS / cuSOLVER calls
+# (products, Cholesky, triangular solves); every other kernel is "rest"
 STEP_PARTS = (("linearize", ("linearize", "reduce_slots")),
               ("cost", ("cost_band", "reduce_cost")),
               ("select", ("where",)),
-              ("schur", ("gemm", "gemv", "cutlass", "trsv", "trf",
-                         "dot_kernel", "splitKreduce", "reduce_1Block",
-                         "potrf", "trsm")))
+              ("schur", ("schur_tiles", "schur_sum_slices", "gemm", "gemv",
+                         "cutlass", "trsv", "trf", "dot_kernel",
+                         "splitKreduce", "reduce_1Block", "potrf", "trsm")))
 # a fused-trial solve against the classic one: the same iterations, the
 # final cost within this relative difference (their costs come from the
 # linearize and the cost kernel, which sum in other orders)
@@ -3361,7 +3402,8 @@ GRID_IMPL_COST_RTOL = 1e-9
 # the hand kernels the torch paths' graphs must hold: the tile engine's
 # fixed-order sums (sum_rows); the grid's plain versions launch none
 REPLAY_KERNELS["xla, windowed BAL scene"] = ("gather_cells", "set_condition")
-REPLAY_KERNELS["planes, occlusion flagship"] = ("set_condition",)
+REPLAY_KERNELS["planes, occlusion flagship"] = ("schur_tiles",
+                                               "set_condition")
 
 
 def rel_diff(a, b) -> float:
@@ -3650,9 +3692,10 @@ def phase_impls(args, flagship, tile_layout_=None):
 # 400k points takes ~90 s on one process (BENCH.md:28), too long for the
 # script's time
 CERES_POINTS = 40_000
-# the Schur pieces of profile_grid against the step's Schur part (the step
-# less its linearize and trial cost): each piece alone leaves out the
-# step's decision scalars and the gaps between its launches
+# the Schur pieces of profile_grid and the trial's slot_params against the
+# step's Schur part (the step less its linearize and trial cost): each
+# piece alone leaves out the step's decision scalars and the gaps between
+# its launches
 SCHUR_SPLIT_RTOL = 0.25
 # the rows of phase 17's records that may hold no time: the banded
 # linearize takes tiles of at most 256 points, so profile_grid_band's
@@ -3667,9 +3710,11 @@ def script_runs(args):
     grid_mono, grid_band = ("linearize_grid", "cost_grid"), (
         "linearize_grid_banded", "cost_grid_banded")
     return (
-        ("profile_grid uniform", "profile_grid", ["--n-points", n], grid_mono),
+        ("profile_grid uniform", "profile_grid", ["--n-points", n],
+         grid_mono + ("schur_reduce",)),
         ("profile_grid flagship", "profile_grid",
-         ["--n-points", n, "--occlusion-rings", "6"], grid_band),
+         ["--n-points", n, "--occlusion-rings", "6"],
+         grid_band + ("schur_reduce",)),
         ("profile_grid_band", "profile_grid_band", ["--n-points", n],
          grid_mono + grid_band),
         ("profile_planes", "profile_planes", [], ()),
@@ -3762,7 +3807,8 @@ def phase_scripts(args):
     0, its shares at most 1.05, no row without a time but those of
     ``REFUSALS_ALLOWED``, the hand kernels and helpers its run must
     launch launched (the counts its process read), ``profile_grid``'s
-    Schur pieces within ``SCHUR_SPLIT_RTOL`` of the step's Schur part.
+    Schur pieces and the trial's ``slot_params`` within
+    ``SCHUR_SPLIT_RTOL`` of the step's Schur part.
     Returns the records."""
     import torch
 
@@ -3790,14 +3836,16 @@ def phase_scripts(args):
             print(f"    Schur pieces (ms): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in
                               out["schur_ms"].items())
-                  + f"; their sum {out['schur_pieces_sum_ms']:.3f} against "
+                  + f"; their sum {out['schur_pieces_sum_ms']:.3f} and the "
+                  f"trial's slot_params {out['slot_params_ms']:.3f} against "
                   f"the step's Schur part {out['schur_rest_ms']:.3f} (step "
                   f"{out['full_step_ms']:.3f} less linearize "
                   f"{out['assemble_ms']:.3f} and trial cost "
                   f"{out['trial_cost_ms']:.3f}): {ratio:.3f}")
             if ratio is None or abs(ratio - 1.0) > SCHUR_SPLIT_RTOL:
-                raise AssertionError(f"{label}: the Schur pieces sum to "
-                                     f"{ratio} of the step's Schur part")
+                raise AssertionError(f"{label}: the Schur pieces and "
+                                     f"slot_params sum to {ratio} of the "
+                                     f"step's Schur part")
         out["script_seconds"] = seconds
         rec[label] = out
     rec["phase_seconds"] = time.time() - t_phase
@@ -3822,14 +3870,141 @@ def write_bal(path, data):
             f.write(f"{v:.17g}\n")
 
 
-def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15, 16, 17),
+def schur_inputs(n_points, occlusion_rings):
+    """(E, binv, g_p) of the grid step at the start iterate of
+    ``profile_grid``'s rig, float64: the band-prepped occlusion flagship
+    (ext-only E in the kernels' native order) or the uniform rig (E with
+    the intrinsic columns)."""
+    import torch
+
+    from deeparc_tpu_torch.config import SolverOptions
+    from deeparc_tpu_torch.scripts import profile_grid as pg
+    from deeparc_tpu_torch.solver.rig_grid import schur_point_blocks
+
+    opts = SolverOptions()
+    prob = pg.problem(n_points, occlusion_rings, torch.device("cuda"))
+    _, state, _, lin, _ = pg.start(prob, opts)
+    sys_ = lin()
+    binv, _ = schur_point_blocks(sys_, state.tr.radius, prob.free.points,
+                                 opts)
+    return sys_.E, binv, sys_.g_p
+
+
+def phase_schur(args):
+    """Phase 18: the grid step's Schur reduction (``schur_reduce``,
+    ``csrc/rig_schur.cu``) against its plain version on the card at the
+    main path's two shapes, the banded flagship's ext-only E (400k x 3 x
+    192) and the uniform rig's (400k x 3 x 240), in float64 and float32:
+    corr and v within ``TOLERANCE["schur"]`` in float64 (``"float32"`` in
+    float32), two runs the same bits, no (3N, Cn) temporary (the call's
+    peak memory above its inputs and outputs under a tenth of E), the
+    kernel's ms beside its bound (E, binv, g_p read once, corr and v
+    written once; 3N Cn (Cn + 1) operations on the float64 tensor cores,
+    FFMA in float32), the plain version's ms and its three pieces' (the
+    reduced gradient, be = B^-1 E, the correction E2.T @ be), the host
+    time of one call beside the plain version's (:func:`host_us`); then
+    random ragged shapes (Cn 6, 66, 246; N 1001 and 37) against the plain
+    version and twice for the same bits. Returns the records."""
+    import torch
+
+    from deeparc_tpu_torch import kernels as k
+
+    print("[phase 18] the Schur reduction against its plain version")
+    rec = {}
+    for label, rings in (("banded flagship", 6), ("uniform rig", None)):
+        E64, binv64, g64 = schur_inputs(args.n_points, rings)
+        for dname, dtype in (("float64", torch.float64),
+                             ("float32", torch.float32)):
+            E, binv, g_p = (t.to(dtype) for t in (E64, binv64, g64))
+            N, _, Cn = E.shape
+            name = f"schur_reduce {label}"
+            kern = lambda: k.schur_reduce(E, binv, g_p)
+            plain = lambda: k.schur_reduce_plain(E, binv, g_p)
+            before = k.schur_reduce.launches
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if k.schur_reduce.launches != before + 1:
+                raise AssertionError(f"{name}: the kernel did not launch")
+            if not torch.equal(got[0], got[0].T):
+                raise AssertionError(f"{name}: corr is not symmetric")
+            rel, ab = compare(name, dname, got, want, ("corr", "v"),
+                              "schur" if dtype == torch.float64 else None)
+            del got, want
+            check_repeatable(name, kern)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = kern()
+            torch.cuda.synchronize()
+            extra = (torch.cuda.max_memory_allocated() - base
+                     - nbytes(*out))
+            del out
+            if extra > nbytes(E) / 10:
+                raise AssertionError(f"{name}: the call held {extra} bytes "
+                                     f"beside its output (E is "
+                                     f"{nbytes(E)})")
+            esz = E.element_size()
+            pieces = {
+                "rhs": time_ms(lambda: E.reshape(N * 3, Cn).T @ torch.einsum(
+                    "pij,pj->pi", binv, g_p).reshape(-1), args.reps),
+                "be": time_ms(lambda: torch.einsum(
+                    "pij,pjd->pid", binv, E), args.reps)}
+            be = torch.einsum("pij,pjd->pid", binv, E).reshape(N * 3, Cn)
+            pieces["corr"] = time_ms(lambda: E.reshape(N * 3, Cn).T @ be,
+                                     args.reps)
+            del be
+            ms, plain_ms = time_ms(kern, args.reps), time_ms(plain, args.reps)
+            kern_us, plain_us = host_us(kern), host_us(plain)
+            moved = nbytes(E, binv, g_p) + (Cn * Cn + Cn) * esz
+            ops = 3 * N * Cn * (Cn + 1)
+            b_ms, b_by = bound(moved, ops, "float64_tensor"
+                               if dtype == torch.float64 else "float32")
+            print(f"  {name:30s} {dname}: kernel {ms:.3f} ms (bound "
+                  f"{b_ms:.3f} ms by {b_by}, {b_ms / ms:.3f} of it), plain "
+                  f"{plain_ms:.3f} ms; the three pieces "
+                  + ", ".join(f"{p} {v:.3f}" for p, v in pieces.items())
+                  + f" ms; host {kern_us:.1f} us a call (plain "
+                  f"{plain_us:.1f}); extra memory {extra} bytes; bitwise "
+                  f"repeatable")
+            rec[f"{label}:{dname}"] = dict(
+                e_shape=[N, 3, Cn], max_rel_err=rel, max_abs_err=ab, ms=ms,
+                plain_ms=plain_ms, pieces_ms=pieces, bound_ms=b_ms,
+                bound_by=b_by, extra_bytes=extra, host_us=kern_us,
+                plain_host_us=plain_us)
+            del E, binv, g_p
+        del E64, binv64, g64
+        torch.cuda.empty_cache()
+    # ragged shapes: one tile narrower than 64 columns, a ragged last tile,
+    # a last chunk of fewer than 8 points, a point count below one slice
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for N, Cn in ((1001, 6), (1001, 66), (37, 246)):
+        E = torch.randn((N, 3, Cn), device="cuda", dtype=torch.float64,
+                        generator=gen)
+        a = torch.randn((N, 3, 3), device="cuda", dtype=torch.float64,
+                        generator=gen)
+        binv = a @ a.transpose(1, 2) + torch.eye(3, device="cuda",
+                                                 dtype=torch.float64)
+        g_p = torch.randn((N, 3), device="cuda", dtype=torch.float64,
+                          generator=gen)
+        for dname, dtype in (("float64", torch.float64),
+                             ("float32", torch.float32)):
+            args_ = tuple(t.to(dtype) for t in (E, binv, g_p))
+            name = f"schur_reduce {N} x 3 x {Cn}"
+            compare(name, dname, k.schur_reduce(*args_),
+                    k.schur_reduce_plain(*args_), ("corr", "v"),
+                    "schur" if dtype == torch.float64 else None)
+            check_repeatable(name, lambda: k.schur_reduce(*args_))
+    return rec
+
+
+def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15, 16, 17, 18),
               uniform=None, tile_data=None, layout=None, host_s=None):
-    """Phases 10-17 (those in ``phases``) on the occlusion flagship
+    """Phases 10-18 (those in ``phases``) on the occlusion flagship
     ``data`` (phase 13 also on ``uniform`` and ``tile_data``, phases 14
     and 16 on phase 6's locality ``layout``, 14 also on ``uniform``, made
     here when not given; phase 15 on its generated scenes, beside the host
-    scenes' seconds ``host_s``; phase 17 in processes of its own); their
-    records, and the sharded paths' launches."""
+    scenes' seconds ``host_s``; phase 17 in processes of its own; phase 18
+    on rigs of its own); their records, and the sharded paths' launches."""
     import torch
 
     out, sharded = {}, {}
@@ -3860,6 +4035,9 @@ def new_paths(args, data, phases=(10, 11, 12, 13, 14, 15, 16, 17),
         out["impls"] = phase_impls(args, data, layout)
     if 17 in phases:
         out["scripts"] = phase_scripts(args)
+    if 18 in phases:
+        torch.cuda.empty_cache()
+        out["schur"] = phase_schur(args)
     return out, sharded
 
 
@@ -3887,6 +4065,22 @@ def kernel_record(name, rec, launches, per_step, sharded):
         launches_per_step=0 if probe else per_step.get(name), measured=rec)
 
 
+def schur_record(rec, launches, per_step, sharded):
+    """The JSON record of the Schur reduction, as :func:`kernel_record`'s:
+    the numbers of phase 18's banded flagship in float64, every shape
+    nested; launches on phase 4's main path (per LM iteration there) and
+    on phase 13's sharded paths. It replaces no Pallas kernel."""
+    r = rec["banded flagship:float64"]
+    return dict(
+        name="schur_reduce", route="cuda", source=SCHUR_SOURCE,
+        replaces=None, launches=launches["schur_reduce"],
+        launches_sharded=sharded.get("schur_reduce", 0),
+        max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None,
+        launches_per_step=per_step.get("schur_reduce"), measured=rec)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-points", type=int, default=400_000,
@@ -3905,13 +4099,14 @@ def main(argv=None) -> int:
                     help="after the build, time only the two cost wrappers "
                          "(an A/B or ablation of cost_band) and exit")
     ap.add_argument("--new-paths-only", nargs="?",
-                    const="10,11,12,13,14,15,16,17", default=None,
+                    const="10,11,12,13,14,15,16,17,18", default=None,
                     metavar="PHASES",
-                    help="after the build, run only these of phases 10-17 "
+                    help="after the build, run only these of phases 10-18 "
                          "(indexed engine, incremental BA, checkpoint/"
                          "resume, the sharded engines, the on-device LM "
                          "driver, the generated scenes, the impl paths, the "
-                         "measurement scripts; default all eight) and exit")
+                         "measurement scripts, the Schur reduction; default "
+                         "all nine) and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -3946,9 +4141,9 @@ def main(argv=None) -> int:
         return 0
     if args.new_paths_only:
         phases = [int(p) for p in args.new_paths_only.split(",")]
-        # phases 15 and 17 build their own scenes
+        # phases 15, 17 and 18 build their own scenes
         data = (flagship_rig(args.n_points, 6, 0)
-                if set(phases) - {15, 17} else None)
+                if set(phases) - {15, 17, 18} else None)
         paths, sharded = new_paths(args, data, phases)
         print(json.dumps({"paths": paths}))
         print(json.dumps({"sharded_launches": sharded}))
@@ -3977,9 +4172,10 @@ def main(argv=None) -> int:
     k.reset_launch_counts()
     res = run_main_path(data, args, "occlusion rig")
     launches = {fn.__name__: fn.launches
-                for fn in (k.linearize_grid_banded, k.cost_grid_banded)}
-    # the banded pair on its own scene: launches per LM iteration of the
-    # pipeline, each solve's start cost included
+                for fn in (k.linearize_grid_banded, k.cost_grid_banded,
+                           k.schur_reduce)}
+    # the banded pair and the Schur reduction on their own scene: launches
+    # per LM iteration of the pipeline, each solve's start cost included
     per_step.update({kname: n / max(res.solve_iterations, 1)
                      for kname, n in launches.items()})
 
@@ -3993,6 +4189,7 @@ def main(argv=None) -> int:
     run_main_path(small, args, "uniform rig")
     launches.update({fn.__name__: fn.launches
                      for fn in (k.linearize_grid, k.cost_grid)})
+    launches["schur_reduce (uniform rig)"] = k.schur_reduce.launches
     print(f"  launches on the grid paths: {launches}")
 
     tile_data, tile_per_step, sums, layout, bal_s = phase_tile_kernels(
@@ -4037,6 +4234,7 @@ def main(argv=None) -> int:
 
     kernels = [kernel_record(kname, rec, launches, per_step, sharded)
                for kname, rec in records.items()]
+    kernels.append(schur_record(paths["schur"], launches, per_step, sharded))
     for rec in kernels:
         if rec["name"] == "cost_grid":
             # the stack a monolithic solve builds once, which the kernel's

@@ -20,6 +20,8 @@ from deeparc_tpu_torch.kernels.rig_grid import (
     linearize_grid_banded_plain,
     linearize_grid_plain,
     native_of_flat,
+    schur_reduce,
+    schur_reduce_plain,
 )
 from deeparc_tpu_torch.kernels.tile import (
     MAX_KERNEL_WIDTH,
@@ -62,7 +64,8 @@ __all__ = [
     "gather_map", "linearize_grid",
     "linearize_grid_banded", "linearize_grid_banded_plain",
     "linearize_grid_plain", "native_of_flat", "pack_bucket_planes",
-    "reset_launch_counts", "slot_bins", "sort_jcam", "sort_jcam_plain",
+    "reset_launch_counts", "schur_reduce", "schur_reduce_plain",
+    "slot_bins", "sort_jcam", "sort_jcam_plain",
     "sort_jcam_planes", "sort_jcam_planes_plain", "sum_chunk_bins",
     "sum_rows", "sum_rows_plain", "sweep_payload",
     "sweep_payload_plain", "tile_linearize_local",

@@ -54,6 +54,8 @@ def _bind(lib):
         "rig_cost_band": [i, i] + [p] * 4 + [i, i, d, p, p, p],
         "rig_reduce_slots": [i, p] + [i] * 5 + [p, p, p],
         "rig_reduce_cost": [i, p, i, p, p],
+        "rig_schur_setup": [i],
+        "rig_schur_reduce": [i, p, p, p, i, i, i] + [p] * 5,
         "tile_linearize_rows": [i, i, i] + [p] * 6 + [i] * 4 + [d, i, i]
                                + [p] * 6,
         "tile_linearize_bins": [i, i] + [p] * 10 + [i] * 4 + [d, p, p, p],

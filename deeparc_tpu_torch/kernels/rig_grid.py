@@ -9,11 +9,16 @@ the reference's public names, signatures and returns:
   linearize_grid         -> (cost, g_p, hpp, g_slots, hcc_slots, E_native)
   cost_grid              -> cost
 
+A fifth wrapper, ``schur_reduce`` -> (corr, v), is the grid step's Schur
+reduction (``csrc/rig_schur.cu``), which the reference leaves to XLA.
+
 A wrapper given CUDA tensors launches the hand-written kernel
-(``csrc/rig_grid.cu``) and raises if it cannot; given CPU tensors it runs
-the plain PyTorch version (``*_plain``), which the tests hold against the
-JAX reference. Each wrapper counts its kernel launches in a plain ``int``
-attribute, ``launches``.
+(``csrc/rig_grid.cu``, ``csrc/rig_band.cu``, ``csrc/rig_schur.cu``) and
+raises if it cannot; given CPU tensors it runs the plain PyTorch version
+(``*_plain``), which the tests hold against the JAX reference (the Schur
+reduction's against the three products the step ran before it). Each
+wrapper counts its kernel launches in a plain ``int`` attribute,
+``launches``.
 
 The monolithic pair takes the banded pair's tables with every tile's band
 starting at cell 0, one group of width t_pad and no cyclic extension.
@@ -944,8 +949,114 @@ def cost_grid(points, sp, grid, loss="trivial", loss_scale=0.5,
                       loss, loss_scale, cost_grid)
 
 
+# ---------------------------------------------------------------------------
+# The step's Schur reduction (csrc/rig_schur.cu)
+# ---------------------------------------------------------------------------
+
+
+def _check_schur(E, binv, g_p):
+    """Raise on what the Schur reduction does not take, on any device."""
+    if E.ndim != 3 or E.shape[1] != 3:
+        raise ValueError(f"schur_reduce takes E as (N, 3, Cn), not "
+                         f"{tuple(E.shape)}")
+    N, _, Cn = E.shape
+    if Cn % 6:
+        raise ValueError(f"schur_reduce takes E with a multiple of 6 "
+                         f"columns, not {Cn}")
+    if tuple(binv.shape) != (N, 3, 3) or tuple(g_p.shape) != (N, 3):
+        raise ValueError(f"schur_reduce takes binv (N, 3, 3) and g_p (N, 3) "
+                         f"for E's N = {N}, not {tuple(binv.shape)} and "
+                         f"{tuple(g_p.shape)}")
+    if E.dtype not in _DTYPE_IDS:
+        raise TypeError(f"schur_reduce takes float32 or float64, not "
+                        f"{E.dtype}")
+    for t in (binv, g_p):
+        if t.dtype != E.dtype or t.device != E.device:
+            raise TypeError(f"schur_reduce input {t.dtype} on {t.device}: "
+                            f"binv and g_p must be E's {E.dtype} on "
+                            f"{E.device}")
+    if not E.is_contiguous():
+        raise ValueError("schur_reduce takes a contiguous E")
+
+
+# schur_tiles' output tile width and points of a chunk (csrc/rig_schur.cu)
+_SCHUR_TILE, _SCHUR_CHUNK = 64, 8
+# schur_tiles' blocks in one wave, by (dtype id, device index): the launcher
+# is set up once a device and dtype
+_SCHUR_WAVE: dict = {}
+
+
+def _schur_wave(lib, dt, dev):
+    """Blocks of ``schur_tiles`` that fill ``dev`` in one wave, setting the
+    kernel up there on the first call for the dtype."""
+    key = (dt, dev.index)
+    if key not in _SCHUR_WAVE:
+        with torch.cuda.device(dev):
+            wave = lib.rig_schur_setup(dt)
+        if wave < 0:
+            raise RuntimeError(f"rig_schur_setup: cudaError {-wave}")
+        _SCHUR_WAVE[key] = wave
+    return _SCHUR_WAVE[key]
+
+
+def _schur_slices(wave, N, Cn):
+    """Slices of the N points for ``schur_tiles``: as many as fill one wave
+    of ``wave`` blocks with one block a tile of the upper triangle and a
+    slice, at most one a chunk of points, at least one."""
+    tiles = -(-Cn // _SCHUR_TILE)
+    return max(1, min(wave // (tiles * (tiles + 1) // 2),
+                      -(-N // _SCHUR_CHUNK)))
+
+
+def _cuda_schur(E, binv, g_p):
+    """``schur_tiles`` over the upper triangle's tiles and as many slices
+    of the points as fill one wave (at most one a chunk), then
+    ``schur_sum_slices`` in slice order."""
+    from deeparc_tpu_torch.kernels.build import check, library
+
+    lib = library()
+    N, _, Cn = E.shape
+    dt, dev, dtype = _DTYPE_IDS[E.dtype], E.device, E.dtype
+    if E.data_ptr() % (2 * E.element_size()):
+        raise ValueError("schur_reduce takes E aligned to two values")
+    n_slices = _schur_slices(_schur_wave(lib, dt, dev), N, Cn)
+    parts = torch.empty(n_slices * (Cn * Cn + Cn), dtype=dtype, device=dev)
+    out = torch.empty(Cn * Cn + Cn, dtype=dtype, device=dev)
+    corr, v = out[:Cn * Cn].view(Cn, Cn), out[Cn * Cn:]
+    schur_reduce.launches += 1
+    check(lib.rig_schur_reduce(
+        dt, E.data_ptr(), binv.data_ptr(), g_p.data_ptr(), N, Cn, n_slices,
+        parts.data_ptr(), parts[n_slices * Cn * Cn:].data_ptr(),
+        corr.data_ptr(), v.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "rig_schur_reduce")
+    return corr, v
+
+
+def schur_reduce_plain(E, binv, g_p):
+    """Plain PyTorch version of :func:`schur_reduce`: be = B^-1 E and
+    B^-1 g_p as batched 3x3 products, then E2.T @ each, E2 being E as
+    (3N, Cn)."""
+    N, _, Cn = E.shape
+    E2 = E.reshape(N * 3, Cn)
+    bg = torch.einsum("pij,pj->pi", binv, g_p).reshape(-1)
+    be = torch.einsum("pij,pjd->pid", binv, E).reshape(N * 3, Cn)
+    return E2.T @ be, E2.T @ bg
+
+
+@kernel_boundary
+def schur_reduce(E, binv, g_p):
+    """The grid step's Schur reduction in one pass over E: (corr, v) =
+    (E^T B^-1 E (Cn, Cn), E^T B^-1 g_p (Cn,)), in E's own column order,
+    from E (N, 3, Cn) contiguous, binv (N, 3, 3) and g_p (N, 3). No
+    (3N, Cn) product is formed on the card. Cn must be a multiple of 6."""
+    _check_schur(E, binv, g_p)
+    if not _dispatch(E, "schur_reduce"):
+        return schur_reduce_plain(E, binv, g_p)
+    return _cuda_schur(E, binv.contiguous(), g_p.contiguous())
+
+
 KERNEL_WRAPPERS = (linearize_grid_banded, cost_grid_banded, linearize_grid,
-                   cost_grid)
+                   cost_grid, schur_reduce)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 

@@ -34,9 +34,11 @@ import time
 
 # NVIDIA's data sheet, H100 SXM: device memory rate, and the peak rates
 # outside the tensor cores (bf16: the tensor cores' dense rate, the only
-# one it has); they assume the full 700 W power limit
+# one it has; float64_tensor: the float64 tensor cores, mma.sync); they
+# assume the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12,
+              "float64_tensor": 67e12}
 # operations per (point, cell) slot, counted from the arithmetic of
 # csrc/rig_slot.cuh and the kernels: the slot chain ~60, its Jacobian ~240,
 # the point sums ~36; the grid linearize adds ~144 for the E row and ~270

@@ -19,15 +19,16 @@ Each time is the median of ``--reps`` runs (CUDA events on the card):
 ``slot_params``, the linearize (``assemble_grid_system``), the trial cost
 (``grid_cost``), the Schur solve in the step's own pieces at the start
 state's radius (``SolverOptions().initial_radius``) -- the LM diagonal,
-augmented point blocks and ``inv3x3``; the reduced gradient ``E2.T @ bg``;
-``be = B^-1 E``; the correction ``E2.T @ be``; ``S`` and
-``masked_spd_solve``; the back-substitution ``e_dc`` and ``dp`` -- and the
-whole step (``make_grid_step``). Each piece is timed alone, so the sum of
-the pieces stands beside the step's Schur part (the step less the
-linearize and the trial cost, the split of ``chip_smoke.py`` phase 3b):
-the gap is what the step does besides (its decision scalars, the second
-``slot_params``) and the launches between. The kernel wrappers' launch
-counts over the run are in the line. Prints one JSON line.
+augmented point blocks and ``inv3x3``; the reduced gradient and the
+correction ``E2.T @ B^-1 E2`` in one pass over E (``schur_reduce``);
+``S`` and ``masked_spd_solve``; the back-substitution ``e_dc`` and
+``dp`` -- and the whole step (``make_grid_step``). Each piece is timed
+alone, so the sum of the pieces and of the trial's ``slot_params`` stands
+beside the step's Schur part (the step less the linearize and the trial
+cost, the split of ``chip_smoke.py`` phase 3b; ``pieces_over_rest``):
+the gap is what the step does besides (its decision scalars) and the
+launches between. The kernel wrappers' launch counts over the run are in
+the line. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ N_ARC, N_RING = 8, 24
 UNIFORM_POINTS = 100_000
 FLAGSHIP_POINTS = 400_000
 # the pieces of the Schur solve, in the step's order
-PIECES = ("lm_diagonal+aug+inv3x3", "rhs", "be", "corr",
-          "S+masked_spd_solve", "e_dc+dp")
+PIECES = ("lm_diagonal+aug+inv3x3", "schur_reduce", "S+masked_spd_solve",
+          "e_dc+dp")
 
 
 class Problem(NamedTuple):
@@ -137,24 +138,18 @@ def schur_pieces(sys, radius, cam_free, point_free, options, maps):
     on the earlier pieces' outputs}, dc, dp)."""
     from deeparc_tpu_torch.solver.rig_grid import (
         schur_back,
-        schur_be,
         schur_cameras,
-        schur_corr,
         schur_point_blocks,
-        schur_rhs,
+        schur_reduce,
     )
 
     to_flat, to_nat = maps
     binv, d2c = schur_point_blocks(sys, radius, point_free, options)
-    rhs = schur_rhs(sys, binv, cam_free, to_flat)
-    be = schur_be(sys, binv)
-    corr = schur_corr(sys, be, to_flat)
+    rhs, corr = schur_reduce(sys, binv, cam_free, to_flat)
     dc = schur_cameras(sys, d2c, corr, rhs, radius, cam_free)
     _, dp = schur_back(sys, binv, dc, point_free, to_nat)
     calls = (lambda: schur_point_blocks(sys, radius, point_free, options),
-             lambda: schur_rhs(sys, binv, cam_free, to_flat),
-             lambda: schur_be(sys, binv),
-             lambda: schur_corr(sys, be, to_flat),
+             lambda: schur_reduce(sys, binv, cam_free, to_flat),
              lambda: schur_cameras(sys, d2c, corr, rhs, radius, cam_free),
              lambda: schur_back(sys, binv, dc, point_free, to_nat))
     return dict(zip(PIECES, calls)), dc, dp
@@ -227,7 +222,8 @@ def run(device="cuda", n_points=None, occlusion_rings=None,
         e_shape=e_shape,
         e_gbytes=e_bytes / 1e9, radius=float(radius),
         schur_ms=schur, schur_pieces_sum_ms=pieces, full_step_ms=full,
-        schur_rest_ms=rest, pieces_over_rest=pieces / rest if rest > 0
+        schur_rest_ms=rest,
+        pieces_over_rest=(pieces + out["slot_params_ms"]) / rest if rest > 0
         else None, launches=launch_counts())
     return out
 

@@ -414,22 +414,18 @@ def _e2(sys):
     return sys.E.reshape(N * 3, Cn)
 
 
-def schur_rhs(sys, binv, cam_free, to_flat, allsum=_same):
-    """The reduced gradient -g_c + E2.T @ (B^-1 g_p) on the free
-    coordinates."""
-    bg = torch.einsum("pij,pj->pi", binv, sys.g_p).reshape(-1)
-    return (-sys.g_c + allsum(to_flat(_e2(sys).T @ bg))) * cam_free
+def schur_reduce(sys, binv, cam_free, to_flat, allsum=_same,
+                 allsum_sym=_same):
+    """(rhs, corr): the reduced gradient -g_c + E2.T @ (B^-1 g_p) on the
+    free coordinates and the Schur correction E2.T @ B^-1 E2, (C, C), both
+    in flat order, from one pass over E (``kernels.rig_grid.
+    schur_reduce``: its kernel on the card, its plain version on the
+    CPU)."""
+    from deeparc_tpu_torch.kernels.rig_grid import schur_reduce as one_pass
 
-
-def schur_be(sys, binv):
-    """be = B^-1 E, (3N, Cn)."""
-    N, Cn = sys.E.shape[0], sys.E.shape[2]
-    return torch.einsum("pij,pjd->pid", binv, sys.E).reshape(N * 3, Cn)
-
-
-def schur_corr(sys, be, to_flat, allsum_sym=_same):
-    """The Schur correction E2.T @ be, (C, C) in flat order."""
-    return allsum_sym(to_flat(_e2(sys).T @ be))
+    corr, v = one_pass(sys.E, binv, sys.g_p)
+    rhs = (-sys.g_c + allsum(to_flat(v))) * cam_free
+    return rhs, allsum_sym(to_flat(corr))
 
 
 def schur_cameras(sys, d2c, corr, rhs, radius, cam_free):
@@ -516,8 +512,8 @@ def make_grid_step(options: SolverOptions, template: BAParams,
             # the reduced camera system S dc = rhs (the Schur complement)
             radius = state.tr.radius
             binv, d2c = schur_point_blocks(sys, radius, point_free, options)
-            rhs = schur_rhs(sys, binv, cam_free, to_flat, allsum)
-            corr = schur_corr(sys, schur_be(sys, binv), to_flat, allsum_sym)
+            rhs, corr = schur_reduce(sys, binv, cam_free, to_flat, allsum,
+                                     allsum_sym)
             dc = schur_cameras(sys, d2c, corr, rhs, radius, cam_free)
             e_dc, dp = schur_back(sys, binv, dc, point_free, to_nat)
 

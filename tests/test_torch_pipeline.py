@@ -127,7 +127,7 @@ def test_cpu_run_launches_no_kernel():
     bal = tsynthetic.make_bal_synthetic(n_cameras=8, n_points=60, seed=2)
     run_pipeline(bal.data, PipelineOptions(write_snapshots=False),
                  device="cpu", verbose=False)
-    assert len(tk.KERNEL_WRAPPERS) == 7
+    assert len(tk.KERNEL_WRAPPERS) == 8
     assert all(fn.launches == 0 for fn in tk.KERNEL_WRAPPERS)
 
 
