@@ -32,15 +32,21 @@ def masked_spd_solve(A: torch.Tensor, b: torch.Tensor,
     (frozen rows/columns replaced by identity, ``src/sfm.cc:50-63``)."""
     free = free.to(A.dtype)
     A_m = A * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
+    return spd_solve(A_m, b * free) * free
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for a symmetric positive definite A by Cholesky; a
+    failed factorisation gives NaN everywhere."""
     # cholesky_ex does not synchronise; a failed factorisation yields NaN
     # (as the reference's Cholesky does), which the LM accept test rejects.
     # Two triangular solves, not cholesky_solve: on the card that one
     # allocates stream-ordered memory, which a CUDA graph's loop body
     # cannot hold.
-    L, info = torch.linalg.cholesky_ex(A_m)
-    y = torch.linalg.solve_triangular(L, (b * free)[:, None], upper=False)
+    L, info = torch.linalg.cholesky_ex(A)
+    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
     x = torch.linalg.solve_triangular(L.mH, y, upper=True)[:, 0]
-    return torch.where(info == 0, x * free, torch.full_like(x, float("nan")))
+    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
 class CGResult(NamedTuple):

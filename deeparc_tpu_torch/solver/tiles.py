@@ -321,8 +321,13 @@ def tiles_from_scene(scene: Scene, free: BAParams | None = None,
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
 
     # --- cells: unique (outer, inner, intr) triples, RCM-renumbered -------
-    triples = np.stack([outer, inner, intr], axis=1)
-    cells_np, cell_of_obs = np.unique(triples, axis=0, return_inverse=True)
+    # one int64 key a triple, ordered as the triples are (lexicographic):
+    # np.unique over rows sorts a structured view, ~17x slower at 5M
+    K = scene.params.center.shape[0]
+    key = (outer.astype(np.int64) * R_rows + inner) * K + intr
+    ukey, cell_of_obs = np.unique(key, return_inverse=True)
+    cells_np = np.stack([ukey // (R_rows * K), ukey // K % R_rows,
+                         ukey % K], axis=1).astype(outer.dtype)
     cell_of_obs = cell_of_obs.reshape(-1)
     hub_cell = None
     if locality and cells_np.shape[0] > 2:

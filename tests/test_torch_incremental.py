@@ -3,7 +3,7 @@ CPU vs the JAX package in float64): ``relative_pose`` and the pose-graph
 residuals, ``solve_pose_graph``, the BFS orders, ``run_incremental`` on a
 shared rig (grid engine) and on a non-shared scene (tile engine, with and
 without the pose graph), the full-mask band prep reused across batches,
-and the CLI's ``--incremental``.
+and the CLI's ``--incremental`` on a shared rig and on a non-shared scene.
 
 Tolerances: the pose-graph residuals at the truth 1e-12 (the same
 formulas), refined poses 1e-8 (two LM runs to the same minimum); the BFS
@@ -188,3 +188,20 @@ def test_cli_incremental(tmp_path, capsys):
     assert "incremental done: batches=3" in out
     back = read_deeparc(str(tmp_path / "synthetic_incremental.deeparc"))
     assert back.n_points == 56
+
+    # a non-shared scene: the tile engine with the pose graph
+    from deeparc_tpu.io import write_deeparc
+
+    bal = make_bal_synthetic(n_cameras=8, n_points=80, track_length=5.0,
+                             pixel_noise=0.3, point_noise=0.02,
+                             ext_noise=0.01, seed=7)
+    path = str(tmp_path / "bal.deeparc")
+    write_deeparc(bal.data, path)
+    assert main([path, "--device", "cpu", "--incremental", "--batch-size",
+                 "4", "--max-iterations", "4",
+                 "--linear-solver", "iterative_schur", "--quiet", "-o",
+                 str(tmp_path)]) == 0
+    assert "incremental done: batches=2" in capsys.readouterr().out
+    back = read_deeparc(str(tmp_path / "bal_incremental.deeparc"))
+    assert back.n_points == bal.data.n_points
+    assert not back.share_extrinsic
